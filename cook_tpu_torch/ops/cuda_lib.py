@@ -1,4 +1,5 @@
-"""Build, load and call the cycle's CUDA stage kernels (``csrc/*.cu``).
+"""Build, load and call the port's CUDA kernels (``csrc/*.cu``): the
+cycle's stage kernels K1-K6 and the top-K preference kernels.
 
 The sources are compiled at first use, on the machine with the card,
 with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false`` (no
@@ -54,6 +55,8 @@ _SIGNATURES = {
     "k4_compact": "p" * 16 + "ilip",
     "k5_greedy": "p" * 11 + "iiiip",
     "k6_gang": "p" * 11 + "iiliiip",
+    "topk_dense": "p" * 9 + "iiiip",
+    "topk_structured": "p" * 12 + "iiiip",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int,
            "l": ctypes.c_longlong, "f": ctypes.c_float}

@@ -1,10 +1,11 @@
-"""Host-side packing: per-user task lists -> padded rank arrays (numpy),
-copied from ``cook_tpu/ops/host_prep.py``.  The control plane deals in
-entities, the cycle in padded arrays; this is the boundary."""
+"""Host-side packing: per-user task lists -> padded rank arrays, and
+jobs x hosts -> padded match arrays (numpy), copied from
+``cook_tpu/ops/host_prep.py``.  The control plane deals in entities, the
+cycle in padded arrays; this is the boundary."""
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
@@ -86,3 +87,36 @@ def pad_rank_arrays(arrays: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     arrays["pending"] = pad_to(arrays["pending"], size, fill=False)
     arrays["valid"] = pad_to(arrays["valid"], size, fill=False)
     return arrays
+
+
+def pack_match_inputs(job_res: Sequence[Sequence[float]],
+                      constraint_mask: np.ndarray,
+                      host_avail: Sequence[Sequence[float]],
+                      host_capacity: Sequence[Sequence[float]],
+                      pad: bool = True):
+    """Pad jobs x hosts match inputs to buckets. Padding jobs get valid=False;
+    padding hosts get zero capacity (never feasible)."""
+    job_res = np.asarray(job_res, dtype=F32).reshape(-1, 4)
+    avail = np.asarray(host_avail, dtype=F32).reshape(-1, 4)
+    capacity = np.asarray(host_capacity, dtype=F32).reshape(-1, 4)
+    J, H = job_res.shape[0], avail.shape[0]
+    cmask = np.asarray(constraint_mask, dtype=bool).reshape(J, H)
+    valid = np.ones(J, dtype=bool)
+    if pad:
+        JB, HB = bucket(J), bucket(H)
+        job_res = pad_to(job_res, JB)
+        valid = pad_to(valid, JB, fill=False)
+        avail = pad_to(avail, HB)
+        capacity = pad_to(capacity, HB)
+        grown = np.zeros((JB, HB), dtype=bool)
+        grown[:J, :H] = cmask
+        cmask = grown
+    return {
+        "job_res": job_res,
+        "constraint_mask": cmask,
+        "avail": avail,
+        "capacity": capacity,
+        "valid": valid,
+        "num_jobs": J,
+        "num_hosts": H,
+    }

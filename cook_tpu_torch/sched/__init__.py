@@ -1,1 +1,2 @@
-"""Host-side staging of the fused cycle's wire (``fused``)."""
+"""Host-side staging of the fused cycle's wire (``fused``) and the split
+match path's device dispatch (``matcher``)."""
