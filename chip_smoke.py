@@ -18,27 +18,40 @@ hosts.
 
   1. prints the card's name and power limit (nvidia-smi);
   2. builds the kernels from ``cook_tpu_torch/ops/csrc`` (nvcc);
-  3. phase A: replays every kernel launch of one cycle against its plain
+  3. phase F: K3 and K5 against their plain versions, bit for bit, on
+     edge worlds: K3 at S in {1, 4} and n in {1, 1,000, 4,097, 131,072,
+     262,144} with tied, NaN, -0 and +inf DRUs, non-rankable rows,
+     ``user_rank`` -1 and n - 1, and all-equal keys (passes both run and
+     skipped); K5 on identical hosts whose first feasible host lies in
+     the third CTA of the cluster, at H = 4,000 (a ragged last CTA), with
+     every slot infeasible, at the split path's H = 65,536, on a cluster
+     of 16 (H = 100,000) and with the slices in device memory (H =
+     300,000); it prints K5's cluster and microseconds a step; and it
+     holds K5's fast-path division against IEEE ``/`` bit for bit on
+     operands at both edges of its range and past them;
+  4. phase A: replays every kernel launch of one cycle against its plain
      PyTorch version on the same inputs (integers equal, floats equal
      bit for bit, NaN where NaN) and times kernel, plain version, and a
-     library call where one computes the same function;
-  4. phase C: two cycles of each of three small worlds for the kernel
+     library call where one computes the same function (for the rank
+     sort ``torch.sort(stable=True)`` of the packed int64 key); K3's
+     passes and launches a call, K5's cluster and microseconds a step;
+  5. phase C: two cycles of each of three small worlds for the kernel
      paths the design point does not take (i8 and i16 rows, the
-     over-quota limit, gpu mode, K5 with avail in device memory), kernels
-     against the plain cycle;
-  5. phase B: 5 cycles, each staged through ``stage_mega_wire``
+     over-quota limit, gpu mode, K5 at H = 16,384), kernels against the
+     plain cycle;
+  6. phase B: 5 cycles, each staged through ``stage_mega_wire``
      (quantized wire), run by the kernels and by the plain cycle
      (``megacycle_plain``) on the card; all seven outputs must agree;
      the kept placements are applied before the next cycle; the launch
      counts are zeroed before and read after these cycles;
-  6. phase D: the two top-K kernels (structured at 100,000 x 50,000,
+  7. phase D: the two top-K kernels (structured at 100,000 x 50,000,
      E = 256; dense at 10,000 x 50,000), counted, then held against
      their plain versions (fit bit for bit, host where fit > -inf) and
      timed beside ``torch.topk`` of the materialized score, the dense
      one also with its hosts left unsplit; then two check worlds for the
      paths those leave idle (gpu jobs and hosts, invalid jobs, k = 8
      and k = 4, many host splits), held the same way;
-  7. phase E: ``dispatch`` on the card for the three full-width worlds
+  8. phase E: ``dispatch`` on the card for the three full-width worlds
      (auto: greedy at 1,000 jobs; waterfill at 10,000; auction + tail at
      10,000 with tight packing), counted and recorded; every recorded
      launch (K2 scans, K5) replayed against its plain version bit for
@@ -46,7 +59,7 @@ hosts.
      K5 route held against the plain greedy on the card; and every
      backend on a reduced split world, on the card and on the CPU,
      equal bit for bit;
-  8. prints the card line again, the ``{"kernels": [...]}`` line and
+  9. prints the card line again, the ``{"kernels": [...]}`` line and
      last ``{"ok": true, "device": {...}}``.
 
 Usage: ``python3 chip_smoke.py`` from the root of a checkout (needs one
@@ -79,10 +92,11 @@ STAGES = {
     "expand": "K1: wire decode, gathers, phase-0 pool/group bases",
     "scan": "K2: segmented (associative_scan order), blocked-16 and "
             "integer prefixes",
-    "sort": "K3: stable LSD radix sorts (rank order, user-major)",
+    "sort": "K3: one-sweep stable LSD radix sorts (rank order, "
+            "user-major), one launch per 8-bit pass",
     "admit": "K4: over-quota limit, DRU, admission, compaction, compact "
              "outputs",
-    "greedy": "K5: greedy assignment, one CTA per pool",
+    "greedy": "K5: greedy assignment, one thread-block cluster per pool",
     "gang": "K6: gang_min-gated segment reduction",
 }
 
@@ -278,15 +292,63 @@ def cuda_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def library_call(kernel, args):
+def library_call(wrapper, args):
     """One PyTorch call computing the same function, where there is one
-    (timed only; the port never calls it)."""
+    (timed only; the port never calls it).  The rank sort's is
+    ``torch.sort(stable=True)`` of the packed int64 key K3 sorts, built
+    outside the timed call; the user sort's sorts the user column."""
+    from cook_tpu_torch.ops import sort as tsort
     x = args[0]
-    if kernel == "scan":
+    if wrapper.kernel == "scan":
         return lambda: torch.cumsum(x, dim=1)
-    if kernel == "sort":
+    if wrapper is tsort.sort_rank:
+        key = tsort.rank_key_plain(*args)
+        return lambda: torch.sort(key, dim=1, stable=True)
+    if wrapper is tsort.sort_user:
         return lambda: torch.sort(x, dim=1, stable=True)
     return None
+
+
+def launch_detail(wrapper, args, ms, lib_ms) -> dict:
+    """What a call of K3 or K5 launched: K3's passes and CUDA launches a
+    call, K5's cluster and time a slot (ms / C)."""
+    from cook_tpu_torch.ops import match as tm
+    from cook_tpu_torch.ops import sort as tsort
+    if wrapper.kernel == "sort":
+        S, n = args[0].shape
+        bits = tsort.rank_bits(n) if wrapper is tsort.sort_rank \
+            else n.bit_length()
+        plan = tsort.sort_plan(S, n, bits)
+        return {"call": wrapper.__name__, "S": S, "n": n, "passes":
+                plan.passes, "launches_per_call": plan.launches,
+                "passes_run": passes_run(wrapper, args), "ms": ms,
+                "library_ms": lib_ms}
+    if wrapper.kernel == "greedy":
+        P, C, _ = args[0].shape
+        H = args[7].shape[1]
+        plan = tm.greedy_plan(P, C, H)
+        return {"P": P, "C": C, "H": H, "cluster": plan.cluster,
+                "threads": plan.threads, "hosts_per_cta": plan.hosts_per_cta,
+                "in_smem": plan.in_smem, "ms": ms,
+                "us_per_step": ms * 1e3 / C}
+    return {}
+
+
+def passes_run(wrapper, args) -> list:
+    """For each series, the passes of K3 whose digit is not one value
+    over the whole series (the others move nothing and are skipped)."""
+    from cook_tpu_torch.ops import sort as tsort
+    if wrapper is tsort.sort_rank:
+        key = tsort.rank_key_plain(*args)
+        bits = tsort.rank_bits(key.shape[1])
+    else:
+        key = args[0].to(torch.int64) + 1
+        bits = key.shape[1].bit_length()
+    runs = []
+    for q in range(tsort.sort_plan(*key.shape, bits).passes):
+        d = (key >> (8 * q)) & 255
+        runs.append((d != d[:, :1]).any(dim=1))
+    return torch.stack(runs, 1).sum(1).tolist()
 
 
 def bound(row) -> tuple:
@@ -324,6 +386,7 @@ def phase_a(calls):
     from cook_tpu_torch.ops.match import compose_mask
     rows = {k: dict(calls=0, max_abs_err=0.0, ms=0.0, plain_ms=0.0,
                     library_ms=None, bytes=0, ops=0) for k in SOURCES}
+    details = {"sort": [], "greedy": []}
     faults = []
     for i, (wrapper, args, kw) in enumerate(calls):
         row = rows[wrapper.kernel]
@@ -333,13 +396,17 @@ def phase_a(calls):
             continue
         slow = wrapper.kernel == "greedy"
         row["calls"] += 1
-        row["ms"] += cuda_ms(lambda: wrapper.launch(*args, **kw),
-                             3 if slow else 20)
+        ms = cuda_ms(lambda: wrapper.launch(*args, **kw), 3 if slow else 20)
+        row["ms"] += ms
         row["plain_ms"] += cuda_ms(lambda: wrapper.plain(*args, **kw),
                                    1 if slow else 3)
-        lib = library_call(wrapper.kernel, args)
-        if lib is not None:
-            row["library_ms"] = (row["library_ms"] or 0.0) + cuda_ms(lib, 20)
+        lib = library_call(wrapper, args)
+        lib_ms = None if lib is None else cuda_ms(lib, 20)
+        if lib_ms is not None:
+            row["library_ms"] = (row["library_ms"] or 0.0) + lib_ms
+        if wrapper.kernel in details:
+            details[wrapper.kernel].append(
+                launch_detail(wrapper, args, ms, lib_ms))
         ins = [a for a in list(args) + list(kw.values())
                if isinstance(a, torch.Tensor)]
         row["bytes"] += sum(t.numel() * t.element_size() for t in ins + got)
@@ -348,6 +415,8 @@ def phase_a(calls):
             row["ops"] += int(mask.sum()) * 12
     if faults:
         raise AssertionError("kernel != plain version:\n" + "\n".join(faults))
+    for k, det in details.items():
+        rows[k]["per_call"] = det
     return rows
 
 
@@ -359,7 +428,8 @@ SMALL_WORLDS = (
     # i16 rows; the over-quota limit binds
     dict(size=dict(live=3000, users=40, hosts=300, gangs=4, e=16),
          quantize=True, modes=dict(max_over_quota_jobs=3)),
-    # wide wire; gpu-mode DRU; H = 16,384 keeps K5's avail in device memory
+    # wide wire; gpu-mode DRU; H = 16,384: K5 on a cluster of 8, 2,048
+    # hosts a CTA
     dict(size=dict(live=2000, users=30, hosts=12000, gangs=4, e=16),
          quantize=False, modes=dict(gpu_mode=True)),
 )
@@ -711,6 +781,214 @@ def phase_e():
     return counts
 
 
+# ------------------------------------------ phase F: K3 and K5 edge worlds
+SORT_EDGE_N = (1, 1_000, 4_097, 131_072, 262_144)
+SORT_EDGE_KINDS = ("rank-mixed", "rank-equal", "user-mixed", "user-equal")
+
+
+def sort_edge_args(S, n, kind, rng) -> tuple:
+    """Inputs of one K3 edge call: ``rank-mixed`` has tied, NaN (both
+    signs), -0, +0, +inf and -inf DRUs, 20% non-rankable rows and
+    ``user_rank`` from -1 to n - 1; ``rank-equal`` one key everywhere;
+    ``user-mixed`` users from -1 to n - 1; ``user-equal`` all -1."""
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).cuda()
+    if kind.startswith("user"):
+        user = rng.integers(-1, n, (S, n)) if kind == "user-mixed" \
+            else np.full((S, n), -1)
+        user[:, :1] = -1
+        user[:, -1:] = n - 1 if kind == "user-mixed" else -1
+        return (dev(user.astype(np.int32)),)
+    if kind == "rank-equal":
+        return (dev(np.full((S, n), 0.75, np.float32)),
+                dev(np.ones((S, n), np.uint8)),
+                dev(np.full((S, n), n - 1, np.int32)))
+    dru = (rng.integers(0, 7, (S, n)) * 0.25).astype(np.float32)
+    pick = rng.random((S, n))
+    dru[pick < 0.04] = np.nan
+    dru[(pick >= 0.04) & (pick < 0.06)] = \
+        np.uint32(0xFFC00000).view(np.float32)
+    dru[(pick >= 0.06) & (pick < 0.10)] = -0.0
+    dru[(pick >= 0.10) & (pick < 0.14)] = np.inf
+    dru[(pick >= 0.14) & (pick < 0.16)] = -np.inf
+    wide = (pick >= 0.16) & (pick < 0.30)
+    dru[wide] = rng.standard_normal(int(wide.sum())).astype(np.float32)
+    user_rank = rng.integers(-1, n, (S, n)).astype(np.int32)
+    user_rank[:, :1] = -1
+    user_rank[:, -1:] = n - 1
+    return (dev(dru), dev((rng.random((S, n)) < 0.8).astype(np.uint8)),
+            dev(user_rank))
+
+
+def greedy_edge_world(P, C, H, E, seed, *, tie_from=None, infeasible=False):
+    """K5 inputs in the cycle's layout.  ``tie_from``: every host the
+    same, hosts below it blocked, no exception rows, so the first
+    feasible host (the winner of every fitness tie) lies in a later CTA;
+    ``infeasible``: no slot fits any host."""
+    rng = np.random.default_rng(seed)
+    res = np.stack([rng.uniform(0.1, 4.0, (P, C)).round(1),
+                    rng.integers(128, 8192, (P, C)),
+                    (rng.random((P, C)) < 0.1) * rng.integers(1, 3, (P, C)),
+                    rng.integers(0, 2048, (P, C))], -1).astype(np.float32)
+    if infeasible:
+        res[..., 1] = 1e9
+    cap = np.stack([rng.choice([32, 48, 64, 96], (P, H)),
+                    rng.choice([131072, 262144, 393216], (P, H)),
+                    (rng.random((P, H)) < 0.1) * 8.0,
+                    np.full((P, H), 1048576.0)], -1).astype(np.float32)
+    frac = rng.uniform(0.05, 0.6, (P, H, 4)).astype(np.float32)
+    avail = np.floor(cap * frac).astype(np.float32)
+    blocked = rng.random((P, H)) < 0.05
+    valid = rng.random((P, C)) < 0.95
+    eid = np.where(rng.random((P, C)) < 0.2, rng.integers(0, max(E, 1),
+                                                          (P, C)), -1)
+    if E == 0:
+        eid[:] = -1
+    if tie_from is not None:
+        cap[:] = np.float32([64, 262144, 0, 1048576])
+        avail[:] = np.float32([32, 131072, 0, 524288])
+        res[..., 2] = 0.0
+        valid[:, 0] = True
+        blocked[:] = False
+        blocked[:, :tie_from] = True
+    host_gpu = cap[..., 2] > 0
+    exc = rng.random((P, E, H)) < 0.6
+
+    def dev(a, dtype=None):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype)).cuda()
+    u8 = np.uint8
+    return (dev(res), dev(valid, u8), dev(res[..., 2] > 0, u8),
+            dev(eid, np.int32), dev(host_gpu, u8), dev(blocked, u8),
+            dev(exc, u8), dev(avail), dev(cap))
+
+
+GREEDY_EDGES = (
+    # (name, P, C, H, E, options)
+    ("cross_cta_tie", 2, 1_024, 8_192, 0, dict(tie_from=2_048)),
+    ("h4000", 4, 1_024, 4_000, 16, {}),
+    ("all_infeasible", 4, 256, 8_192, 16, dict(infeasible=True)),
+    ("h65536", 1, 1_024, 65_536, 64, {}),
+    ("cluster16", 1, 256, 100_000, 8, {}),
+    ("device_memory", 1, 64, 300_000, 8, {}),
+)
+
+
+def phase_f():
+    """K3 and K5 against their plain versions on edge worlds: K3 at S in
+    {1, 4} and every n of SORT_EDGE_N for the four kinds (skipped and
+    run passes both occur); K5 across CTAs, clusters and variants."""
+    from cook_tpu_torch.ops import match as tm
+    from cook_tpu_torch.ops import sort as tsort
+    rng = np.random.default_rng(SEED + 40)
+    sorts, runs, skips = 0, 0, 0
+    for S in (1, 4):
+        for n in SORT_EDGE_N:
+            for kind in SORT_EDGE_KINDS:
+                args = sort_edge_args(S, n, kind, rng)
+                wrapper = tsort.sort_user if kind.startswith("user") \
+                    else tsort.sort_rank
+                max_err(wrapper(*args), wrapper.plain(*args))
+                ran = passes_run(wrapper, args)
+                bits = tsort.rank_bits(n) if wrapper is tsort.sort_rank \
+                    else n.bit_length()
+                passes = tsort.sort_plan(S, n, bits).passes
+                sorts += 1
+                runs += sum(ran)
+                skips += S * passes - sum(ran)
+    if not (runs and skips):
+        raise AssertionError("phase F ran no pass or skipped none")
+    print(json.dumps({"phase": "F", "kernel": "sort", "calls": sorts,
+                      "equal_to_plain": True, "passes_run": runs,
+                      "passes_skipped": skips}))
+    for name, P, C, H, E, opts in GREEDY_EDGES:
+        args = greedy_edge_world(P, C, H, E, SEED + 50, **opts)
+        got = tm.greedy(*args)
+        want = tm.greedy.plain(*args)
+        max_err(got, want)
+        valid = args[1] != 0
+        if "tie_from" in opts and not bool(
+                (got[:, 0] == opts["tie_from"]).all()):
+            raise AssertionError("cross-CTA tie did not go to the lowest "
+                                 "feasible host")
+        if opts.get("infeasible") and bool((got >= 0).any()):
+            raise AssertionError("an infeasible slot was placed")
+        ms = cuda_ms(lambda: tm.greedy(*args), 3)
+        plan = tm.greedy_plan(P, C, H)
+        print(json.dumps({
+            "phase": "F", "kernel": "greedy", "world": name, "P": P, "C": C,
+            "H": H, "E": E, "cluster": plan.cluster, "threads": plan.threads,
+            "hosts_per_cta": plan.hosts_per_cta, "in_smem": plan.in_smem,
+            "equal_to_plain": True, "placed": int((got >= 0).sum()),
+            "valid_slots": int(valid.sum()), "ms": ms,
+            "us_per_step": ms * 1e3 / C}))
+    div_fast_check()
+
+
+def div_operands(rng) -> tuple:
+    """f32 pairs (a, b) for K5's fast-path division: every pair of signed
+    magnitudes at both edges of its range [2^-40, 2^40) and just past
+    them (and at 0, the smallest normal and subnormal, 1e-9 and 2^21),
+    then random pairs with random mantissas, half with exponents inside
+    the range and half from 2^-70 to 2^70."""
+    f = np.float32
+    lo, hi = f(2.0 ** -40), f(2.0 ** 40)
+    edges = [lo, np.nextafter(lo, f(1)), lo * f(1.5), f(2.0 ** -39),
+             np.nextafter(hi, f(0)), f(2.0 ** 39), f(2.0 ** 39) * f(1.75),
+             f(1), np.nextafter(f(2), f(0)), f(1e-9), f(2.0 ** 21),
+             np.nextafter(lo, f(0)), hi, f(2.0 ** -41), f(2.0 ** 41),
+             f(2.0 ** -63), f(2.0 ** 63) * f(1.5), f(2.0 ** -126),
+             f(1e-45), f(0)]
+    vals = np.array(edges + [-v for v in edges], np.float32)
+    a = np.repeat(vals, vals.size)
+    b = np.tile(vals, vals.size)
+    n = 1 << 21
+
+    def rand(lo_e, hi_e):
+        bits = (rng.integers(lo_e, hi_e, n).astype(np.uint32) << 23) \
+            | rng.integers(0, 1 << 23, n).astype(np.uint32) \
+            | (rng.integers(0, 2, n).astype(np.uint32) << 31)
+        return bits.view(np.float32)
+    a = np.concatenate([a, rand(87, 167), rand(57, 197)])
+    b = np.concatenate([b, rand(87, 167), rand(57, 197)])
+    return a, b
+
+
+def div_fast_check():
+    """K5's fast-path division (``div_fast`` in csrc/greedy.cu) against
+    IEEE ``/`` on the card: wherever its range check passes the two are
+    equal bit for bit, and the check passes exactly where both operands
+    have magnitudes in [2^-40, 2^40)."""
+    from cook_tpu_torch.ops import cuda_lib
+    a, b = div_operands(np.random.default_rng(SEED + 60))
+    da, db = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+    fast, ieee = torch.empty_like(da), torch.empty_like(da)
+    safe = torch.empty(a.size, dtype=torch.int32, device="cuda")
+    rc = cuda_lib.lib().k5_div_check(
+        da.data_ptr(), db.data_ptr(), fast.data_ptr(), ieee.data_ptr(),
+        safe.data_ptr(), a.size, torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"k5_div_check: CUDA error {rc}")
+    torch.cuda.synchronize()
+    fast = fast.cpu().numpy().view(np.uint32)
+    ieee = ieee.cpu().numpy().view(np.uint32)
+    safe = safe.cpu().numpy() != 0
+
+    def inside(x):
+        e = (x.view(np.uint32) >> 23) & 0xFF
+        return (e >= 87) & (e < 167)
+    if not np.array_equal(safe, inside(a) & inside(b)):
+        raise AssertionError("div_safe disagrees with its range")
+    bad = int((safe & (fast != ieee)).sum())
+    if bad:
+        raise AssertionError(f"div_fast differs from / on {bad} pairs in "
+                             f"its range")
+    print(json.dumps({"phase": "F", "kernel": "greedy", "check": "div_fast",
+                      "pairs": int(a.size), "in_range": int(safe.sum()),
+                      "equal_in_range": True,
+                      "differ_out_of_range": int((~safe
+                                                  & (fast != ieee)).sum())}))
+
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -728,6 +1006,7 @@ def main() -> int:
     log.write_text(cuda_lib.BUILD_LOG)
     print(json.dumps({"build_s": build_s, "ptxas_log": str(log)}))
 
+    phase_f()
     rng = np.random.default_rng(SEED)
     w = build_world(rng)
     res_dev = torch.from_numpy(w.res).cuda()
@@ -742,20 +1021,25 @@ def main() -> int:
     rows = phase_a(calls)
     for k, row in rows.items():
         b_ms, b_by = bound(row)
-        print(json.dumps({"phase": "A", "kernel": k, **row, "bound_ms": b_ms,
-                          "bound_by": b_by}))
-
+        print(json.dumps({"phase": "A", "kernel": k, **row,
+                          "bound_ms": b_ms, "bound_by": b_by}))
     phase_c()
 
     # phase B: the main path, counted
     telemetry.reset_all()
     cycle_ms, plain_ms, stage_ms, placed, codecs = [], [], [], [], []
+    enqueue_ms, span_ms = [], []
     for cyc in range(CYCLES):
         t0 = time.perf_counter()
         staged = stage(w, res_dev, disk_dev, scales)
         torch.cuda.synchronize()
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
         t1 = time.perf_counter()
+        ev0.record()
         res = megacycle(staged["wire"], **megacycle_args(staged))
+        t_enq = time.perf_counter()
+        ev1.record()
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         launches = telemetry.snapshot()
@@ -767,13 +1051,16 @@ def main() -> int:
         n = apply(w, res)
         stage_ms.append((t1 - t0) * 1e3)
         cycle_ms.append((t2 - t1) * 1e3)
+        enqueue_ms.append((t_enq - t1) * 1e3)
+        span_ms.append(ev0.elapsed_time(ev1))
         plain_ms.append((t3 - t2) * 1e3)
         placed.append(n)
         codecs.append([staged["rows_codec"], str(staged["avail_scale"]),
                        str(staged["cap_scale"])])
         print(json.dumps({
             "phase": "B", "cycle": cyc, "stage_ms": stage_ms[-1],
-            "cycle_ms": cycle_ms[-1], "plain_cycle_ms": plain_ms[-1],
+            "cycle_ms": cycle_ms[-1], "enqueue_ms": enqueue_ms[-1],
+            "device_span_ms": span_ms[-1], "plain_cycle_ms": plain_ms[-1],
             "placed": n, "dropped": int(res.cand_dropped.sum()),
             "n_queue": res.n_queue.tolist(), "h2d_bytes": staged["h2d_bytes"],
             "codecs": codecs[-1], "launches_so_far": launches}))
@@ -787,6 +1074,8 @@ def main() -> int:
     print(json.dumps({
         "phase": "B", "cycles": CYCLES, "cycle_ms": cycle_ms,
         "cycle_ms_median_after_first": statistics.median(cycle_ms[1:]),
+        "enqueue_ms_median_after_first": statistics.median(enqueue_ms[1:]),
+        "device_span_ms_median_after_first": statistics.median(span_ms[1:]),
         "plain_cycle_ms_median_after_first": statistics.median(plain_ms[1:]),
         "stage_ms_median_after_first": statistics.median(stage_ms[1:]),
         "placed": placed, "launches_per_kernel": counts,
@@ -806,7 +1095,8 @@ def main() -> int:
             "stage": STAGES[k], "launches": counts[k],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": row["library_ms"], "calls_per_cycle": row["calls"]})
+            "library_ms": row["library_ms"], "calls_per_cycle": row["calls"],
+            **({"per_call": row["per_call"]} if "per_call" in row else {})})
     for k, row in topk_rows.items():
         b_ms, b_by = bound(row)
         out.append({

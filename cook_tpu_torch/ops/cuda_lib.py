@@ -41,8 +41,8 @@ _SIGNATURES = {
     "k2_seg_count": "pippppilp",
     "k2_prefix16": "pppilip",
     "k2_int_scan": "piiiiippilp",
-    "k3_sort_rank": "pppippppilp",
-    "k3_sort_user": "pippppilp",
+    "k3_sort_rank": "pppippppiliiiiillllip",
+    "k3_sort_user": "pippppiliiiiillllip",
     "k4_rank_over": "ppppilp",
     "k4_rank_keep": "pppippilp",
     "k4_rank_dru": "ppppippilp",
@@ -53,7 +53,8 @@ _SIGNATURES = {
     "k4_accept": "p" * 6 + "ilp",
     "k4_match_valid": "p" * 4 + "ilp",
     "k4_compact": "p" * 16 + "ilip",
-    "k5_greedy": "p" * 11 + "iiiip",
+    "k5_greedy": "p" * 11 + "iiii" + "iiiiiiil" + "ip",
+    "k5_div_check": "pppppip",
     "k6_gang": "p" * 11 + "iiliiip",
     "topk_dense": "p" * 9 + "iiiip",
     "topk_structured": "p" * 12 + "iiiip",

@@ -64,10 +64,88 @@ def greedy_assign(job_res, constraint_mask, valid, avail, capacity):
 # --------------------------------------------------------------- kernel K5
 # Greedy over the compacted candidate slots of every pool, with each
 # slot's mask composed from the structured form (cook_tpu/parallel/
-# sharded.py:417-423).  On the card: csrc/greedy.cu.
+# sharded.py:417-423).  On the card: csrc/greedy.cu, one thread-block
+# cluster per pool, its launch geometry from greedy_plan.
+from typing import NamedTuple  # noqa: E402
+
 from . import cuda_lib  # noqa: E402
 
 KERNEL = "greedy"
+
+SMEM_LIMIT = 232_448       # bytes of shared memory a CTA may use (H100)
+HOSTS_PER_CTA = 1_024      # the cluster grows until a CTA holds no more
+PORTABLE_CLUSTER = 8       # the largest cluster every Hopper part takes
+MAX_CLUSTER = 16           # non-portable, the largest an H100 takes
+SLOT_CHUNK = 1_024         # slots staged in shared memory at a time
+HOSTS_PER_THREAD = 2       # consecutive hosts a thread scores a group
+_HOST_BYTES = 25           # avail x4, cpu and mem capacity (f32), bits (u8)
+_SLOT_BYTES = 26           # demand x4 (f32), exception row, host, valid, gpu
+_STATIC_BYTES = 2 * 8      # two mbarriers
+
+
+class GreedyPlan(NamedTuple):
+    """Launch geometry of one K5 call: ``cluster`` CTAs a pool (grid P x
+    cluster), CTA r owning hosts [r * hosts_per_cta, (r + 1) *
+    hosts_per_cta) of its pool, ``threads`` threads scoring ``groups``
+    groups of ``HOSTS_PER_THREAD`` hosts each, ``slot_chunk`` slots staged at a time,
+    ``exchange_bytes`` of candidates (two parities of one a warp of the
+    cluster).  ``in_smem`` False keeps the slices in a device buffer of
+    ``work_floats`` (``work_stride`` a CTA)."""
+    cluster: int
+    threads: int
+    hosts_per_cta: int
+    groups: int
+    slot_chunk: int
+    exchange_bytes: int
+    smem_bytes: int     # dynamic shared memory a CTA
+    in_smem: bool
+    work_stride: int
+    work_floats: int
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def greedy_plan(P: int, C: int, H: int) -> GreedyPlan:
+    """The cluster is the smallest power of two whose CTAs hold at most
+    ``HOSTS_PER_CTA`` hosts, up to the portable 8; past that, 8 or else
+    16 CTAs while the slices fit shared memory (with fewer slots staged
+    at a time if that is what it takes); past 16 CTAs' shared memory, 16
+    CTAs with the slices in device memory."""
+    if P < 1 or C < 1 or H < 1:
+        raise ValueError(f"K5 needs P, C, H >= 1, got {P}, {C}, {H}")
+
+    def geometry(cs, in_smem):
+        """(hosts a CTA, threads, exchange bytes, slot chunk, dynamic
+        shared bytes), or None where nothing fits."""
+        hpc = _round_up(-(-H // cs), 16)
+        threads = min(1024, max(128, _round_up(-(-hpc // HOSTS_PER_THREAD),
+                                               32)))
+        xch = 2 * cs * (threads // 32) * 8
+        fixed = xch + (_HOST_BYTES * hpc if in_smem else 0)
+        for cw in (min(C, SLOT_CHUNK), 512, 256):
+            smem = fixed + _SLOT_BYTES * cw
+            if cw <= C and smem + _STATIC_BYTES <= SMEM_LIMIT:
+                return hpc, threads, xch, cw, smem
+        return None
+
+    cs = 1
+    while cs < PORTABLE_CLUSTER \
+            and _round_up(-(-H // cs), 16) > HOSTS_PER_CTA:
+        cs *= 2
+    if geometry(cs, True) is None:
+        cs = PORTABLE_CLUSTER if geometry(PORTABLE_CLUSTER, True) \
+            else MAX_CLUSTER
+    in_smem = geometry(cs, True) is not None
+    hpc, threads, xch, cw, smem = geometry(cs, in_smem)
+    stride = 0 if in_smem else 6 * hpc + hpc // 4
+    return GreedyPlan(
+        cluster=cs, threads=threads, hosts_per_cta=hpc,
+        groups=-(-hpc // (HOSTS_PER_THREAD * threads)), slot_chunk=cw,
+        exchange_bytes=xch,
+        smem_bytes=smem, in_smem=in_smem, work_stride=stride,
+        work_floats=P * cs * stride)
 
 
 def compose_mask(gpu_c, eid_c, host_gpu, host_blocked, exc_mask):
@@ -105,19 +183,24 @@ def greedy(res_c, valid_c, gpu_c, eid_c, host_gpu, host_blocked, exc_mask,
     H = avail.shape[1]
     E = exc_mask.shape[1]
     cuda_lib.check(res_c, torch.float32, (P, C, 4), "res_c")
+    cuda_lib.check(avail, torch.float32, (P, H, 4), "avail")
     cuda_lib.check(capacity, torch.float32, (P, H, 4), "capacity")
     if exc_mask.dtype not in (torch.bool, torch.uint8) \
             or tuple(exc_mask.shape) != (P, E, H):
         raise ValueError("greedy: exc_mask must be bool or u8 [P, E, H]")
     em = exc_mask.view(torch.uint8)
-    work = torch.empty(P * H * 4 if H * 24 > 220 * 1024 else 1,
-                       dtype=torch.float32, device=res_c.device)
+    plan = greedy_plan(P, C, H)
+    work = torch.empty(max(plan.work_floats, 1), dtype=torch.float32,
+                       device=res_c.device)
     assign = torch.empty((P, C), dtype=torch.int32, device=res_c.device)
     cuda_lib.call("k5_greedy", KERNEL, res_c.data_ptr(), valid_c.data_ptr(),
                   gpu_c.data_ptr(), eid_c.data_ptr(), host_gpu.data_ptr(),
                   host_blocked.data_ptr(), em.data_ptr(), avail.data_ptr(),
                   capacity.data_ptr(), work.data_ptr(), assign.data_ptr(),
-                  P, C, H, E)
+                  P, C, H, E, plan.cluster, plan.threads,
+                  plan.hosts_per_cta, plan.groups, plan.slot_chunk,
+                  plan.exchange_bytes, plan.smem_bytes, plan.work_stride,
+                  int(plan.in_smem))
     return assign
 
 
