@@ -18,23 +18,33 @@ hosts.
 
   1. prints the card's name and power limit (nvidia-smi);
   2. builds the kernels from ``cook_tpu_torch/ops/csrc`` (nvcc);
-  3. phase F: K3 and K5 against their plain versions, bit for bit, on
-     edge worlds: K3 at S in {1, 4} and n in {1, 1,000, 4,097, 131,072,
-     262,144} with tied, NaN, -0 and +inf DRUs, non-rankable rows,
-     ``user_rank`` -1 and n - 1, and all-equal keys (passes both run and
-     skipped); K5 on identical hosts whose first feasible host lies in
-     the third CTA of the cluster, at H = 4,000 (a ragged last CTA), with
-     every slot infeasible, at the split path's H = 65,536, on a cluster
-     of 16 (H = 100,000) and with the slices in device memory (H =
-     300,000); it prints K5's cluster and microseconds a step; and it
-     holds K5's fast-path division against IEEE ``/`` bit for bit on
-     operands at both edges of its range and past them;
+  3. phase F: K2, K3 and K5 against their plain versions, bit for bit,
+     on edge worlds: every K2 kind and every fused K2/K4 launch at S in
+     {1, 4} and n from 1 to 1,048,576 (segment starts at and just after
+     tile boundaries, on every row, on row 0 only and at random; masked
+     rows; +-inf and NaN; C in {1, 3, 4}; integer sum and min, reversed
+     and offset), at most 2 CUDA launches a K2 call (each call
+     captured into a CUDA graph, its nodes counted); K3 at S in {1, 4}
+     and n in {1, 1,000, 4,097, 131,072, 262,144} with tied, NaN, -0
+     and +inf DRUs, non-rankable rows, ``user_rank`` -1 and n - 1, and
+     all-equal keys (passes both run and skipped); K5 on identical hosts whose
+     first feasible host lies in the third CTA of the cluster, at H =
+     4,000 (a ragged last CTA), with every slot infeasible, at the split
+     path's H = 65,536, on a cluster of 16 (H = 100,000) and with the
+     slices in device memory (H = 300,000); it prints K5's cluster and
+     microseconds a step; and it holds K5's fast-path division against
+     IEEE ``/`` bit for bit on operands at both edges of its range and
+     past them;
   4. phase A: replays every kernel launch of one cycle against its plain
      PyTorch version on the same inputs (integers equal, floats equal
-     bit for bit, NaN where NaN) and times kernel, plain version, and a
-     library call where one computes the same function (for the rank
-     sort ``torch.sort(stable=True)`` of the packed int64 key); K3's
-     passes and launches a call, K5's cluster and microseconds a step;
+     bit for bit, NaN where NaN) and times kernel (CUDA events, and the
+     card's own time from torch.profiler), plain version, and a library
+     call where one computes the same function (for the rank sort
+     ``torch.sort(stable=True)`` of the packed int64 key, for K2's
+     forward integer sums ``torch.cumsum``); each call's CUDA launches
+     (the nodes of a CUDA graph captured from it), each K2 call's kind,
+     shape and columns, K2 and K4 together (at most 30 CUDA launches a cycle);
+     K3's passes, K5's cluster and microseconds a step;
   5. phase C: two cycles of each of three small worlds for the kernel
      paths the design point does not take (i8 and i16 rows, the
      over-quota limit, gpu mode, K5 at H = 16,384), kernels against the
@@ -43,7 +53,10 @@ hosts.
      (quantized wire), run by the kernels and by the plain cycle
      (``megacycle_plain``) on the card; all seven outputs must agree;
      the kept placements are applied before the next cycle; the launch
-     counts are zeroed before and read after these cycles;
+     counts are zeroed before and read after these cycles; then three
+     profiled cycles: the card's time by stage kernel (torch.profiler),
+     its idle share of the cycles' span, and the host's time by function
+     (cProfile);
   7. phase D: the two top-K kernels (structured at 100,000 x 50,000,
      E = 256; dense at 10,000 x 50,000), counted, then held against
      their plain versions (fit bit for bit, host where fit > -inf) and
@@ -55,10 +68,11 @@ hosts.
      (auto: greedy at 1,000 jobs; waterfill at 10,000; auction + tail at
      10,000 with tight packing), counted and recorded; every recorded
      launch (K2 scans, K5) replayed against its plain version bit for
-     bit; placements checked against oversubscription and the mask; the
-     K5 route held against the plain greedy on the card; and every
-     backend on a reduced split world, on the card and on the CPU,
-     equal bit for bit;
+     bit, each K2 call's CUDA launches counted (at most 2); placements
+     checked against oversubscription and the mask; the K5 route held
+     against the plain greedy on the card; and every backend on a
+     reduced split world, on the card and on the CPU, equal bit for
+     bit;
   9. prints the card line again, the ``{"kernels": [...]}`` line and
      last ``{"ok": true, "device": {...}}``.
 
@@ -69,11 +83,14 @@ build/cuda/ptxas.log).  Any failure raises.
 
 from __future__ import annotations
 
+import cProfile
 import json
+import pstats
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
@@ -91,11 +108,13 @@ SOURCES = {"expand": "expand.cu", "scan": "scan.cu", "sort": "sort.cu",
 STAGES = {
     "expand": "K1: wire decode, gathers, phase-0 pool/group bases",
     "scan": "K2: segmented (associative_scan order), blocked-16 and "
-            "integer prefixes",
+            "integer prefixes, one tiled launch a scan after one memset; "
+            "K4's stages run inside as prologues and epilogues",
     "sort": "K3: one-sweep stable LSD radix sorts (rank order, "
             "user-major), one launch per 8-bit pass",
-    "admit": "K4: over-quota limit, DRU, admission, compaction, compact "
-             "outputs",
+    "admit": "K4: the compaction (its two-column K2 scan with the "
+             "scatters as epilogue, then the compact outputs, K4's one "
+             "launch of its own)",
     "greedy": "K5: greedy assignment, one thread-block cluster per pool",
     "gang": "K6: gang_min-gated segment reduction",
 }
@@ -292,15 +311,123 @@ def cuda_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def library_call(wrapper, args):
+def device_ms(fn, reps: int):
+    """The card's own time a call (kernels and memsets, from
+    torch.profiler's CUDA activity over ``reps`` calls), or None where
+    the profiler reports no device time.  Unlike ``cuda_ms`` it does not
+    count the gaps in which the card waits for the host."""
+    fn()
+    prof, _ = profiled(fn, reps)
+    us = sum(device_us(e) for e in prof.key_averages()) if prof else 0.0
+    return us / 1e3 / reps if us > 0 else None
+
+
+def profiled(fn, reps: int, tries: int = 3) -> tuple:
+    """(torch.profiler's trace of ``reps`` calls of ``fn``, its device
+    activities in launch order), or (None, []).  The profiler can drop
+    activities, even a whole trace's: a trace that holds fewer kernels
+    than the C entries the calls made (each launches at least one; the
+    stage counters count them on the host) is taken again, at most
+    ``tries`` times, and then reported as not measured."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from cook_tpu_torch.ops import telemetry
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        entries = -sum(telemetry.snapshot().values())
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        entries += sum(telemetry.snapshot().values())
+        acts = sorted((e for e in prof.events()
+                       if e.device_type == DeviceType.CUDA
+                       and not getattr(e, "is_user_annotation", False)),
+                      key=lambda e: e.time_range.start)
+        if sum(1 for e in acts if "Memset" not in e.name) >= entries:
+            return prof, acts
+    return None, []
+
+
+_CU = None
+_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset"}
+
+
+def captured_launches(fn) -> tuple:
+    """The CUDA launches of one call of ``fn``, counted exactly: the call
+    is captured into a CUDA graph (nothing runs) and the graph's nodes
+    are read through the driver API.  Returns (their types in capture
+    order, the C entries the call made by stage kernel, from the stage
+    counters)."""
+    import ctypes
+    from cook_tpu_torch.ops import telemetry
+    global _CU
+    if _CU is None:
+        _CU = ctypes.CDLL("libcuda.so.1")
+        _CU.cuGraphGetNodes.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.POINTER(ctypes.c_size_t)]
+        _CU.cuGraphNodeGetType.argtypes = [
+            ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    before = telemetry.snapshot()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    torch.cuda.synchronize()
+    with torch.cuda.stream(torch.cuda.Stream()):
+        graph.capture_begin(capture_error_mode="relaxed")
+        try:
+            fn()
+        finally:
+            graph.capture_end()
+    entries = {k: v - before.get(k, 0)
+               for k, v in telemetry.snapshot().items()
+               if v > before.get(k, 0)}
+    g = graph.raw_cuda_graph()
+    n = ctypes.c_size_t(0)
+    rc = _CU.cuGraphGetNodes(g, None, ctypes.byref(n))
+    nodes = (ctypes.c_void_p * max(n.value, 1))()
+    rc = rc or _CU.cuGraphGetNodes(g, nodes, ctypes.byref(n))
+    types = []
+    for i in range(n.value):
+        t = ctypes.c_int(-1)
+        rc = rc or _CU.cuGraphNodeGetType(nodes[i], ctypes.byref(t))
+        types.append(_NODE_TYPES.get(t.value, f"type {t.value}"))
+    graph.reset()
+    if rc:
+        raise RuntimeError(f"reading a captured graph: CUDA error {rc}")
+    return types, entries
+
+
+def k2_launches(types, entries) -> int:
+    """At most this many of a call's CUDA launches are K2's: all but
+    one for each of K4's own C entries (each launches at least one)."""
+    return len(types) - entries.get("admit", 0)
+
+
+def device_us(event) -> float:
+    us = getattr(event, "device_time_total", None)
+    return getattr(event, "cuda_time_total", 0.0) if us is None else us
+
+
+def library_call(wrapper, args, kw):
     """One PyTorch call computing the same function, where there is one
-    (timed only; the port never calls it).  The rank sort's is
+    (timed only; the port never calls it).  K2: ``torch.cumsum`` for the
+    forward integer sums (of the bit test or the i32 input, built
+    outside the timed call; the offset is not added) and for
+    ``prefix16`` (another summation order: a yardstick); no single call
+    computes a segmented scan or a fused launch.  The rank sort's is
     ``torch.sort(stable=True)`` of the packed int64 key K3 sorts, built
     outside the timed call; the user sort's sorts the user column."""
+    from cook_tpu_torch.ops import scan as tscan
     from cook_tpu_torch.ops import sort as tsort
     x = args[0]
-    if wrapper.kernel == "scan":
+    if wrapper is tscan.prefix16:
         return lambda: torch.cumsum(x, dim=1)
+    if wrapper is tscan.int_scan and kw.get("op", "sum") == "sum" \
+            and not kw.get("reverse", False):
+        bit = kw.get("bit", 0)
+        v = ((x & bit) != 0).to(torch.int32) if x.dtype == torch.uint8 \
+            else x
+        return lambda: torch.cumsum(v, dim=1, dtype=torch.int32)
     if wrapper is tsort.sort_rank:
         key = tsort.rank_key_plain(*args)
         return lambda: torch.sort(key, dim=1, stable=True)
@@ -309,18 +436,27 @@ def library_call(wrapper, args):
     return None
 
 
-def launch_detail(wrapper, args, ms, lib_ms) -> dict:
-    """What a call of K3 or K5 launched: K3's passes and CUDA launches a
-    call, K5's cluster and time a slot (ms / C)."""
+def launch_detail(wrapper, args, plans, launched, ms, lib_ms) -> dict:
+    """What a call of K2, K3 or K5 launched: K2's kind, shape and
+    columns (from the plan the wrapper built) and its CUDA launches a
+    call (``launched``: ``captured_launches``); K3's passes and CUDA
+    launches a call, K5's cluster and time a slot (ms / C)."""
+    types, entries = launched
     from cook_tpu_torch.ops import match as tm
     from cook_tpu_torch.ops import sort as tsort
+    if wrapper.kernel in ("scan", "admit"):
+        plan = plans[0]
+        return {"call": wrapper.__name__, "kind": plan.kind, "S": plan.S,
+                "n": plan.n, "C": plan.C, "launches_per_call": len(types),
+                "k2_launches_per_call": k2_launches(types, entries),
+                "launched": types, "ms": ms, "library_ms": lib_ms}
     if wrapper.kernel == "sort":
         S, n = args[0].shape
         bits = tsort.rank_bits(n) if wrapper is tsort.sort_rank \
             else n.bit_length()
         plan = tsort.sort_plan(S, n, bits)
         return {"call": wrapper.__name__, "S": S, "n": n, "passes":
-                plan.passes, "launches_per_call": plan.launches,
+                plan.passes, "launches_per_call": len(types),
                 "passes_run": passes_run(wrapper, args), "ms": ms,
                 "library_ms": lib_ms}
     if wrapper.kernel == "greedy":
@@ -329,8 +465,8 @@ def launch_detail(wrapper, args, ms, lib_ms) -> dict:
         plan = tm.greedy_plan(P, C, H)
         return {"P": P, "C": C, "H": H, "cluster": plan.cluster,
                 "threads": plan.threads, "hosts_per_cta": plan.hosts_per_cta,
-                "in_smem": plan.in_smem, "ms": ms,
-                "us_per_step": ms * 1e3 / C}
+                "in_smem": plan.in_smem, "launches_per_call": len(types),
+                "ms": ms, "us_per_step": ms * 1e3 / C}
     return {}
 
 
@@ -359,6 +495,32 @@ def bound(row) -> tuple:
     return max(bytes_ms, ops_ms), "operations" if ops_ms > bytes_ms else "bytes"
 
 
+def nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def bytes_moved(wrapper, args, kw, got) -> int:
+    """The bytes a call's function must move: each input read once, each
+    output written once.  The compaction reads ``job_res`` and
+    ``exc_id`` only at the rows its slots gather (each admitted slot's
+    row, and the last rank-order row for the empty slots), counted here
+    from this call's outputs."""
+    from cook_tpu_torch.ops import admit as tad
+    ins = [a for a in list(args) + list(kw.values())
+           if isinstance(a, torch.Tensor)]
+    total = sum(nbytes(t) for t in ins + got)
+    if wrapper is tad.compact:
+        order, job_res, exc_id = args[0], args[3], args[4]
+        out = tad.Compacted(*got)
+        last = order[:, -1:].expand_as(out.cand_row)
+        rows = torch.where(out.valid_c != 0, out.cand_row, last)
+        gathered = sum(int(torch.unique(r).numel()) for r in rows)
+        row_bytes = (job_res.shape[2] * job_res.element_size()
+                     + exc_id.element_size())
+        total += gathered * row_bytes - nbytes(job_res) - nbytes(exc_id)
+    return total
+
+
 def replay(i, wrapper, args, kw, faults) -> tuple:
     """Launch a recorded call again and run its plain version on the same
     inputs; every output must agree bit for bit.  Appends a line per
@@ -382,13 +544,15 @@ def replay(i, wrapper, args, kw, faults) -> tuple:
 
 
 def phase_a(calls):
-    """Replay one cycle's launches: kernel vs plain version, timed."""
+    """Replay one cycle's launches: kernel vs plain version, timed, each
+    call's CUDA launches counted (``captured_launches``)."""
     from cook_tpu_torch.ops.match import compose_mask
     rows = {k: dict(calls=0, max_abs_err=0.0, ms=0.0, plain_ms=0.0,
                     library_ms=None, bytes=0, ops=0) for k in SOURCES}
-    details = {"sort": [], "greedy": []}
+    details = {"scan": [], "admit": [], "sort": [], "greedy": []}
+    covered_ms = 0.0   # K2's time in the calls a library call covers
     faults = []
-    for i, (wrapper, args, kw) in enumerate(calls):
+    for i, (wrapper, args, kw, plans) in enumerate(calls):
         row = rows[wrapper.kernel]
         got, err = replay(i, wrapper, args, kw, faults)
         row["max_abs_err"] = max(row["max_abs_err"], err)
@@ -398,18 +562,25 @@ def phase_a(calls):
         row["calls"] += 1
         ms = cuda_ms(lambda: wrapper.launch(*args, **kw), 3 if slow else 20)
         row["ms"] += ms
+        dev_ms = device_ms(lambda: wrapper.launch(*args, **kw),
+                           3 if slow else 20)
+        if dev_ms is not None:
+            row["device_ms"] = row.get("device_ms", 0.0) + dev_ms
+        launched = captured_launches(lambda: wrapper.launch(*args, **kw))
+        row["cuda_launches"] = row.get("cuda_launches", 0) + len(launched[0])
         row["plain_ms"] += cuda_ms(lambda: wrapper.plain(*args, **kw),
                                    1 if slow else 3)
-        lib = library_call(wrapper, args)
+        lib = library_call(wrapper, args, kw)
         lib_ms = None if lib is None else cuda_ms(lib, 20)
         if lib_ms is not None:
             row["library_ms"] = (row["library_ms"] or 0.0) + lib_ms
+            if wrapper.kernel == "scan":
+                covered_ms += ms
         if wrapper.kernel in details:
             details[wrapper.kernel].append(
-                launch_detail(wrapper, args, ms, lib_ms))
-        ins = [a for a in list(args) + list(kw.values())
-               if isinstance(a, torch.Tensor)]
-        row["bytes"] += sum(t.numel() * t.element_size() for t in ins + got)
+                {**launch_detail(wrapper, args, plans, launched, ms, lib_ms),
+                 "device_ms": dev_ms})
+        row["bytes"] += bytes_moved(wrapper, args, kw, got)
         if slow:   # ~12 f32 ops per (valid slot, host its mask admits)
             mask = compose_mask(*args[2:7]) & (args[1] != 0)[..., None]
             row["ops"] += int(mask.sum()) * 12
@@ -417,7 +588,87 @@ def phase_a(calls):
         raise AssertionError("kernel != plain version:\n" + "\n".join(faults))
     for k, det in details.items():
         rows[k]["per_call"] = det
+    rows["scan"]["ms_of_library_calls"] = covered_ms
     return rows
+
+
+def k2_k4_line(rows) -> dict:
+    """K2 and K4 together at the design point: one cycle's calls, their
+    CUDA launches as phase A counted them (at most 2 a K2 call, 30 a
+    cycle) and time."""
+    calls = rows["scan"]["per_call"] + rows["admit"]["per_call"]
+    launches = sum(d["launches_per_call"] for d in calls)
+    worst = max(d["k2_launches_per_call"] for d in calls)
+    if worst > 2 or launches > 30:
+        raise AssertionError(f"K2: {worst} CUDA launches in a call, "
+                             f"{launches} with K4 a cycle")
+    both = {k: rows["scan"][k] + rows["admit"][k]
+            for k in ("calls", "ms", "plain_ms", "bytes", "ops")}
+    both["device_ms"] = (rows["scan"].get("device_ms", 0.0)
+                         + rows["admit"].get("device_ms", 0.0)) or None
+    b_ms, b_by = bound(both)
+    return {"phase": "A", "kernel": "K2+K4", **both,
+            "cuda_launches_per_cycle": launches,
+            "max_k2_launches_per_call": worst, "bound_ms": b_ms,
+            "bound_by": b_by}
+
+
+# CUDA kernel names by stage kernel, for the profiler's breakdown
+KERNEL_NAMES = (("scan", ("seg_tile", "blk_tile", "int_tile")),
+                ("sort", ("radix_",)), ("admit", ("compact_slots",)),
+                ("greedy", ("greedy",)), ("gang", ("gang_kernel",)),
+                ("expand", ("expand_", "group_base_k", "win32")),
+                ("memset", ("memset", "Memset")))
+
+
+def profile_cycles(wire, args, cycles=3) -> dict:
+    """Device time a cycle by stage kernel, from torch.profiler's CUDA
+    activity over ``cycles`` cycles on one staged wire, beside the CUDA
+    events' span around them (the profiler slows the host, so the idle
+    share is taken against the unprofiled cycles' span).
+    Then the host's time by function over as many cycles (cProfile's own
+    time a cycle, the 15 largest; the profiler slows the host, so these
+    are shares, not the cycle's enqueue time)."""
+    from cook_tpu_torch.ops.pallas_cycle import megacycle
+    megacycle(wire, **args)
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+
+    def run():
+        ev0.record()
+        for _ in range(cycles):
+            megacycle(wire, **args)
+        ev1.record()
+    prof, _ = profiled(run, 1)
+    span = ev0.elapsed_time(ev1) / cycles
+    host = cProfile.Profile()
+    host.enable()
+    for _ in range(cycles):
+        megacycle(wire, **args)
+    host.disable()
+    torch.cuda.synchronize()
+    stats = pstats.Stats(host).stats
+    top = sorted(stats.items(), key=lambda kv: -kv[1][2])[:15]
+    host_ms = {f"{Path(f).name}:{line}({fn})": tt * 1e3 / cycles
+               for (f, line, fn), (_, _, tt, _, _) in top}
+    by_name, by_stage = {}, {}
+    for e in (prof.key_averages() if prof else []):
+        us = device_us(e)
+        if us <= 0:
+            continue
+        ms = us / 1e3 / cycles
+        by_name[e.key[:80]] = ms
+        stage = next((k for k, pats in KERNEL_NAMES
+                      if any(p in e.key for p in pats)), "other")
+        by_stage[stage] = by_stage.get(stage, 0.0) + ms
+    busy = sum(by_name.values())
+    return {"phase": "B", "profiled_cycles": cycles,
+            "device_ms_by_stage": by_stage or "not measured",
+            "device_ms_by_kernel": by_name or "not measured",
+            "busy_ms": busy if by_name else "not measured",
+            "profiled_span_ms": span,
+            "host_tottime_ms_by_function_profiled": host_ms,
+            "busy": busy if by_name else None}
 
 
 # small worlds for the kernel paths the design point does not take
@@ -730,16 +981,24 @@ def phase_e():
             raise AssertionError(f"{k} was not launched by the split path")
     # every launch of the three worlds again, against its plain version
     # on the same inputs, at the split path's own shapes
-    faults, held = [], {}
-    for i, (wrapper, wargs, kw) in enumerate(calls):
+    faults, held, worst = [], {}, 0
+    t0 = time.perf_counter()
+    for i, (wrapper, wargs, kw, _) in enumerate(calls):
         replay(i, wrapper, wargs, kw, faults)
         shape = tuple(wargs[0].shape)
         key = f"{wrapper.__name__} {list(shape)}"
         held[key] = held.get(key, 0) + 1
+        if wrapper.kernel == "scan":
+            worst = max(worst, k2_launches(*captured_launches(
+                lambda: wrapper.launch(*wargs, **kw))))
     if faults:
         raise AssertionError("split path: kernel != plain version:\n"
                              + "\n".join(faults))
-    print(json.dumps({"phase": "E", "replayed_equal_to_plain": held}))
+    if worst > 2:
+        raise AssertionError(f"split path: a K2 call made {worst} launches")
+    print(json.dumps({"phase": "E", "replayed_equal_to_plain": held,
+                      "max_k2_launches_per_call": worst,
+                      "replay_and_count_s": time.perf_counter() - t0}))
     for name, args, mc, assign, wall_ms in results:
         print(json.dumps({
             "phase": "E", "world": name, "J": len(args[0]),
@@ -779,6 +1038,154 @@ def phase_e():
     print(json.dumps({"phase": "E", "world": "split_2500x4000",
                       "identical_card_cpu": same}))
     return counts
+
+
+# ------------------------------------- phase F: K2, K3 and K5 edge worlds
+SCAN_EDGE_N = (1, 2, 15, 16, 17, 4_095, 4_096, 4_097, 65_537, 131_072,
+               262_144, 1_048_576)
+SCAN_STARTS = ("tile", "after_tile", "every", "first", "random")
+
+
+def edge_floats(g, shape, specials=False):
+    """Non-dyadic floats of both signs; with ``specials`` also +inf,
+    -inf and NaN (one in 10,000 each)."""
+    dev = "cuda"
+    x = torch.rand(shape, generator=g, device=dev) * 7.3 + 0.01
+    x = torch.where(torch.rand(shape, generator=g, device=dev) < 0.1, -x, x)
+    if specials:
+        r = torch.rand(shape, generator=g, device=dev)
+        x = torch.where(r < 1e-4, float("inf"), x)
+        x = torch.where((r >= 1e-4) & (r < 2e-4), float("-inf"), x)
+        x = torch.where((r >= 2e-4) & (r < 3e-4), float("nan"), x)
+    return x.contiguous()
+
+
+def edge_starts(g, S, n, kind):
+    """u8 segment starts: at each tile's first row, at its second, on
+    every row, on row 0 only, or at random (1%, row 0 not forced); set
+    rows hold 1, 2 or 255 (the kernel tests != 0)."""
+    from cook_tpu_torch.ops import scan as tscan
+    t = torch.arange(n, device="cuda").expand(S, n)
+    tile = 1 << tscan.TILE_LOG
+    on = {"tile": t % tile == 0, "after_tile": t % tile == 1,
+          "every": torch.ones_like(t, dtype=torch.bool), "first": t == 0,
+          "random": torch.rand((S, n), generator=g, device="cuda") < 0.01
+          }[kind]
+    val = torch.tensor([1, 2, 255], dtype=torch.uint8, device="cuda")[
+        torch.randint(0, 3, (S, n), generator=g, device="cuda")]
+    return torch.where(on, val, torch.zeros_like(val)).contiguous()
+
+
+def scan_edge_calls(g, S, n):
+    """(wrapper, args, kwargs) of every K2 kind at one (S, n)."""
+    from cook_tpu_torch.ops import scan as tscan
+    calls = []
+    for kind in SCAN_STARTS:
+        calls.append((tscan.seg_scan, (edge_floats(g, (S, n, 4),
+                                                   kind == "random"),
+                                       edge_starts(g, S, n, kind)), {}))
+    rnd = edge_starts(g, S, n, "random")
+    mflags = torch.randint(0, 32, (S, n), generator=g, device="cuda",
+                           dtype=torch.uint8)
+    for C in (1, 3):
+        calls.append((tscan.seg_scan, (edge_floats(g, (S, n, C), True),
+                                       rnd), {}))
+    calls.append((tscan.seg_scan, (edge_floats(g, (S, n, 3), True), rnd,
+                                   mflags, 2, 1), {}))
+    for kind in ("tile", "random"):
+        calls.append((tscan.seg_count, (mflags, 4,
+                                        edge_starts(g, S, n, kind)), {}))
+    for C in (1, 3, 4):
+        calls.append((tscan.prefix16, (edge_floats(g, (S, n, C), C == 3),),
+                      {}))
+    ints = torch.randint(-1000, 1000, (S, n), generator=g, device="cuda",
+                         dtype=torch.int32)
+    calls += [
+        (tscan.int_scan, (mflags,), dict(bit=8, offset=-1)),
+        (tscan.int_scan, (mflags,), dict(bit=1, reverse=True)),
+        (tscan.int_scan, (ints,), dict(op="min", reverse=True)),
+        (tscan.int_scan, (ints,), dict(op="min", offset=3)),
+        (tscan.int_scan, (ints,), dict(offset=5))]
+    return calls
+
+
+def fused_edge_calls(g, S, n):
+    """(wrapper, args, kwargs) of every fused K2/K4 launch on a random
+    world at (S, n): permutations for order and perm, random flags,
+    quotas that some prefixes pass and some do not."""
+    from cook_tpu_torch.ops import admit as tad
+    dev = "cuda"
+
+    def u(shape, lo, hi):
+        return (torch.rand(shape, generator=g, device=dev) * (hi - lo)
+                + lo).contiguous()
+
+    def bits(p, shape=(S, n)):
+        return (torch.rand(shape, generator=g, device=dev) < p).to(
+            torch.uint8)
+
+    def perm():
+        return torch.argsort(torch.rand((S, n), generator=g, device=dev),
+                             dim=1).to(torch.int32)
+
+    def ints(lo, hi, shape=(S, n)):
+        return torch.randint(lo, hi, shape, generator=g, device=dev,
+                             dtype=torch.int32)
+
+    usage = u((S, n, 4), 0.1, 4.0)
+    start = edge_starts(g, S, n, "random")
+    start[:, 0] = 1
+    flags = torch.randint(0, 32, (S, n), generator=g, device=dev,
+                          dtype=torch.uint8)
+    tokens = u((S, n), 0.0, 60.0)
+    tokens[bits(0.1) != 0] = float("inf")
+    return [
+        (tad.rank_over, (usage, start, flags, u((S, n, 4), 0.0, 400.0)), {}),
+        (tad.rank_keep, (bits(0.3), start, usage, flags, 3), {}),
+        (tad.rank_dru, (usage, start, u((S, n, 3), 0.5, 50.0),
+                        bits(0.9), flags, n % 2 == 1), {}),
+        (tad.queue, (perm(), usage, u((S, n, 4), 0.0, 400.0),
+                     ints(-1, n), u((S, n, 4), 0.0, 50.0), ints(0, n),
+                     tokens, flags, bits(0.8), u((S, 4), 0.0, 10.0),
+                     u((S, 4), 0.0, 1.0 * n), u((S, 4), 0.0, 10.0),
+                     u((S, 4), 0.0, 1.2 * n)), {}),
+        (tad.user_quota, (perm(), usage, bits(0.7), ints(0, max(n // 50, 1)),
+                          u((S, n, 4), 0.0, 100.0),
+                          u((S, n, 4), 0.0, 400.0)), {}),
+        (tad.accept, (bits(0.7), edge_starts(g, S, n, "random"), perm(),
+                      tokens, bits(0.7), ints(0, 8).to(torch.uint8)), {}),
+        (tad.match_valid, (bits(0.5), ints(0, n + 1, (S,))), {}),
+        (tad.compact, (perm(), bits(0.5), bits(0.6), u((S, n, 4), 0.0, 8.0),
+                       ints(-1, 64), min(1024, n)), {})]
+
+
+def scan_edge_check():
+    """Every K2 kind and every fused K2/K4 launch against its plain
+    version, bit for bit, at S in {1, 4} and every n of SCAN_EDGE_N (at
+    S = 4, n = 1,048,576 makes 1,024 tiles, more CTAs than can be
+    resident: the ticket orders them)."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    faults, held, worst, i = [], {}, 0, 0
+    t0 = time.perf_counter()
+    for S in (1, 4):
+        for n in SCAN_EDGE_N:
+            for wrapper, args, kw in scan_edge_calls(g, S, n) \
+                    + fused_edge_calls(g, S, n):
+                replay(i, wrapper, args, kw, faults)
+                i += 1
+                held[wrapper.__name__] = held.get(wrapper.__name__, 0) + 1
+                worst = max(worst, k2_launches(*captured_launches(
+                    lambda: wrapper.launch(*args, **kw))))
+            if faults:
+                raise AssertionError(f"K2 at S={S}, n={n}: kernel != plain "
+                                     "version:\n" + "\n".join(faults))
+    if worst > 2:
+        raise AssertionError(f"K2: {worst} CUDA launches in a call")
+    print(json.dumps({"phase": "F", "kernel": "scan", "S": [1, 4],
+                      "n": list(SCAN_EDGE_N), "calls": held,
+                      "equal_to_plain": True,
+                      "max_k2_launches_per_call": worst,
+                      "replay_and_count_s": time.perf_counter() - t0}))
 
 
 # ------------------------------------------ phase F: K3 and K5 edge worlds
@@ -874,11 +1281,13 @@ GREEDY_EDGES = (
 
 
 def phase_f():
-    """K3 and K5 against their plain versions on edge worlds: K3 at S in
-    {1, 4} and every n of SORT_EDGE_N for the four kinds (skipped and
-    run passes both occur); K5 across CTAs, clusters and variants."""
+    """K2, K3 and K5 against their plain versions on edge worlds: K2's
+    kinds and fused launches (scan_edge_check); K3 at S in {1, 4} and
+    every n of SORT_EDGE_N for the four kinds (skipped and run passes
+    both occur); K5 across CTAs, clusters and variants."""
     from cook_tpu_torch.ops import match as tm
     from cook_tpu_torch.ops import sort as tsort
+    scan_edge_check()
     rng = np.random.default_rng(SEED + 40)
     sorts, runs, skips = 0, 0, 0
     for S in (1, 4):
@@ -1023,6 +1432,7 @@ def main() -> int:
         b_ms, b_by = bound(row)
         print(json.dumps({"phase": "A", "kernel": k, **row,
                           "bound_ms": b_ms, "bound_by": b_by}))
+    print(json.dumps(k2_k4_line(rows)))
     phase_c()
 
     # phase B: the main path, counted
@@ -1065,6 +1475,12 @@ def main() -> int:
             "n_queue": res.n_queue.tolist(), "h2d_bytes": staged["h2d_bytes"],
             "codecs": codecs[-1], "launches_so_far": launches}))
     counts = telemetry.snapshot()
+    prof = profile_cycles(staged["wire"], megacycle_args(staged))
+    busy = prof.pop("busy")
+    span = statistics.median(span_ms[1:])
+    prof["idle_share_of_unprofiled_span"] = \
+        "not measured" if busy is None else 1.0 - busy / span
+    print(json.dumps(prof))
     missing = [k for k in SOURCES if counts.get(k, 0) <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: "
@@ -1096,6 +1512,10 @@ def main() -> int:
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": row["library_ms"], "calls_per_cycle": row["calls"],
+            "cuda_launches_per_cycle": row.get("cuda_launches"),
+            "device_ms": row.get("device_ms"),
+            **({"ms_of_library_calls": row["ms_of_library_calls"]}
+               if "ms_of_library_calls" in row else {}),
             **({"per_call": row["per_call"]} if "per_call" in row else {})})
     for k, row in topk_rows.items():
         b_ms, b_by = bound(row)

@@ -23,7 +23,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Callable, List, Optional
+from typing import Callable, List, NamedTuple, Optional
 
 import torch
 
@@ -34,25 +34,27 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cuda"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-fmad=false", "-std=c++17", "-Xcompiler", "-fPIC"]
 
-# argument codes: p pointer, i int, l long long, f float
+# argument codes: p pointer, i int, l long long, f float.  Every K2
+# entry ends with scan_plan's geometry (ops/scan.k2_launch) and the
+# stream.
+_GEO = "piliiilli" + "p"
 _SIGNATURES = {
     "k1_expand": "pipppppppppppiffffpiffff" + "p" * 15 + "iliiiip",
-    "k2_seg_f32": "pppiipppilip",
-    "k2_seg_count": "pippppilp",
-    "k2_prefix16": "pppilip",
-    "k2_int_scan": "piiiiippilp",
+    "k2_seg_f32": "pppiipi" + _GEO,
+    "k2_seg_count": "pipp" + _GEO,
+    "k2_prefix16": "ppi" + _GEO,
+    "k2_int_scan": "piiiiip" + _GEO,
+    "k24_rank_over": "p" * 5 + _GEO,
+    "k24_rank_keep": "ppppipp" + _GEO,
+    "k24_rank_dru": "pppppipp" + _GEO,
+    "k24_queue": "p" * 20 + _GEO,
+    "k24_user_quota": "p" * 9 + _GEO,
+    "k24_accept": "p" * 7 + _GEO,
+    "k24_match_valid": "ppp" + _GEO,
+    "k24_compact": "pppipppp" + _GEO,
     "k3_sort_rank": "pppippppiliiiiillllip",
     "k3_sort_user": "pippppiliiiiillllip",
-    "k4_rank_over": "ppppilp",
-    "k4_rank_keep": "pppippilp",
-    "k4_rank_dru": "ppppippilp",
-    "k4_gather": "p" * 16 + "ilp",
-    "k4_queue": "p" * 7 + "ilp",
-    "k4_user_gather": "p" * 6 + "ilp",
-    "k4_user_quota": "p" * 7 + "ilp",
-    "k4_accept": "p" * 6 + "ilp",
-    "k4_match_valid": "p" * 4 + "ilp",
-    "k4_compact": "p" * 16 + "ilip",
+    "k4_compact_slots": "p" * 14 + "ilip",
     "k5_greedy": "p" * 11 + "iiii" + "iiiiiiil" + "ip",
     "k5_div_check": "pppppip",
     "k6_gang": "p" * 11 + "iiliiip",
@@ -145,24 +147,38 @@ def ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def call(name: str, kernel: str, *args) -> None:
+def call(name: str, kernel: str, *args, plan=None) -> None:
     """Launch C entry ``name`` on the current stream; raise if it reports
-    a CUDA error, else count one launch of ``kernel``."""
+    a CUDA error, else count one launch of ``kernel``.  ``plan``, the
+    launch geometry the caller built (K2's ``ScanPlan``), is kept with
+    the recorded call."""
     stream = torch.cuda.current_stream().cuda_stream
     rc = getattr(lib(), name)(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
     telemetry.counter(kernel).add()
+    if plan is not None and _PLANS is not None:
+        _PLANS.append(plan)
+
+
+class Launch(NamedTuple):
+    """One recorded stage-wrapper call: the wrapper, its arguments, and
+    the plans its launches were given."""
+    wrapper: Callable
+    args: tuple
+    kw: dict
+    plans: tuple
 
 
 _RECORDER: Optional[list] = None
+_PLANS: Optional[list] = None
 
 
 @contextlib.contextmanager
 def recording():
     """Collect every kernel launch made through a stage wrapper inside
-    the block as (wrapper, args, kwargs), so a caller can replay each
-    launch against its plain version on the same inputs."""
+    the block as a :class:`Launch`, so a caller can replay each launch
+    against its plain version on the same inputs."""
     global _RECORDER
     _RECORDER = calls = []
     try:
@@ -188,6 +204,7 @@ def stage(kernel: str, plain: Callable, dtypes=()):
 
         @functools.wraps(launch)
         def wrapper(*args, **kw):
+            global _PLANS
             dev = _device_of(args)
             if dev.type == "cpu":
                 return plain(*args, **kw)
@@ -203,10 +220,12 @@ def stage(kernel: str, plain: Callable, dtypes=()):
                 if want is not None and a.dtype != want:
                     raise ValueError(f"{name}: tensor argument {i} must be "
                                      f"{want}, got {a.dtype}")
+            _PLANS = [] if _RECORDER is not None else None
             with torch.cuda.device(dev):
                 out = launch(*args, **kw)
             if _RECORDER is not None:
-                _RECORDER.append((wrapper, args, kw))
+                _RECORDER.append(Launch(wrapper, args, kw, tuple(_PLANS)))
+            _PLANS = None
             return out
         wrapper.plain = plain
         wrapper.launch = launch

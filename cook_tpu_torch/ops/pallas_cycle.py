@@ -8,10 +8,12 @@ becomes a chain of CUDA stage kernels over device memory, each written
 by hand for sm_90a (``csrc/``):
 
   K1 expand  (ops/expand.py)   wire decode, gathers, phase-0 pool bases
-  K2 scan    (ops/scan.py)     segmented / blocked / integer prefixes
+  K2 scan    (ops/scan.py)     segmented / blocked / integer prefixes,
+                               one tiled launch a scan
   K3 sort    (ops/sort.py)     stable LSD radix sorts (rank, user-major)
   K4 admit   (ops/admit.py)    over-quota limit, DRU, admission,
-                               compaction, compact outputs
+                               compaction (inside the K2 launches beside
+                               them), compact outputs
   K5 greedy  (ops/match.py)    greedy assignment, one CTA per pool
   K6 gang    (ops/gang.py)     gang_min-gated segment reduction
 

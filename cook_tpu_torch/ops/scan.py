@@ -19,10 +19,14 @@ after +inf).
 
 The CUDA versions of these scans are kernel K2 (the stage wrappers
 ``seg_scan``, ``seg_count``, ``prefix16`` and ``int_scan`` below, over
-``csrc/scan.cu``); the sorts are kernel K3 (``ops/sort.py``).
+``csrc/scan.cu``: one memset and one tiled launch a call, geometry from
+:func:`scan_plan`; ``ops/admit.py`` runs K4's stages inside the same
+launches); the sorts are kernel K3 (``ops/sort.py``).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -193,12 +197,85 @@ def lexsort(keys, dim: int = -1) -> torch.Tensor:
 # --------------------------------------------------------------- kernel K2
 # Stage wrappers over [S, T(, C)] batches (S independent series, the scan
 # along dim 1).  A CPU tensor takes the plain version, a CUDA tensor the
-# kernel in csrc/scan.cu, which replaces the scans inside
+# kernel in csrc/scan.cu (one memset and one tiled launch, geometry from
+# scan_plan), which replaces the scans inside
 # cook_tpu/ops/pallas_cycle.py::_kernel.
 from . import cuda_lib  # noqa: E402
 
 KERNEL = "scan"
 _F32, _U8 = torch.float32, torch.uint8
+
+# The geometry csrc/scan_tile.cuh is compiled for (it refuses any other):
+# 1,024 threads a CTA, tiles of 2^12 = 16^3 elements, at most 2^10 tiles
+# a series.
+SCAN_THREADS = 1024
+TILE_LOG = 12
+MAX_TILES = 1 << 10
+KINDS = ("seg", "blocked", "int")   # kKindSeg, kKindBlocked, kKindInt
+
+
+class ScanPlan(NamedTuple):
+    """Launch geometry of one K2 call over S series of n elements of C
+    columns.  ``ctl`` is one int32 buffer: the tile ticket (word 0) and
+    one status word per (series, tile) from word 1, zeroed by one memset
+    of ``zero_words``, then from ``value_off`` the ``values`` words each
+    tile publishes (tile-major, ``values / C`` per column).  One CTA per
+    tile, S * tiles CTAs."""
+    S: int
+    n: int
+    C: int
+    kind: str
+    threads: int
+    tile: int
+    tiles: int
+    status_off: int
+    value_off: int
+    values: int         # published words a tile
+    zero_words: int
+    ctl_words: int
+    smem_bytes: int     # dynamic shared memory of one CTA
+
+
+def scan_plan(S: int, n: int, C: int, kind: str) -> ScanPlan:
+    """``kind``: "seg" (the segmented tree order, f32 or an int count),
+    "blocked" (jnp.cumsum's blocked-16 order) or "int" (integer sum or
+    min, C <= 2)."""
+    tile = 1 << TILE_LOG
+    if kind not in KINDS:
+        raise ValueError(f"K2 kind {kind!r} not in {KINDS}")
+    if not 1 <= n <= tile * MAX_TILES:
+        raise ValueError(f"K2 scans 1 <= n <= {tile * MAX_TILES} a series, "
+                         f"got {n}")
+    if not 1 <= C <= (2 if kind == "int" else 4) or S < 1:
+        raise ValueError(f"K2 {kind}: S >= 1 and C in 1..4 (int: 1..2), "
+                         f"got S={S}, C={C}")
+    tiles = -(-n // tile)
+    zero = 1 + S * tiles
+    values = (3 if kind == "blocked" else 1) * C
+    if kind == "seg":      # levels 0..12 of C columns, the tile tree, flags
+        smem = C * (2 * tile + 2 * tiles) * 4 + 2 * tile + 2 * tiles
+    elif kind == "blocked":  # levels 0-2 (padded), the tile totals' levels
+        smem = C * ((tile + tile // 16) + (tile // 16 + tile // 256) + 16
+                    + 2 * tiles) * 4
+    else:
+        smem = 0
+    return ScanPlan(S=S, n=n, C=C, kind=kind, threads=SCAN_THREADS,
+                    tile=tile, tiles=tiles, status_off=1, value_off=zero,
+                    values=values, zero_words=zero,
+                    ctl_words=zero + S * tiles * values, smem_bytes=smem)
+
+
+def k2_launch(entry: str, S: int, n: int, C: int, kind: str, device,
+              *args) -> None:
+    """Launch K2 entry ``entry`` with ``args`` and the geometry of
+    ``scan_plan(S, n, C, kind)``.  The call's one scratch allocation, the
+    control words, is held until the launch is enqueued (the caching
+    allocator then keeps it for the stream's later work)."""
+    plan = scan_plan(S, n, C, kind)
+    ctl = torch.empty(plan.ctl_words, dtype=torch.int32, device=device)
+    cuda_lib.call(entry, KERNEL, *args, ctl.data_ptr(), plan.S, plan.n,
+                  plan.threads, plan.tile, plan.tiles, plan.value_off,
+                  plan.zero_words, plan.smem_bytes, plan=plan)
 
 
 def _flag_mask(x: torch.Tensor, mflags, mon: int, moff: int):
@@ -236,24 +313,6 @@ def _int_scan_plain(x, bit=0, op="sum", reverse=False, offset=0):
     return v + offset
 
 
-def tree_levels(n: int) -> int:
-    """Elements in all levels of the tree scan of one length-n series."""
-    total, k = 0, 0
-    while (n >> k) >= 1:
-        total += n >> k
-        k += 1
-    return total
-
-
-def blocked_levels(n: int, block: int = 16) -> int:
-    """Elements above level 0 of the blocked scan of one series."""
-    total = 0
-    while n > block:
-        n = (n + block - 1) // block
-        total += n
-    return total
-
-
 @cuda_lib.stage(KERNEL, _seg_scan_plain, (_F32, _U8, _U8))
 def seg_scan(x, start, mflags=None, mon=0, moff=0):
     """Segmented inclusive scan of ``x * mask`` (f32 [S, T, C], C <= 4)
@@ -264,13 +323,10 @@ def seg_scan(x, start, mflags=None, mon=0, moff=0):
     cuda_lib.check(start, torch.uint8, (S, n), "start")
     if mflags is not None:
         cuda_lib.check(mflags, torch.uint8, (S, n), "mflags")
-    lv_n = S * tree_levels(n)
-    lv = torch.empty(lv_n * C, dtype=torch.float32, device=x.device)
-    lf = torch.empty(lv_n, dtype=torch.uint8, device=x.device)
     out = torch.empty_like(x)
-    cuda_lib.call("k2_seg_f32", KERNEL, x.data_ptr(), start.data_ptr(),
-                  cuda_lib.ptr(mflags), mon, moff, out.data_ptr(),
-                  lv.data_ptr(), lf.data_ptr(), S, n, C)
+    k2_launch("k2_seg_f32", S, n, C, "seg", x.device, x.data_ptr(),
+              start.data_ptr(), cuda_lib.ptr(mflags), mon, moff,
+              out.data_ptr(), C)
     return out
 
 
@@ -279,26 +335,20 @@ def seg_count(x, bit, start):
     """Segmented inclusive count (i32 [S, T]) of rows with ``x & bit``."""
     S, n = x.shape
     cuda_lib.check(start, torch.uint8, (S, n), "start")
-    lv_n = S * tree_levels(n)
-    lv = torch.empty(lv_n, dtype=torch.int32, device=x.device)
-    lf = torch.empty(lv_n, dtype=torch.uint8, device=x.device)
     out = torch.empty((S, n), dtype=torch.int32, device=x.device)
-    cuda_lib.call("k2_seg_count", KERNEL, x.data_ptr(), bit,
-                  start.data_ptr(), out.data_ptr(), lv.data_ptr(),
-                  lf.data_ptr(), S, n)
+    k2_launch("k2_seg_count", S, n, 1, "seg", x.device, x.data_ptr(), bit,
+              start.data_ptr(), out.data_ptr())
     return out
 
 
 @cuda_lib.stage(KERNEL, _prefix16_plain, (_F32,))
 def prefix16(x):
-    """Inclusive prefix of f32 [S, T, C] along T in jnp.cumsum's XLA:CPU
-    order (blocked 16)."""
+    """Inclusive prefix of f32 [S, T, C] (C <= 4) along T in jnp.cumsum's
+    XLA:CPU order (blocked 16)."""
     S, n, C = x.shape
-    scratch = torch.empty(max(S * C * blocked_levels(n), 1),
-                          dtype=torch.float32, device=x.device)
     out = torch.empty_like(x)
-    cuda_lib.call("k2_prefix16", KERNEL, x.data_ptr(), out.data_ptr(),
-                  scratch.data_ptr(), S, n, C)
+    k2_launch("k2_prefix16", S, n, C, "blocked", x.device, x.data_ptr(),
+              out.data_ptr(), C)
     return out
 
 
@@ -311,11 +361,8 @@ def int_scan(x, bit=0, op="sum", reverse=False, offset=0):
     if x.dtype not in (torch.uint8, torch.int32):
         raise ValueError(f"int_scan: u8 or i32, got {x.dtype}")
     cuda_lib.check(x, x.dtype, name="x")
-    scratch = torch.empty(S * n + max(S * blocked_levels(n), 1),
-                          dtype=torch.int32, device=x.device)
     out = torch.empty((S, n), dtype=torch.int32, device=x.device)
-    cuda_lib.call("k2_int_scan", KERNEL, x.data_ptr(),
-                  int(x.dtype == torch.uint8), bit,
-                  {"sum": 0, "min": 1}[op], int(reverse), offset,
-                  out.data_ptr(), scratch.data_ptr(), S, n)
+    k2_launch("k2_int_scan", S, n, 1, "int", x.device, x.data_ptr(),
+              int(x.dtype == torch.uint8), bit, {"sum": 0, "min": 1}[op],
+              int(reverse), offset, out.data_ptr())
     return out

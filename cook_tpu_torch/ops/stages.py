@@ -31,37 +31,30 @@ def megacycle_stages(wire, *, gpu_mode: bool = False,
                wire.group_id, wire.host_bits, wire.exc_rows, wire.avail,
                wire.capacity, rows_codec=rows_codec, avail_scale=avail_scale,
                cap_scale=cap_scale, n_hosts=wire.exc_mask.shape[2])
-    # rank_body: over-quota limit, DRU, rank sort
-    cum_all = scan.seg_scan(x.usage, x.start, flags, FLAG_VALID, 0)
-    over = admit.rank_over(cum_all, x.quota, flags)
-    over_cnt = scan.seg_count(over, 1, x.start)
-    keep, xk = admit.rank_keep(x.usage, flags, over_cnt, max_over_quota_jobs)
-    cum = scan.seg_scan(xk, x.start)
-    dru, rankable = admit.rank_dru(cum, x.shares, keep, flags, gpu_mode)
+    # rank_body: over-quota limit, DRU, rank sort (K4's stages inside
+    # the K2 launches beside them)
+    over = admit.rank_over(x.usage, x.start, flags, x.quota)
+    keep, xk = admit.rank_keep(over, x.start, x.usage, flags,
+                               max_over_quota_jobs)
+    dru, rankable = admit.rank_dru(xk, x.start, x.shares, keep, flags,
+                                   gpu_mode)
     order = sort.sort_rank(dru, rankable, user_rank)
     # each user's running base: segment totals of the running usage
     cum_run = scan.seg_scan(x.usage, x.start, flags, FLAG_VALID,
                             FLAG_PENDING)
     seg_last = scan.int_scan(x.last_mark, op="min", reverse=True)
     # considerable_body in rank order
-    r = admit.gather(order, x.usage, x.quota, user_rank, cum_run, seg_last,
-                     x.tokens, flags, rankable)
-    cum_pool = scan.prefix16(r.pend_usage)
-    queue_ok = admit.queue(cum_pool, x.pool_base, wire.pool_quota,
-                           x.group_base, wire.group_quota, r.bits_r)
+    r = admit.queue(order, x.usage, x.quota, user_rank, cum_run, seg_last,
+                    x.tokens, flags, rankable, x.pool_base, wire.pool_quota,
+                    x.group_base, wire.group_quota)
     perm = sort.sort_user(r.user_r)
-    vals, ufirst = admit.user_gather(perm, r.usage_r, queue_ok, r.user_r)
-    cum_s = scan.seg_scan(vals, ufirst)
-    quota_ok, quota_ok_s = admit.user_quota(perm, cum_s, r.run_base_r,
-                                            r.quota_r, queue_ok)
-    cnt_s = scan.seg_count(quota_ok_s, 1, ufirst)
-    accepted = admit.accept(perm, cnt_s, r.tokens_r, quota_ok, r.bits_r)
-    adm = scan.int_scan(accepted, bit=1)
-    mv = admit.match_valid(accepted, adm, wire.num_considerable)
+    ufirst, quota_ok, quota_ok_s = admit.user_quota(
+        perm, r.usage_r, r.queue_ok, r.user_r, r.run_base_r, r.quota_r)
+    accepted = admit.accept(quota_ok_s, ufirst, perm, r.tokens_r, quota_ok,
+                            r.bits_r)
+    mv = admit.match_valid(accepted, wire.num_considerable)
     # compaction, match, compact outputs, gang reduction
-    kk = scan.int_scan(mv, bit=1)
-    qp = scan.int_scan(queue_ok, bit=1)
-    c = admit.compact(order, mv, kk, queue_ok, qp, x.job_res, x.exc_id, C)
+    c = admit.compact(order, mv, r.queue_ok, x.job_res, x.exc_id, C)
     assign = greedy(c.res_c, c.valid_c, c.gpu_c, c.eid_c, x.host_gpu,
                     x.host_blocked, wire.exc_mask, x.avail, x.capacity)
     cand_gang, dropped = gang_stage(c.cand_row, assign, wire.gang_id,
