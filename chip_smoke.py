@@ -4,7 +4,8 @@
 Drives two paths of the port through their CUDA kernels.
 
 The fused scheduling cycle (``ops/pallas_cycle.megacycle``, stage kernels
-K1-K6) at the production design point: P = 4 pools of 100,000 live task
+K1-K6; K4 runs inside K2's launches and K6 inside K5's) at the production
+design point: P = 4 pools of 100,000 live task
 rows (T bucket 131,072) from 200 users, 5,000 hosts (H bucket 8,192),
 max_jobs_considered 1,000 (C = 1,024), 64 exception rows a pool, finite
 user / pool / group quotas, and one pool with 16 gangs of 8 over a
@@ -18,8 +19,16 @@ hosts.
 
   1. prints the card's name and power limit (nvidia-smi);
   2. builds the kernels from ``cook_tpu_torch/ops/csrc`` (nvcc);
-  3. phase F: K2, K3 and K5 against their plain versions, bit for bit,
-     on edge worlds: every K2 kind and every fused K2/K4 launch at S in
+  3. phase F: K1, K2, K3, K5 and K5+K6 against their plain versions,
+     bit for bit, on edge worlds: K1 at S in {1, 4, 33} and T from 1 to
+     1,048,576 (tile edges at 1,024, 2,048 and 4,096 +-1; 33 pools take
+     group_base's window path), the three rows codecs, exception rows
+     with duplicates, -1, >= T and rows on tile boundaries at E in {0,
+     1, 64, 256}, u16 and f32 avail and capacity at H in {1, 7, 8,
+     8,192, 65,536}, group ids with -1 and shared groups, +-inf in
+     res_base (0 x inf = NaN reaches the bases), 2 CUDA launches a call
+     (a captured graph's nodes); every K2 kind and every fused K2/K4
+     launch at S in
      {1, 4} and n from 1 to 1,048,576 (segment starts at and just after
      tile boundaries, on every row, on row 0 only and at random; masked
      rows; +-inf and NaN; C in {1, 3, 4}; integer sum and min, reversed
@@ -32,9 +41,14 @@ hosts.
      4,000 (a ragged last CTA), with every slot infeasible, at the split
      path's H = 65,536, on a cluster of 16 (H = 100,000) and with the
      slices in device memory (H = 300,000); it prints K5's cluster and
-     microseconds a step; and it holds K5's fast-path division against
-     IEEE ``/`` bit for bit on operands at both edges of its range and
-     past them;
+     microseconds a step; the fused K5+K6 launch on the same worlds with
+     gang wires (a gang complete, one a member short of gang_min, one
+     split across topology domains, one with a member on a host of
+     unknown topology, unplaced members, slots with cand_row -1; G = 8
+     and 1,024, K6's counts in shared memory and in scratch), one CUDA
+     launch a call, beside K5 alone; and it holds K5's fast-path
+     division against IEEE ``/`` bit for bit on operands at both edges
+     of its range and past them;
   4. phase A: replays every kernel launch of one cycle against its plain
      PyTorch version on the same inputs (integers equal, floats equal
      bit for bit, NaN where NaN) and times kernel (CUDA events, and the
@@ -44,7 +58,9 @@ hosts.
      forward integer sums ``torch.cumsum``); each call's CUDA launches
      (the nodes of a CUDA graph captured from it), each K2 call's kind,
      shape and columns, K2 and K4 together (at most 30 CUDA launches a cycle);
-     K3's passes, K5's cluster and microseconds a step;
+     K3's passes; the fused K5+K6 launch (the ``gang`` row) beside K5
+     alone on its inputs (the ``greedy`` row); K1 at 2 CUDA launches,
+     K5+K6 at 1 and the cycle at most 40;
   5. phase C: two cycles of each of three small worlds for the kernel
      paths the design point does not take (i8 and i16 rows, the
      over-quota limit, gpu mode, K5 at H = 16,384), kernels against the
@@ -56,6 +72,7 @@ hosts.
      counts are zeroed before and read after these cycles; then three
      profiled cycles: the card's time by stage kernel (torch.profiler),
      its idle share of the cycles' span, and the host's time by function
+     and its allocating calls (``torch.empty`` and kin) a cycle
      (cProfile);
   7. phase D: the two top-K kernels (structured at 100,000 x 50,000,
      E = 256; dense at 10,000 x 50,000), counted, then held against
@@ -104,9 +121,11 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 F32_OPS_PER_S = 67e12         # H100 SXM, f32 outside the tensor cores
 
 SOURCES = {"expand": "expand.cu", "scan": "scan.cu", "sort": "sort.cu",
-           "admit": "admit.cu", "greedy": "greedy.cu", "gang": "gang.cu"}
+           "admit": "admit.cu", "greedy": "greedy.cu", "gang": "greedy.cu"}
 STAGES = {
-    "expand": "K1: wire decode, gathers, phase-0 pool/group bases",
+    "expand": "K1: wire decode, gathers, phase-0 pool/group bases, one "
+              "tiled launch after one memset (the last tile of a pool "
+              "finishes its base, the last pool the group bases)",
     "scan": "K2: segmented (associative_scan order), blocked-16 and "
             "integer prefixes, one tiled launch a scan after one memset; "
             "K4's stages run inside as prologues and epilogues",
@@ -115,8 +134,12 @@ STAGES = {
     "admit": "K4: the compaction (its two-column K2 scan with the "
              "scatters as epilogue, then the compact outputs, K4's one "
              "launch of its own)",
-    "greedy": "K5: greedy assignment, one thread-block cluster per pool",
-    "gang": "K6: gang_min-gated segment reduction",
+    "greedy": "K5: greedy assignment, one thread-block cluster per pool "
+              "(timed alone: the split path's instance, on the cycle's "
+              "inputs)",
+    "gang": "K6: gang_min-gated segment reduction, inside K5's launch as "
+            "its epilogue (timed as the fused K5+K6 launch the cycle "
+            "makes)",
 }
 
 
@@ -332,14 +355,16 @@ def profiled(fn, reps: int, tries: int = 3) -> tuple:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from cook_tpu_torch.ops import telemetry
+    def launched():   # K6 counts inside K5's launch
+        return sum(v for k, v in telemetry.snapshot().items() if k != "gang")
     for _ in range(tries):
         torch.cuda.synchronize()
-        entries = -sum(telemetry.snapshot().values())
+        entries = -launched()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        entries += sum(telemetry.snapshot().values())
+        entries += launched()
         acts = sorted((e for e in prof.events()
                        if e.device_type == DeviceType.CUDA
                        and not getattr(e, "is_user_annotation", False)),
@@ -437,12 +462,11 @@ def library_call(wrapper, args, kw):
 
 
 def launch_detail(wrapper, args, plans, launched, ms, lib_ms) -> dict:
-    """What a call of K2, K3 or K5 launched: K2's kind, shape and
-    columns (from the plan the wrapper built) and its CUDA launches a
-    call (``launched``: ``captured_launches``); K3's passes and CUDA
-    launches a call, K5's cluster and time a slot (ms / C)."""
+    """What a call of K2 or K3 launched: K2's kind, shape and columns
+    (from the plan the wrapper built) and its CUDA launches a call
+    (``launched``: ``captured_launches``); K3's passes and CUDA launches
+    a call."""
     types, entries = launched
-    from cook_tpu_torch.ops import match as tm
     from cook_tpu_torch.ops import sort as tsort
     if wrapper.kernel in ("scan", "admit"):
         plan = plans[0]
@@ -459,14 +483,6 @@ def launch_detail(wrapper, args, plans, launched, ms, lib_ms) -> dict:
                 plan.passes, "launches_per_call": len(types),
                 "passes_run": passes_run(wrapper, args), "ms": ms,
                 "library_ms": lib_ms}
-    if wrapper.kernel == "greedy":
-        P, C, _ = args[0].shape
-        H = args[7].shape[1]
-        plan = tm.greedy_plan(P, C, H)
-        return {"P": P, "C": C, "H": H, "cluster": plan.cluster,
-                "threads": plan.threads, "hosts_per_cta": plan.hosts_per_cta,
-                "in_smem": plan.in_smem, "launches_per_call": len(types),
-                "ms": ms, "us_per_step": ms * 1e3 / C}
     return {}
 
 
@@ -545,31 +561,37 @@ def replay(i, wrapper, args, kw, faults) -> tuple:
 
 def phase_a(calls):
     """Replay one cycle's launches: kernel vs plain version, timed, each
-    call's CUDA launches counted (``captured_launches``)."""
-    from cook_tpu_torch.ops.match import compose_mask
+    call's CUDA launches counted (``captured_launches``).  The fused
+    K5+K6 call fills the ``gang`` row, and K5 alone on its inputs (the
+    split path's instance) the ``greedy`` row."""
+    from cook_tpu_torch.ops import match as tm
     rows = {k: dict(calls=0, max_abs_err=0.0, ms=0.0, plain_ms=0.0,
                     library_ms=None, bytes=0, ops=0) for k in SOURCES}
-    details = {"scan": [], "admit": [], "sort": [], "greedy": []}
+    details = {"scan": [], "admit": [], "sort": []}
     covered_ms = 0.0   # K2's time in the calls a library call covers
     faults = []
+    cycle_launches = 0
     for i, (wrapper, args, kw, plans) in enumerate(calls):
         row = rows[wrapper.kernel]
         got, err = replay(i, wrapper, args, kw, faults)
         row["max_abs_err"] = max(row["max_abs_err"], err)
         if faults:
             continue
-        slow = wrapper.kernel == "greedy"
+        if wrapper is tm.greedy_gang:
+            cycle_launches += len(captured_launches(
+                lambda: wrapper.launch(*args))[0])
+            fused_row(rows, args, got, err)
+            continue
         row["calls"] += 1
-        ms = cuda_ms(lambda: wrapper.launch(*args, **kw), 3 if slow else 20)
+        ms = cuda_ms(lambda: wrapper.launch(*args, **kw), 20)
         row["ms"] += ms
-        dev_ms = device_ms(lambda: wrapper.launch(*args, **kw),
-                           3 if slow else 20)
+        dev_ms = device_ms(lambda: wrapper.launch(*args, **kw), 20)
         if dev_ms is not None:
             row["device_ms"] = row.get("device_ms", 0.0) + dev_ms
         launched = captured_launches(lambda: wrapper.launch(*args, **kw))
         row["cuda_launches"] = row.get("cuda_launches", 0) + len(launched[0])
-        row["plain_ms"] += cuda_ms(lambda: wrapper.plain(*args, **kw),
-                                   1 if slow else 3)
+        cycle_launches += len(launched[0])
+        row["plain_ms"] += cuda_ms(lambda: wrapper.plain(*args, **kw), 3)
         lib = library_call(wrapper, args, kw)
         lib_ms = None if lib is None else cuda_ms(lib, 20)
         if lib_ms is not None:
@@ -581,15 +603,87 @@ def phase_a(calls):
                 {**launch_detail(wrapper, args, plans, launched, ms, lib_ms),
                  "device_ms": dev_ms})
         row["bytes"] += bytes_moved(wrapper, args, kw, got)
-        if slow:   # ~12 f32 ops per (valid slot, host its mask admits)
-            mask = compose_mask(*args[2:7]) & (args[1] != 0)[..., None]
-            row["ops"] += int(mask.sum()) * 12
     if faults:
         raise AssertionError("kernel != plain version:\n" + "\n".join(faults))
     for k, det in details.items():
         rows[k]["per_call"] = det
     rows["scan"]["ms_of_library_calls"] = covered_ms
+    rows["cycle_cuda_launches"] = cycle_launches
     return rows
+
+
+def k5_ops(args) -> int:
+    """~12 f32 operations per (valid slot, host its mask admits)."""
+    from cook_tpu_torch.ops.match import compose_mask
+    mask = compose_mask(*args[2:7]) & (args[1] != 0)[..., None]
+    return int(mask.sum()) * 12
+
+
+def fused_row(rows, args, got, err):
+    """The fused K5+K6 call of the cycle: the ``gang`` row times the
+    fused launch (events, device, its plain version K5 then K6), the
+    ``greedy`` row K5 alone (``k5_greedy``, no epilogue) on the same
+    inputs; each with its CUDA launches counted.  The fused bound
+    counts K5's inputs, K6's and the three outputs once."""
+    from cook_tpu_torch.ops import match as tm
+    k5 = args[:9]
+    for name, fn, plain, n_out in (
+            ("greedy", lambda: tm.greedy.launch(*k5),
+             lambda: tm.greedy.plain(*k5), 1),
+            ("gang", lambda: tm.greedy_gang.launch(*args),
+             lambda: tm.greedy_gang.plain(*args), 3)):
+        row = rows[name]
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row["calls"] += 1
+        row["ms"] += cuda_ms(fn, 3)
+        dev_ms = device_ms(fn, 3)
+        if dev_ms is not None:
+            row["device_ms"] = row.get("device_ms", 0.0) + dev_ms
+        types = captured_launches(fn)[0]
+        row["cuda_launches"] = row.get("cuda_launches", 0) + len(types)
+        row["plain_ms"] += cuda_ms(plain, 1)
+        ins = args if n_out == 3 else k5
+        row["bytes"] += sum(nbytes(t) for t in ins) \
+            + sum(nbytes(t) for t in got[:n_out])
+        row["ops"] += k5_ops(args)
+        P, C, _ = args[0].shape
+        H, G = args[7].shape[1], args[11].shape[1]
+        plan = tm.greedy_plan(P, C, H, G if n_out == 3 else 0)
+        row.setdefault("per_call", []).append({
+            "call": "k56_greedy_gang" if n_out == 3 else "k5_greedy",
+            "P": P, "C": C, "H": H, "G": G if n_out == 3 else 0,
+            "cluster": plan.cluster, "threads": plan.threads,
+            "hosts_per_cta": plan.hosts_per_cta, "in_smem": plan.in_smem,
+            "gang_counts_in_smem": plan.gang_in_smem,
+            "launched": types, "ms": row["ms"], "device_ms": dev_ms,
+            "us_per_step": row["ms"] * 1e3 / C})
+
+
+def k1_k56_lines(rows) -> list:
+    """K1 (2 CUDA launches a call), K5+K6 (1) and the cycle (at most
+    40) as phase A counted them from captured graphs."""
+    k1 = rows["expand"]
+    fused, k5 = rows["gang"], rows["greedy"]
+    if k1["cuda_launches"] != 2 * k1["calls"] or fused["cuda_launches"] != 1 \
+            or rows["cycle_cuda_launches"] > 40:
+        raise AssertionError(
+            f"CUDA launches: K1 {k1['cuda_launches']} in {k1['calls']} "
+            f"calls, K5+K6 {fused['cuda_launches']}, a cycle "
+            f"{rows['cycle_cuda_launches']}")
+    out = []
+    for name, row, extra in (
+            ("K1", k1, {}),
+            ("K5+K6", fused, {"k5_alone_ms": k5["ms"],
+                              "k5_alone_device_ms": k5.get("device_ms")})):
+        b_ms, b_by = bound(row)
+        out.append({"phase": "A", "kernel": name, "ms": row["ms"],
+                    "device_ms": row.get("device_ms"), "bound_ms": b_ms,
+                    "bound_by": b_by,
+                    "cuda_launches_per_call": row["cuda_launches"]
+                    // row["calls"], **extra})
+    out.append({"phase": "A", "cycle_cuda_launches":
+                rows["cycle_cuda_launches"]})
+    return out
 
 
 def k2_k4_line(rows) -> dict:
@@ -616,8 +710,7 @@ def k2_k4_line(rows) -> dict:
 # CUDA kernel names by stage kernel, for the profiler's breakdown
 KERNEL_NAMES = (("scan", ("seg_tile", "blk_tile", "int_tile")),
                 ("sort", ("radix_",)), ("admit", ("compact_slots",)),
-                ("greedy", ("greedy",)), ("gang", ("gang_kernel",)),
-                ("expand", ("expand_", "group_base_k", "win32")),
+                ("greedy+gang", ("greedy",)), ("expand", ("expand_",)),
                 ("memset", ("memset", "Memset")))
 
 
@@ -648,6 +741,12 @@ def profile_cycles(wire, args, cycles=3) -> dict:
     host.disable()
     torch.cuda.synchronize()
     stats = pstats.Stats(host).stats
+    allocs = {fn[len("<built-in method "):-1]: nc / cycles
+              for (f, _, fn), (_, nc, _, _, _) in stats.items()
+              if f == "~" and fn.startswith("<built-in method torch.")
+              and any(fn.endswith(k + ">") for k in (
+                  "empty", "empty_like", "zeros", "zeros_like", "full",
+                  "full_like", "ones", "ones_like", "empty_strided"))}
     top = sorted(stats.items(), key=lambda kv: -kv[1][2])[:15]
     host_ms = {f"{Path(f).name}:{line}({fn})": tt * 1e3 / cycles
                for (f, line, fn), (_, _, tt, _, _) in top}
@@ -668,6 +767,8 @@ def profile_cycles(wire, args, cycles=3) -> dict:
             "busy_ms": busy if by_name else "not measured",
             "profiled_span_ms": span,
             "host_tottime_ms_by_function_profiled": host_ms,
+            "torch_empty_calls_per_cycle": allocs.get("torch.empty", 0.0),
+            "allocating_calls_per_cycle": allocs,
             "busy": busy if by_name else None}
 
 
@@ -1287,6 +1388,7 @@ def phase_f():
     both occur); K5 across CTAs, clusters and variants."""
     from cook_tpu_torch.ops import match as tm
     from cook_tpu_torch.ops import sort as tsort
+    expand_edge_check()
     scan_edge_check()
     rng = np.random.default_rng(SEED + 40)
     sorts, runs, skips = 0, 0, 0
@@ -1330,6 +1432,7 @@ def phase_f():
             "equal_to_plain": True, "placed": int((got >= 0).sum()),
             "valid_slots": int(valid.sum()), "ms": ms,
             "us_per_step": ms * 1e3 / C}))
+    greedy_gang_edge_check()
     div_fast_check()
 
 
@@ -1399,6 +1502,210 @@ def div_fast_check():
 
 
 
+# ------------------------------------------- phase F: K1 and K5+K6 edge worlds
+EXPAND_EDGE_S = (1, 4, 33)
+EXPAND_EDGE_T = (1, 31, 32, 33, 1_023, 1_024, 1_025, 2_047, 2_048, 2_049,
+                 4_095, 4_096, 4_097, 131_072, 1_048_576)
+EXPAND_EDGE_E = (0, 1, 64, 256)
+EXPAND_EDGE_H = (1, 7, 8, 8_192, 65_536)
+
+
+def expand_edge_args(S, T, codec, E, H, u16, seed) -> tuple:
+    """K1's inputs on a seeded world: rows in the codec (deltas within
+    its range for i8 and i16), random flags whose USER_FIRST bits make
+    segments (and ``user_rank`` -1 before the first and past U - 1),
+    +-inf in ``res_base`` (so 0 x inf = NaN reaches the bases),
+    exception rows with duplicates, -1, >= T and rows on tile
+    boundaries, u16 or f32 ``avail`` and ``capacity``, group ids with -1
+    and shared groups."""
+    from cook_tpu_torch.ops import expand as tex
+    from cook_tpu_torch.ops import quant
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev = "cuda"
+
+    def rand(shape, lo, hi):
+        return torch.rand(shape, generator=g, device=dev) * (hi - lo) + lo
+
+    def ints(lo, hi, shape, dtype=torch.int32):
+        return torch.randint(lo, hi, shape, generator=g, device=dev,
+                             dtype=dtype)
+    N = T + 300
+    t = torch.arange(T, device=dev)
+    if codec == quant.ROWS_WIDE:
+        rows = ints(0, N, (S, T))
+    else:
+        lim = 100 if codec == quant.ROWS_I8 else 30_000
+        delta = ints(-lim, lim, (S, T))
+        delta = torch.clamp(delta + t, 0, N - 1) - t
+        rows = delta.to(torch.int8 if codec == quant.ROWS_I8
+                        else torch.int16)
+    flags = ints(0, 32, (S, T)).to(torch.uint8)
+    flags &= ~torch.where(rand((S, T), 0, 1) < 0.9, 16, 0).to(torch.uint8)
+    user_rank = (torch.cumsum(((flags & 16) != 0).to(torch.int32), 1,
+                              dtype=torch.int32) - 1).contiguous()
+    U = 7
+    res_base = (rand((N, 4), -3.0, 9.0) * 1.37).contiguous()
+    pick = rand((N, 4), 0, 1)
+    res_base[pick < 0.01] = float("inf")
+    res_base[(pick >= 0.01) & (pick < 0.02)] = float("-inf")
+    disk = rand(N, 0, 2048.3)
+    group_id = torch.tensor([(q % 3) - 1 for q in range(S)], dtype=torch.int32,
+                            device=dev)
+    B = -(-H // 8)
+    host_bits = ints(0, 256, (S, 2, B)).to(torch.uint8)
+    exc = ints(-2, T + 3, (S, E))
+    if E:
+        special = torch.tensor([0, T - 1, tex.TILE - 1, tex.TILE, -1, T,
+                                T + 5, tex.TILE + 1], dtype=torch.int32,
+                               device=dev)
+        k = min(E, special.numel())
+        exc[:, :k] = special[:k]
+        if E > 9:
+            exc[:, 9] = exc[:, 0]          # duplicates: the later e wins
+            exc[:, E - 1] = exc[:, 1]
+    if u16:
+        a_scale, c_scale = (0.5, 1024.0, 1.0, 0.25), (1.0, 2048.0, 0.5, 1.0)
+        avail = ints(-32768, 32768, (S, H, 4), torch.int16).view(
+            torch.uint16)
+        cap = ints(-32768, 32768, (S, H, 4), torch.int16).view(torch.uint16)
+    else:
+        a_scale = c_scale = 0.0
+        avail = rand((S, H, 4), 0, 99.7)
+        cap = rand((S, H, 4), 0, 199.3)
+    args = (rows.contiguous(), flags.contiguous(), res_base, disk,
+            rand((S, U), 0, 50).contiguous(), rand((S, U, 3), 0.5, 20),
+            rand((S, U, 4), 0, 400), user_rank, group_id,
+            host_bits.contiguous(), exc.contiguous(), avail.contiguous(),
+            cap.contiguous())
+    kw = dict(rows_codec=codec, avail_scale=a_scale, cap_scale=c_scale,
+              n_hosts=H)
+    return args, kw
+
+
+def expand_edge_check():
+    """K1 against its plain version, bit for bit (NaN where NaN), on
+    every (S, T) of EXPAND_EDGE_S x EXPAND_EDGE_T, the codecs, E, H and
+    the u16 / f32 host decode taken in turn; each call's CUDA launches
+    counted from a captured graph (2: the memset and the kernel)."""
+    from cook_tpu_torch.ops import expand as tex
+    faults, worst, i, seen = [], 0, 0, set()
+    t0 = time.perf_counter()
+    for S in EXPAND_EDGE_S:
+        for T in EXPAND_EDGE_T:
+            codec, E = i % 3, EXPAND_EDGE_E[i % 4]
+            H, u16 = EXPAND_EDGE_H[i % 5], i % 2 == 1
+            args, kw = expand_edge_args(S, T, codec, E, H, u16, SEED + 70 + i)
+            replay(i, tex.expand, args, kw, faults)
+            types, _ = captured_launches(
+                lambda: tex.expand.launch(*args, **kw))
+            if len(types) != 2:
+                faults.append(f"K1 at S={S}, T={T}: launched {types}")
+            worst = max(worst, len(types))
+            seen.add((codec, E, H, u16))
+            i += 1
+            del args
+    if faults:
+        raise AssertionError("K1: kernel != plain version:\n"
+                             + "\n".join(faults))
+    print(json.dumps({"phase": "F", "kernel": "expand", "S": EXPAND_EDGE_S,
+                      "T": EXPAND_EDGE_T, "worlds": i,
+                      "codec_E_H_u16_seen": len(seen),
+                      "equal_to_plain": True, "launches_per_call": worst,
+                      "replay_and_count_s": time.perf_counter() - t0}))
+
+
+def gang_edge_wire(args, G, seed) -> tuple:
+    """Gang wires for a K5 edge world (``greedy_edge_world``), built
+    from the plain greedy's assignment so that each case occurs: gang 0
+    complete (4 placed members, gang_min 4), gang 1 one short (4 placed,
+    gang_min 5), gang 2 split across topology domains, gang 3 with a
+    member on a host whose topology is -1, gang 4 with unplaced members;
+    the other gangs random; 10% of the slots with ``cand_row`` -1."""
+    from cook_tpu_torch.ops import match as tm
+    rng = np.random.default_rng(seed)
+    P, C, _ = args[0].shape
+    H = args[7].shape[1]
+    T = 2 * C
+    assign = tm.greedy.plain(*args).cpu().numpy()
+    cand_row = np.stack([rng.permutation(T)[:C] for _ in range(P)]) \
+        .astype(np.int32)
+    cand_row[rng.random((P, C)) < 0.1] = -1
+    topo = np.full((P, 2, H), -1, np.int32)
+    topo[:, 0] = 0
+    topo[:, 1] = rng.integers(0, 4, (P, H))
+    topo[:, 1, rng.random(H) < 0.05] = -1
+    gang_id = np.full((P, T), -1, np.int32)
+    size = np.full((P, G), 2, np.int32)
+    attr = (rng.random((P, G)) < 0.5).astype(np.int32)
+    for p in range(P):
+        placed = [c for c in rng.permutation(C)
+                  if cand_row[p, c] >= 0 and assign[p, c] >= 0]
+        free = [c for c in rng.permutation(C)
+                if cand_row[p, c] >= 0 and assign[p, c] < 0]
+        cases = []
+        if len(placed) >= 16 and G >= 5:
+            by = {}
+            for c in placed:
+                by.setdefault(int(topo[p, 1, assign[p, c]]), []).append(c)
+            known = [v for k, v in by.items() if k >= 0]
+            same = max(known, key=len) if known else []
+            cases = [(0, placed[:4], 4, 0), (1, placed[4:8], 5, 0)]
+            split = [v[0] for v in known[:2]] if len(known) >= 2 else []
+            cases.append((2, split + placed[8:10], 2, 1))
+            if -1 in by and same:
+                cases.append((3, same[:2] + by[-1][:1], 3, 1))
+            cases.append((4, placed[10:12] + free[:2], 4, 0))
+            used = {c for _, m, _, _ in cases for c in m}
+        else:
+            used = set()
+        for g, members, gmin, a in cases:
+            for c in members:
+                gang_id[p, cand_row[p, c]] = g
+            size[p, g], attr[p, g] = gmin, a
+        rest = [c for c in range(C) if cand_row[p, c] >= 0 and c not in used]
+        for c in rest:
+            if rng.random() < 0.5:
+                gang_id[p, cand_row[p, c]] = rng.integers(min(5, G - 1), G)
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).cuda()
+    return (dev(cand_row), dev(gang_id), dev(size), dev(attr), dev(topo))
+
+
+def greedy_gang_edge_check():
+    """The fused K5+K6 launch against K5's plain version then K6's, bit
+    for bit, on K5's edge worlds (GREEDY_EDGES) with gang wires (G = 8
+    and 1,024: K6's counts in shared memory and in scratch), one CUDA
+    launch a call; beside each, K5 alone (the split path's instance) on
+    the same inputs."""
+    from cook_tpu_torch.ops import match as tm
+    for i, (name, P, C, H, E, opts) in enumerate(GREEDY_EDGES):
+        G = 1024 if i % 2 else 8
+        args = greedy_edge_world(P, C, H, E, SEED + 50, **opts)
+        full = args + gang_edge_wire(args, G, SEED + 80 + i)
+        faults = []
+        got, _ = replay(i, tm.greedy_gang, full, {}, faults)
+        if faults:
+            raise AssertionError(f"K5+K6 {name}: kernel != plain version:\n"
+                                 + "\n".join(faults))
+        types, _ = captured_launches(lambda: tm.greedy_gang.launch(*full))
+        if types != ["kernel"]:
+            raise AssertionError(f"K5+K6 {name}: launched {types}")
+        plan = tm.greedy_plan(P, C, H, G)
+        ms = cuda_ms(lambda: tm.greedy_gang.launch(*full), 3)
+        k5_ms = cuda_ms(lambda: tm.greedy.launch(*args), 3)
+        member = (full[9] >= 0) & (torch.gather(
+            full[10], 1, full[9].clamp(min=0).long()) >= 0)
+        print(json.dumps({
+            "phase": "F", "kernel": "greedy+gang", "world": name, "P": P,
+            "C": C, "H": H, "G": G, "gang_counts_in_smem": plan.gang_in_smem,
+            "equal_to_plain": True, "launches_per_call": len(types),
+            "member_slots": int(member.sum()),
+            "dropped": int(got[2].sum()), "kept_members": int(
+                (member & (got[1] >= 0)).sum()),
+            "ms": ms, "k5_alone_ms": k5_ms}))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available", file=sys.stderr)
@@ -1428,11 +1735,14 @@ def main() -> int:
         megacycle(staged["wire"], **megacycle_args(staged))
     torch.cuda.synchronize()
     rows = phase_a(calls)
+    cycle_launches = rows.pop("cycle_cuda_launches")
     for k, row in rows.items():
         b_ms, b_by = bound(row)
         print(json.dumps({"phase": "A", "kernel": k, **row,
                           "bound_ms": b_ms, "bound_by": b_by}))
     print(json.dumps(k2_k4_line(rows)))
+    for line in k1_k56_lines({**rows, "cycle_cuda_launches": cycle_launches}):
+        print(json.dumps(line))
     phase_c()
 
     # phase B: the main path, counted
@@ -1509,6 +1819,7 @@ def main() -> int:
             "source": f"cook_tpu_torch/ops/csrc/{SOURCES[k]}",
             "replaces": "cook_tpu/ops/pallas_cycle.py:137",
             "stage": STAGES[k], "launches": counts[k],
+            **({"inside": "greedy"} if k == "gang" else {}),
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": row["library_ms"], "calls_per_cycle": row["calls"],

@@ -3,166 +3,340 @@
 // parallel/sharded.py:206) and its phase 0 (:163-168, the per-pool
 // running usage, and the quota-group base :211).
 //
-// * rows codec decode (quant.expand_rows_device), usage / disk gathers
-//   from the base mirror, job_res, the per-user gathers of tokens,
-//   shares and quota, segment starts and segment-end marks;
-// * the exc_rows -> exc_id scatter;
-// * host bit unpack (quant.unpack_bits_device) and the u16 fixed-point
-//   decode of avail and capacity (quant.expand_fixed_device);
-// * pool_base, summed in XLA:CPU's reduce order (windows of 32 from
-//   zero, recursively), and group_base, summed over pools in order.
+// One memset of the control words, then one launch.  The grid is the
+// task tiles (kTile rows of one pool each, pools series-major over
+// blockIdx), then the host tiles (kHostTile hosts of one pool each).
 //
-// Bound: bytes, about 80 B per task row plus 40 B per host; at T = 128Ki,
-// P = 4, H = 8Ki under 50 MB, about 15 us at 3.35 TB/s.
+// A task tile decodes the rows codec, gathers res_base[row] as one
+// 16-byte load and stores usage, job_res and quota as float4, gathers
+// tokens and shares from the per-user tables (L2-resident), writes the
+// segment starts and segment-end marks, and writes its slice of exc_id
+// whole: the slice starts at -1 in shared memory, every exception row of
+// the pool (read by each tile, L2-resident) that lands inside it is
+// applied with a shared atomicMax (the highest e wins a duplicate: the
+// JAX scatter's last write), and the slice is stored once.
+//
+// pool_base is summed in window32_sum's order (ops/scan.py: windows of
+// 32 from +0.0, recursively) without reading usage back.  A tile holds
+// kTile / 1,024 level-1 windows (32 x 32 rows): it sums its masked usage
+// (usage * (valid & ~pending)) a 32-row window at a time from +0.0, then
+// each 32 of those, and stores the level-1 partials.  A ragged last
+// window sums only its own rows; window32_sum's zero padding changes no
+// sum that starts from +0.0, so the bits are the same.  The tile then
+// takes a ticket of its pool (atomic, after a fence); the tile that
+// finishes its pool last sums the remaining levels into pool_base[s] and
+// takes a ticket over pools; the last pool's finisher computes
+// group_base of every pool (a sequential sum up to 32 pools, windows of
+// 32 past that).  No tile waits on another, so any scheduling order is
+// safe.
+//
+// A host tile unpacks host_bits and decodes avail and capacity (u16
+// fixed point times the column's scale, or f32 through), float4 out.
+//
+// The geometry is ops/expand.py's expand_plan; the entry refuses any
+// other.  Bound: bytes, about 80 B a task row plus 40 B a host; at P = 4,
+// T = 128Ki, H = 8Ki about 53 MB, 16 us at 3.35 TB/s.
 #include "common.cuh"
 
 namespace {
 
-using cook::gtid;
-using cook::grid_for;
-using cook::kThreads;
-
 constexpr uint8_t kPending = 1, kValid = 2, kUserFirst = 16;
 
-__global__ void expand_tasks(const void* __restrict__ rows, int codec,
-                             const uint8_t* __restrict__ flags,
-                             const float* __restrict__ res_base,
-                             const float* __restrict__ disk_base,
-                             const float* __restrict__ tokens_u,
-                             const float* __restrict__ shares_u,
-                             const float* __restrict__ quota_u,
-                             const int* __restrict__ user_rank,
-                             float* __restrict__ usage,
-                             float* __restrict__ job_res,
-                             float* __restrict__ tokens,
-                             float* __restrict__ shares,
-                             float* __restrict__ quota,
-                             uint8_t* __restrict__ start,
-                             int* __restrict__ last_mark,
-                             int* __restrict__ exc_id, int S, long long T,
-                             int U) {
-  long long i = gtid();
-  if (i >= S * T) return;
-  long long s = i / T, t = i % T;
-  long long row;
-  if (codec == 0)
-    row = ((const int*)rows)[i];
-  else if (codec == 1)
-    row = (long long)((const int16_t*)rows)[i] + t;
-  else
-    row = (long long)((const int8_t*)rows)[i] + t;
-  uint8_t f = flags[i];
-  float pend = (f & kPending) ? 1.0f : 0.0f;
-  for (int c = 0; c < 4; ++c) {
-    float u = res_base[row * 4 + c];
-    usage[i * 4 + c] = u;
-    if (c < 3) job_res[i * 4 + c] = u * pend;
-  }
-  job_res[i * 4 + 3] = disk_base[row] * pend;
-  int ur = user_rank[i];
-  long long uc = s * U + (ur < 0 ? 0 : (ur > U - 1 ? U - 1 : ur));
-  tokens[i] = tokens_u[uc];
-  for (int c = 0; c < 3; ++c) shares[i * 3 + c] = shares_u[uc * 3 + c];
-  for (int c = 0; c < 4; ++c) quota[i * 4 + c] = quota_u[uc * 4 + c];
-  start[i] = (f & kUserFirst) || t == 0;
-  bool last = t == T - 1 || (flags[i + (t < T - 1 ? 1 : 0)] & kUserFirst);
-  last_mark[i] = last ? (int)t : (int)(T - 1);
-  exc_id[i] = -1;
-}
+constexpr int kTile = 2048;            // task rows a CTA
+constexpr int kHostTile = 4096;        // hosts a CTA
+constexpr int kExpandThreads = 256;    // threads a CTA
+constexpr int kMinCtas = 2;            // CTAs an SM holds at once
+constexpr int kWin = 32;               // window32_sum's window
+constexpr int kLevel1 = kWin * kWin;   // rows of a level-1 window
+constexpr int kRowsPerThread = kTile / kExpandThreads;  // 8
+constexpr int kBatch = 8;              // rows in flight a thread
+constexpr int kWindows0 = kTile / kWin;          // level-0 windows a tile
+constexpr int kWindows1 = kTile / kLevel1;       // level-1 windows a tile
+constexpr int kMaxPools = kWin * kWin;           // group_base's two levels
+constexpr long long kMaxWindows = 32768;         // level-1 windows a pool
+// shared memory: the masked usage (float4 a row, one float4 of padding
+// after every 32 rows, so that the level-0 sums read without bank
+// conflicts), the exc_id slice, the level-0 partials
+constexpr int kRunFloats = 4 * (kTile + kTile / kWin);
+constexpr int kSmemBytes =
+    4 * kRunFloats + 4 * kTile + 4 * 4 * kWindows0;
 
-__global__ void expand_exc(const int* __restrict__ exc_rows,
-                           int* __restrict__ exc_id, int S, int E,
-                           long long T) {
-  long long i = gtid();
-  if (i >= (long long)S * E) return;
-  long long s = i / E;
-  int e = (int)(i % E);
-  int r = exc_rows[i];
-  if (r >= 0 && r < T) atomicMax(&exc_id[s * T + r], e);
-}
+static_assert(kTile % kLevel1 == 0, "a tile holds whole level-1 windows");
+static_assert(kWindows0 * 4 == kExpandThreads,
+              "one thread a (level-0 window, column)");
+static_assert(kMaxWindows / kWin * 4 * 2 <= kRunFloats,
+              "the finisher's two level buffers fit the tile's smem");
 
 struct Scales {
   float v[4];
 };
 
-__global__ void expand_hosts(const uint8_t* __restrict__ host_bits,
-                             const void* __restrict__ avail_in, int avail_u16,
-                             Scales as, const void* __restrict__ cap_in,
-                             int cap_u16, Scales cs,
-                             uint8_t* __restrict__ host_gpu,
-                             uint8_t* __restrict__ host_blocked,
-                             float* __restrict__ avail,
-                             float* __restrict__ cap, int S, int H, int B) {
-  long long i = gtid();
-  if (i >= (long long)S * H) return;
-  long long s = i / H;
-  int h = (int)(i % H);
-  int sh = 7 - (h & 7);
-  host_gpu[i] = (host_bits[(s * 2 + 0) * B + (h >> 3)] >> sh) & 1;
-  host_blocked[i] = (host_bits[(s * 2 + 1) * B + (h >> 3)] >> sh) & 1;
-  for (int c = 0; c < 4; ++c) {
-    avail[i * 4 + c] =
-        avail_u16 ? (float)((const uint16_t*)avail_in)[i * 4 + c] * as.v[c]
-                  : ((const float*)avail_in)[i * 4 + c];
-    cap[i * 4 + c] =
-        cap_u16 ? (float)((const uint16_t*)cap_in)[i * 4 + c] * cs.v[c]
-                : ((const float*)cap_in)[i * 4 + c];
+struct Args {
+  const void* rows;
+  const uint8_t* flags;
+  const float* res_base;
+  const float* disk_base;
+  const float* tokens_u;
+  const float* shares_u;
+  const float* quota_u;
+  const int* user_rank;
+  const int* group_id;
+  const uint8_t* host_bits;
+  const int* exc_rows;
+  const void* avail_in;
+  const void* cap_in;
+  Scales as, cs;
+  float* usage;
+  float* job_res;
+  float* tokens;
+  float* shares;
+  float* quota;
+  uint8_t* start;
+  int* last_mark;
+  int* exc_id;
+  uint8_t* host_gpu;
+  uint8_t* host_blocked;
+  float* avail;
+  float* cap;
+  float* pool_base;
+  float* group_base;
+  float* partials;      // [S, windows, 4] level-1 partials
+  unsigned* ticket;     // [S] tiles finished a pool, then pools finished
+  long long T;
+  int codec, avail_u16, cap_u16, S, U, E, H, B, tiles, host_tiles, windows;
+};
+
+__device__ __forceinline__ long long decode_row(const Args& a, long long i,
+                                                long long t) {
+  if (a.codec == 0) return ((const int*)a.rows)[i];
+  if (a.codec == 1) return (long long)((const int16_t*)a.rows)[i] + t;
+  return (long long)((const int8_t*)a.rows)[i] + t;
+}
+
+__device__ __forceinline__ float4 scale4(float4 v, float m) {
+  return make_float4(v.x * m, v.y * m, v.z * m, v.w * m);
+}
+
+__device__ __forceinline__ float4 decode4(const void* in, int u16,
+                                          const Scales& sc, long long i) {
+  if (!u16) return __ldg((const float4*)in + i);
+  ushort4 v = __ldg((const ushort4*)in + i);
+  return make_float4((float)v.x * sc.v[0], (float)v.y * sc.v[1],
+                     (float)v.z * sc.v[2], (float)v.w * sc.v[3]);
+}
+
+__device__ void host_tile(const Args& a, int b) {
+  const int s = b / a.host_tiles;
+  const int h0 = (b % a.host_tiles) * kHostTile;
+  const int h1 = min(h0 + kHostTile, a.H);
+  const uint8_t* gbits = a.host_bits + (long long)(s * 2 + 0) * a.B;
+  const uint8_t* bbits = a.host_bits + (long long)(s * 2 + 1) * a.B;
+  for (int h = h0 + (int)threadIdx.x; h < h1; h += kExpandThreads) {
+    long long i = (long long)s * a.H + h;
+    int sh = 7 - (h & 7);
+    a.host_gpu[i] = (gbits[h >> 3] >> sh) & 1;
+    a.host_blocked[i] = (bbits[h >> 3] >> sh) & 1;
+    ((float4*)a.avail)[i] = decode4(a.avail_in, a.avail_u16, a.as, i);
+    ((float4*)a.cap)[i] = decode4(a.cap_in, a.cap_u16, a.cs, i);
   }
 }
 
-// one window-of-32 level: out[s, b, c] = ((0 + x[32b]) + x[32b+1]) + ...;
-// level 0 reads usage * (valid & ~pending)
-__global__ void win32(const float* __restrict__ x,
-                      const uint8_t* __restrict__ flags,
-                      float* __restrict__ out, int S, long long nk) {
-  long long nb = (nk + 31) / 32;
-  long long i = gtid();
-  if (i >= S * nb * 4) return;
-  int c = (int)(i % 4);
-  long long sb = i / 4, s = sb / nb, b = sb % nb;
-  long long lo = b * 32, hi = lo + 32 < nk ? lo + 32 : nk;
-  float acc = 0.0f;
-  for (long long t = lo; t < hi; ++t) {
-    float v = x[(s * nk + t) * 4 + c];
-    if (flags != nullptr) {
-      uint8_t f = flags[s * nk + t];
-      v = v * (((f & kValid) && !(f & kPending)) ? 1.0f : 0.0f);
+// pool_base[s] from the pool's level-1 partials, the levels above in
+// window32_sum's order; buf: two buffers of kRunFloats / 2 floats
+__device__ void finish_pool(const Args& a, int s, float* buf) {
+  const int tid = threadIdx.x;
+  int n = a.windows;
+  const float* src = a.partials + (long long)s * a.windows * 4;
+  bool global = true;
+  int flip = 0;
+  while (n > kWin) {
+    int nb = (n + kWin - 1) / kWin;
+    float* dst = buf + flip * (kRunFloats / 2);
+    for (int i = tid; i < nb * 4; i += kExpandThreads) {
+      int w = i >> 2, c = i & 3;
+      int hi = min(w * kWin + kWin, n);
+      float acc = 0.0f;
+      for (int j = w * kWin; j < hi; ++j)
+        acc = acc + (global ? __ldcg(src + j * 4 + c) : src[j * 4 + c]);
+      dst[i] = acc;
     }
-    acc = acc + v;
+    __syncthreads();
+    src = dst;
+    global = false;
+    flip ^= 1;
+    n = nb;
   }
-  out[i] = acc;
+  if (tid < 4) {
+    float acc = 0.0f;
+    for (int j = 0; j < n; ++j)
+      acc = acc + (global ? __ldcg(src + j * 4 + tid) : src[j * 4 + tid]);
+    a.pool_base[s * 4 + tid] = acc;
+    __threadfence();
+  }
 }
 
 // group_base[s] = sum over pools q, in order, of pool_base[q] where q
-// shares s's quota group (windows of 32 past 32 pools, as win32)
-__global__ void group_base_k(const float* __restrict__ pool_base,
-                             const int* __restrict__ group_id,
-                             float* __restrict__ group_base, int S) {
-  long long i = gtid();
-  if (i >= (long long)S * 4) return;
-  int s = (int)(i / 4), c = (int)(i % 4);
-  int g = group_id[s];
-  float outer = 0.0f;
-  float part[32];
-  int nw = (S + 31) / 32;
-  for (int w = 0; w < nw; ++w) {
-    float acc = 0.0f;
-    for (int q = w * 32; q < S && q < w * 32 + 32; ++q)
-      acc = acc + pool_base[q * 4 + c] *
-                      ((group_id[q] == g && g >= 0) ? 1.0f : 0.0f);
-    part[w] = acc;
+// shares s's quota group (windows of 32 past 32 pools)
+__device__ void finish_groups(const Args& a) {
+  for (int i = threadIdx.x; i < a.S * 4; i += kExpandThreads) {
+    int s = i >> 2, c = i & 3;
+    int g = a.group_id[s];
+    int nw = (a.S + kWin - 1) / kWin;
+    float outer = 0.0f, first = 0.0f;
+    for (int w = 0; w < nw; ++w) {
+      float acc = 0.0f;
+      for (int q = w * kWin; q < a.S && q < w * kWin + kWin; ++q)
+        acc = acc + __ldcg(a.pool_base + q * 4 + c) *
+                        ((a.group_id[q] == g && g >= 0) ? 1.0f : 0.0f);
+      if (w == 0) first = acc;
+      outer = outer + acc;
+    }
+    a.group_base[i] = nw == 1 ? first : outer;
   }
-  if (nw == 1) {
-    group_base[i] = part[0];
+}
+
+__global__ void __launch_bounds__(kExpandThreads, kMinCtas)
+    expand_tiles(Args a) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int s_last;
+  const int tid = threadIdx.x;
+  const int task_ctas = a.S * a.tiles;
+  if ((int)blockIdx.x >= task_ctas) {
+    host_tile(a, (int)blockIdx.x - task_ctas);
     return;
   }
-  for (int w = 0; w < nw; ++w) outer = outer + part[w];
-  group_base[i] = outer;
+  const int s = blockIdx.x / a.tiles, tile = blockIdx.x % a.tiles;
+  const long long T = a.T, lo = (long long)tile * kTile;
+  const int n = (int)(T - lo < kTile ? T - lo : kTile);
+  const long long base = (long long)s * T + lo;
+  float* run = smem;
+  int* exc = (int*)(smem + kRunFloats);
+  float* lvl0 = (float*)(exc + kTile);
+  for (int r = tid; r < kTile; r += kExpandThreads) exc[r] = -1;
+
+  // the row gathers, kBatch rows a thread at a time: every load of a
+  // batch issued before its stores
+#pragma unroll 1
+  for (int k0 = 0; k0 < kRowsPerThread; k0 += kBatch) {
+    int row[kBatch];
+    uint8_t fl[kBatch];
+    bool nfirst[kBatch];
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      int r = tid + (k0 + k) * kExpandThreads;
+      long long t = lo + r, i = base + r;
+      bool ok = r < n;
+      row[k] = ok ? (int)decode_row(a, i, t) : 0;
+      fl[k] = ok ? a.flags[i] : 0;
+      nfirst[k] = !ok || t + 1 >= T || (a.flags[i + 1] & kUserFirst);
+    }
+    float4 u[kBatch];
+    float dk[kBatch];
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      u[k] = __ldg((const float4*)a.res_base + row[k]);
+      dk[k] = __ldg(a.disk_base + row[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      int r = tid + (k0 + k) * kExpandThreads;
+      if (r >= n) continue;
+      long long t = lo + r, i = base + r;
+      uint8_t f = fl[k];
+      float pend = (f & kPending) ? 1.0f : 0.0f;
+      float keep = ((f & kValid) && !(f & kPending)) ? 1.0f : 0.0f;
+      ((float4*)a.usage)[i] = u[k];
+      ((float4*)a.job_res)[i] = make_float4(u[k].x * pend, u[k].y * pend,
+                                            u[k].z * pend, dk[k] * pend);
+      *(float4*)(run + 4 * (r + (r >> 5))) = scale4(u[k], keep);
+      a.start[i] = (f & kUserFirst) || t == 0;
+      a.last_mark[i] = nfirst[k] ? (int)t : (int)(T - 1);
+    }
+  }
+  // the per-user gathers
+#pragma unroll 1
+  for (int k0 = 0; k0 < kRowsPerThread; k0 += kBatch) {
+    int uc[kBatch];
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      int r = tid + (k0 + k) * kExpandThreads;
+      int ur = r < n ? a.user_rank[base + r] : 0;
+      uc[k] = s * a.U + (ur < 0 ? 0 : (ur > a.U - 1 ? a.U - 1 : ur));
+    }
+    float tk[kBatch];
+    float4 q[kBatch];
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      tk[k] = __ldg(a.tokens_u + uc[k]);
+      q[k] = __ldg((const float4*)a.quota_u + uc[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      int r = tid + (k0 + k) * kExpandThreads;
+      if (r >= n) continue;
+      long long i = base + r;
+      const float* sh = a.shares_u + (long long)uc[k] * 3;
+      a.tokens[i] = tk[k];
+      ((float4*)a.quota)[i] = q[k];
+      a.shares[i * 3 + 0] = __ldg(sh + 0);
+      a.shares[i * 3 + 1] = __ldg(sh + 1);
+      a.shares[i * 3 + 2] = __ldg(sh + 2);
+    }
+  }
+  __syncthreads();
+
+  // exceptions landing in this tile; the slice stored whole
+  const int* er = a.exc_rows + (long long)s * a.E;
+  for (int e = tid; e < a.E; e += kExpandThreads) {
+    long long r = er[e];
+    if (r >= lo && r < lo + n) atomicMax(&exc[r - lo], e);
+  }
+  // level 0: a thread a (32-row window, column), sequential from +0.0
+  {
+    const int w = tid >> 2, c = tid & 3;
+    const int hi = min(w * kWin + kWin, n);
+    float acc = 0.0f;
+    for (int r = w * kWin; r < hi; ++r) acc = acc + run[4 * (r + w) + c];
+    lvl0[tid] = acc;
+  }
+  __syncthreads();
+  for (int r = tid; r < n; r += kExpandThreads) a.exc_id[base + r] = exc[r];
+  // level 1: windows of 32 level-0 partials, stored for the finisher
+  if (tid < 4 * kWindows1) {
+    const int v = tid >> 2, c = tid & 3;
+    const int n0 = (n + kWin - 1) / kWin;
+    if (v * kWin < n0) {
+      float acc = 0.0f;
+      for (int w = v * kWin; w < min(v * kWin + kWin, n0); ++w)
+        acc = acc + lvl0[w * 4 + c];
+      a.partials[((long long)s * a.windows + tile * kWindows1 + v) * 4 + c] =
+          acc;
+      __threadfence();
+    }
+  }
+  __syncthreads();
+  if (tid == 0)
+    s_last = atomicAdd(&a.ticket[s], 1u) == (unsigned)(a.tiles - 1);
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  finish_pool(a, s, run);
+  __syncthreads();
+  if (tid == 0)
+    s_last = atomicAdd(&a.ticket[a.S], 1u) == (unsigned)(a.S - 1);
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  finish_groups(a);
 }
 
 }  // namespace
 
-// scratch: S * 4 * (T/32 + T/1024 + ...) floats for the pool-base levels
+// Outputs and scratch are views of one slab (ops/expand.py): partials
+// [S, windows, 4] f32, ticket [S + 1] u32 inside the ctl_words the
+// memset zeroes.  tile, host_tile, threads and smem must be the values
+// this source was compiled for; tiles, host_tiles and windows must cover
+// T and H.
 COOK_API int k1_expand(const void* rows, int codec, const uint8_t* flags,
                        const float* res_base, const float* disk_base,
                        const float* tokens_u, const float* shares_u,
@@ -176,37 +350,76 @@ COOK_API int k1_expand(const void* rows, int codec, const uint8_t* flags,
                        uint8_t* start, int* last_mark, int* exc_id,
                        uint8_t* host_gpu, uint8_t* host_blocked, float* avail,
                        float* cap, float* pool_base, float* group_base,
-                       float* scratch, int S, long long T, int U, int E, int H,
-                       int B, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (S > 32 * 32) return (int)cudaErrorInvalidValue;
-  expand_tasks<<<grid_for(S * T), kThreads, 0, st>>>(
-      rows, codec, flags, res_base, disk_base, tokens_u, shares_u, quota_u,
-      user_rank, usage, job_res, tokens, shares, quota, start, last_mark,
-      exc_id, S, T, U);
-  if (E > 0)
-    expand_exc<<<grid_for((long long)S * E), kThreads, 0, st>>>(
-        exc_rows, exc_id, S, E, T);
-  Scales as = {{a0, a1, a2, a3}}, cs = {{c0, c1, c2, c3}};
-  expand_hosts<<<grid_for((long long)S * H), kThreads, 0, st>>>(
-      host_bits, avail_in, avail_u16, as, cap_in, cap_u16, cs, host_gpu,
-      host_blocked, avail, cap, S, H, B);
-  // pool_base: windows of 32 until one value per pool and column
-  const float* x = usage;
-  const uint8_t* fl = flags;
-  long long nk = T;
-  float* buf = scratch;
-  while (true) {
-    long long nb = (nk + 31) / 32;
-    float* out = nb == 1 ? pool_base : buf;
-    win32<<<grid_for(S * nb * 4), kThreads, 0, st>>>(x, fl, out, S, nk);
-    if (nb == 1) break;
-    x = out;
-    fl = nullptr;
-    buf += S * nb * 4;
-    nk = nb;
+                       float* partials, unsigned* ctl, int ctl_words, int S,
+                       long long T, int U, int E, int H, int B, int tile,
+                       int host_tile_, int threads, int tiles, int host_tiles,
+                       int windows, int smem, void* stream) {
+  if (tile != kTile || host_tile_ != kHostTile || threads != kExpandThreads ||
+      smem != kSmemBytes || S < 1 || S > kMaxPools || T < 1 || U < 1 ||
+      E < 0 || H < 0 || codec < 0 || codec > 2 ||
+      (long long)tiles * kTile < T || (long long)(tiles - 1) * kTile >= T ||
+      (long long)host_tiles * kHostTile < H ||
+      (host_tiles > 0 && (long long)(host_tiles - 1) * kHostTile >= H) ||
+      windows != (T + kLevel1 - 1) / kLevel1 ||
+      windows > kMaxWindows || ctl_words < S + 1 ||
+      (long long)S * (tiles + host_tiles) >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  static bool smem_set = false;
+  if (!smem_set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        expand_tiles, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kSmemBytes);
+    if (e != cudaSuccess) return (int)e;
+    smem_set = true;
   }
-  group_base_k<<<grid_for((long long)S * 4), kThreads, 0, st>>>(
-      pool_base, group_id, group_base, S);
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t e = cudaMemsetAsync(ctl, 0, sizeof(unsigned) * ctl_words, st);
+  if (e != cudaSuccess) return (int)e;
+  Args a;
+  a.rows = rows;
+  a.flags = flags;
+  a.res_base = res_base;
+  a.disk_base = disk_base;
+  a.tokens_u = tokens_u;
+  a.shares_u = shares_u;
+  a.quota_u = quota_u;
+  a.user_rank = user_rank;
+  a.group_id = group_id;
+  a.host_bits = host_bits;
+  a.exc_rows = exc_rows;
+  a.avail_in = avail_in;
+  a.cap_in = cap_in;
+  a.as = Scales{{a0, a1, a2, a3}};
+  a.cs = Scales{{c0, c1, c2, c3}};
+  a.usage = usage;
+  a.job_res = job_res;
+  a.tokens = tokens;
+  a.shares = shares;
+  a.quota = quota;
+  a.start = start;
+  a.last_mark = last_mark;
+  a.exc_id = exc_id;
+  a.host_gpu = host_gpu;
+  a.host_blocked = host_blocked;
+  a.avail = avail;
+  a.cap = cap;
+  a.pool_base = pool_base;
+  a.group_base = group_base;
+  a.partials = partials;
+  a.ticket = ctl;
+  a.T = T;
+  a.codec = codec;
+  a.avail_u16 = avail_u16;
+  a.cap_u16 = cap_u16;
+  a.S = S;
+  a.U = U;
+  a.E = E;
+  a.H = H;
+  a.B = B;
+  a.tiles = tiles;
+  a.host_tiles = host_tiles;
+  a.windows = windows;
+  expand_tiles<<<S * (tiles + host_tiles), kExpandThreads, kSmemBytes, st>>>(
+      a);
   return cook::last_error();
 }

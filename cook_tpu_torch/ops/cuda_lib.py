@@ -1,5 +1,6 @@
 """Build, load and call the port's CUDA kernels (``csrc/*.cu``): the
-cycle's stage kernels K1-K6 and the top-K preference kernels.
+cycle's stage kernels K1-K6 (K4 inside K2's launches, K6 inside K5's)
+and the top-K preference kernels.
 
 The sources are compiled at first use, on the machine with the card,
 with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false`` (no
@@ -39,7 +40,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 # stream.
 _GEO = "piliiilli" + "p"
 _SIGNATURES = {
-    "k1_expand": "pipppppppppppiffffpiffff" + "p" * 15 + "iliiiip",
+    "k1_expand": "pipppppppppppiffffpiffff" + "p" * 16 + "iil" + "i" * 11
+    + "p",
     "k2_seg_f32": "pppiipi" + _GEO,
     "k2_seg_count": "pipp" + _GEO,
     "k2_prefix16": "ppi" + _GEO,
@@ -57,7 +59,7 @@ _SIGNATURES = {
     "k4_compact_slots": "p" * 14 + "ilip",
     "k5_greedy": "p" * 11 + "iiii" + "iiiiiiil" + "ip",
     "k5_div_check": "pppppip",
-    "k6_gang": "p" * 11 + "iiliiip",
+    "k56_greedy_gang": "p" * 19 + "i" * 11 + "lil" + "iiii" + "p",
     "topk_dense": "p" * 9 + "iiiip",
     "topk_structured": "p" * 12 + "iiiip",
 }

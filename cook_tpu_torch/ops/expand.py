@@ -10,7 +10,9 @@ the bases with ``parallel/sharded.pool_bases``.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import functools
+import math
+from typing import List, NamedTuple, Tuple
 
 import torch
 
@@ -86,14 +88,87 @@ def _expand_plain(rows, flags, res_base, disk_base, tokens_u, shares_u,
         pool_base=pool_base, group_base=group_base)
 
 
-def _win32_scratch(P: int, T: int) -> int:
-    total, nk = 0, T
-    while True:
-        nb = (nk + 31) // 32
-        if nb == 1:
-            return total
-        total += P * nb * 4
-        nk = nb
+# ---------------------------------------------------------------- K1 plan
+# The geometry csrc/expand.cu is compiled for (its constants of the same
+# names; the C entry refuses any other).
+TILE = 2_048          # kTile: task rows a CTA
+HOST_TILE = 4_096     # kHostTile: hosts a CTA
+THREADS = 256         # kExpandThreads
+WIN = 32              # window32_sum's window
+LEVEL1 = WIN * WIN    # rows of a level-1 window
+MAX_POOLS = WIN * WIN
+MAX_WINDOWS = 32_768  # level-1 windows a pool
+SMEM_BYTES = 4 * 4 * (TILE + TILE // WIN) + 4 * TILE + 4 * 4 * (TILE // WIN)
+_ALIGN = 16
+
+
+class ExpandPlan(NamedTuple):
+    """Launch geometry and slab layout of one K1 call: ``tiles`` task
+    CTAs a pool then ``host_tiles`` host CTAs a pool (grid ``S * (tiles
+    + host_tiles)``); ``windows`` level-1 partials a pool.  ``offsets``
+    are byte offsets into one slab of ``slab_bytes``: the 14 outputs in
+    ``Expanded`` order, then the partials [S, windows, 4] f32, then
+    ``ctl_words`` u32 control words (a ticket a pool, then the ticket
+    over pools at ``ctl_words - 1``), which the memset zeroes."""
+    S: int
+    T: int
+    H: int
+    tiles: int
+    host_tiles: int
+    windows: int
+    ctl_words: int
+    offsets: Tuple[int, ...]
+    shapes: Tuple[Tuple[int, ...], ...]
+    dtypes: Tuple[torch.dtype, ...]
+    slab_bytes: int
+
+
+_F32, _U8, _I32 = torch.float32, torch.uint8, torch.int32
+_OUT_DTYPES = (_F32, _F32, _F32, _F32, _F32, _U8, _I32, _I32, _U8, _U8,
+               _F32, _F32, _F32, _F32)
+_SIZE = {_F32: 4, _I32: 4, _U8: 1}
+
+
+@functools.lru_cache(maxsize=64)
+def expand_plan(S: int, T: int, H: int) -> ExpandPlan:
+    if not (1 <= S <= MAX_POOLS and T >= 1 and H >= 0):
+        raise ValueError(f"K1 needs 1 <= S <= {MAX_POOLS}, T >= 1, H >= 0; "
+                         f"got {S}, {T}, {H}")
+    tiles = -(-T // TILE)
+    windows = -(-T // LEVEL1)
+    if windows > MAX_WINDOWS:
+        raise ValueError(f"K1 takes T up to {MAX_WINDOWS * LEVEL1}, got {T}")
+    shapes = ((S, T, 4), (S, T, 4), (S, T), (S, T, 3), (S, T, 4), (S, T),
+              (S, T), (S, T), (S, H), (S, H), (S, H, 4), (S, H, 4), (S, 4),
+              (S, 4), (S, windows, 4), (S + 1,))
+    dtypes = _OUT_DTYPES + (_F32, torch.int32)
+    offsets, at = [], 0
+    for shape, dt in zip(shapes, dtypes):
+        offsets.append(at)
+        n = math.prod(shape) * _SIZE[dt]
+        at += -(-n // _ALIGN) * _ALIGN
+    return ExpandPlan(S=S, T=T, H=H, tiles=tiles,
+                      host_tiles=-(-H // HOST_TILE), windows=windows,
+                      ctl_words=S + 1, offsets=tuple(offsets),
+                      shapes=shapes, dtypes=dtypes, slab_bytes=at)
+
+
+def carve(slab: torch.Tensor, plan: ExpandPlan) -> List[torch.Tensor]:
+    """The plan's 14 outputs as contiguous views of the u8 ``slab`` (the
+    partials and the control words stay pointers)."""
+    typed = {dt: slab.view(dt) for dt in (_F32, _I32)}
+    typed[_U8] = slab
+    return [typed[dt].as_strided(shape, _strides(shape), off // _SIZE[dt])
+            for off, shape, dt in zip(plan.offsets[:14], plan.shapes[:14],
+                                      plan.dtypes[:14])]
+
+
+def _strides(shape) -> Tuple[int, ...]:
+    out, n = [], 1
+    for d in reversed(shape):
+        out.append(n)
+        n *= d
+    return tuple(reversed(out))
 
 
 _ROWS_DTYPE = {quant.ROWS_WIDE: torch.int32, quant.ROWS_I16: torch.int16,
@@ -121,31 +196,22 @@ def expand(rows, flags, res_base, disk_base, tokens_u, shares_u, quota_u,
     for t, u16, name in ((avail_in, a_u16, "avail"), (cap_in, c_u16, "cap")):
         cuda_lib.check(t, torch.uint16 if u16 else torch.float32, (P, H, 4),
                        name)
-    dev = flags.device
-    f32, u8, i32 = torch.float32, torch.uint8, torch.int32
-    out = Expanded(
-        usage=torch.empty((P, T, 4), dtype=f32, device=dev),
-        job_res=torch.empty((P, T, 4), dtype=f32, device=dev),
-        tokens=torch.empty((P, T), dtype=f32, device=dev),
-        shares=torch.empty((P, T, 3), dtype=f32, device=dev),
-        quota=torch.empty((P, T, 4), dtype=f32, device=dev),
-        start=torch.empty((P, T), dtype=u8, device=dev),
-        last_mark=torch.empty((P, T), dtype=i32, device=dev),
-        exc_id=torch.empty((P, T), dtype=i32, device=dev),
-        host_gpu=torch.empty((P, H), dtype=u8, device=dev),
-        host_blocked=torch.empty((P, H), dtype=u8, device=dev),
-        avail=torch.empty((P, H, 4), dtype=f32, device=dev),
-        capacity=torch.empty((P, H, 4), dtype=f32, device=dev),
-        pool_base=torch.empty((P, 4), dtype=f32, device=dev),
-        group_base=torch.empty((P, 4), dtype=f32, device=dev))
-    scratch = torch.empty(max(_win32_scratch(P, T), 1), dtype=f32,
-                          device=dev)
+    for t, name in ((res_base, "res_base"), (quota_u, "quota_u"),
+                    (avail_in, "avail"), (cap_in, "cap")):
+        if t.data_ptr() % (8 if t.dtype == torch.uint16 else 16):
+            raise ValueError(f"expand: {name} must be aligned for vector "
+                             f"loads")
+    plan = expand_plan(P, T, H)
+    slab = torch.empty(plan.slab_bytes, dtype=torch.uint8, device=flags.device)
+    out = Expanded(*carve(slab, plan))
+    at = slab.data_ptr()
     cuda_lib.call(
         "k1_expand", KERNEL, rows.data_ptr(), int(rows_codec),
         flags.data_ptr(), res_base.data_ptr(), disk_base.data_ptr(),
         tokens_u.data_ptr(), shares_u.data_ptr(), quota_u.data_ptr(),
         user_rank.data_ptr(), group_id.data_ptr(), host_bits.data_ptr(),
         exc_rows.data_ptr(), avail_in.data_ptr(), a_u16, *a_s,
-        cap_in.data_ptr(), c_u16, *c_s, *(t.data_ptr() for t in out),
-        scratch.data_ptr(), P, T, U, E, H, B)
+        cap_in.data_ptr(), c_u16, *c_s, *(at + off for off in plan.offsets),
+        plan.ctl_words, P, T, U, E, H, B, TILE, HOST_TILE, THREADS,
+        plan.tiles, plan.host_tiles, plan.windows, SMEM_BYTES, plan=plan)
     return out

@@ -4,7 +4,8 @@ of ``gang_reduce_body`` :210.  A gang is complete when at least
 ``gang_size`` (its gang_min) members hold a host and, if it asks for a
 topology attribute, all of them landed in one known domain; members of
 incomplete gangs are reset to -1.  On the card the reduction over the
-candidate slots is kernel K6 (``gang_stage`` below, ``csrc/gang.cu``).
+candidate slots is kernel K6, the epilogue of K5's launch
+(``ops/match.greedy_gang``, ``csrc/greedy.cu``).
 """
 
 from __future__ import annotations
@@ -113,11 +114,8 @@ def gang_reduce_body(assign, gang_id, gang_size, gang_attr, host_topo):
 
 # --------------------------------------------------------------- kernel K6
 # The reduction over every pool's compacted candidate slots (cook_tpu/
-# ops/pallas_cycle.py::_gang_reduce_candidates :122).  On the card:
-# csrc/gang.cu.
-from . import cuda_lib  # noqa: E402
-
-KERNEL = "gang"
+# ops/pallas_cycle.py::_gang_reduce_candidates :122).  On the card it is
+# the epilogue of K5's launch (ops/match.greedy_gang, csrc/greedy.cu).
 
 
 def gang_reduce_candidates(cand_row, cand_assign, gang_id, gang_size,
@@ -135,24 +133,3 @@ def gang_reduce_candidates(cand_row, cand_assign, gang_id, gang_size,
         gangs.append(g)
         drops.append(d.to(torch.int32))
     return torch.stack(gangs), torch.stack(drops)
-
-
-@cuda_lib.stage(KERNEL, gang_reduce_candidates, (torch.int32,) * 6)
-def gang_stage(cand_row, cand_assign, gang_id, gang_size, gang_attr,
-               host_topo):
-    """(cand_gang, cand_dropped) i32[P, C] for every pool's slots."""
-    P, C = cand_row.shape
-    T = gang_id.shape[1]
-    G = gang_size.shape[1]
-    A, H = host_topo.shape[1:]
-    scratch = torch.empty((3, P, G), dtype=torch.int32,
-                          device=cand_row.device)
-    cand_gang = torch.empty((P, C), dtype=torch.int32, device=cand_row.device)
-    dropped = torch.empty((P, C), dtype=torch.int32, device=cand_row.device)
-    cuda_lib.call("k6_gang", KERNEL, cand_row.data_ptr(),
-                  cand_assign.data_ptr(), gang_id.data_ptr(),
-                  gang_size.data_ptr(), gang_attr.data_ptr(),
-                  host_topo.data_ptr(), scratch[0].data_ptr(),
-                  scratch[1].data_ptr(), scratch[2].data_ptr(),
-                  cand_gang.data_ptr(), dropped.data_ptr(), P, C, T, G, A, H)
-    return cand_gang, dropped

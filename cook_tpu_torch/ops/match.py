@@ -101,20 +101,29 @@ class GreedyPlan(NamedTuple):
     in_smem: bool
     work_stride: int
     work_floats: int
+    gangs: int = 0              # G of the fused K5+K6 launch, 0 without
+    gang_in_smem: bool = False  # K6's counts in the dynamic shared memory
+    gang_scratch_ints: int = 0  # else 3 * P * G ints of device memory
+
+
+_GANG_BYTES = 12       # a gang's matched count, topology min and max (i32)
 
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def greedy_plan(P: int, C: int, H: int) -> GreedyPlan:
+def greedy_plan(P: int, C: int, H: int, G: int = 0) -> GreedyPlan:
     """The cluster is the smallest power of two whose CTAs hold at most
     ``HOSTS_PER_CTA`` hosts, up to the portable 8; past that, 8 or else
     16 CTAs while the slices fit shared memory (with fewer slots staged
     at a time if that is what it takes); past 16 CTAs' shared memory, 16
-    CTAs with the slices in device memory."""
-    if P < 1 or C < 1 or H < 1:
-        raise ValueError(f"K5 needs P, C, H >= 1, got {P}, {C}, {H}")
+    CTAs with the slices in device memory.  ``G`` > 0 plans the fused
+    K5+K6 launch: K6's counts (12 bytes a gang) reuse the dynamic shared
+    memory the chain leaves free where they fit, else a scratch buffer."""
+    if P < 1 or C < 1 or H < 1 or G < 0:
+        raise ValueError(f"K5 needs P, C, H >= 1 and G >= 0, got {P}, {C}, "
+                         f"{H}, {G}")
 
     def geometry(cs, in_smem):
         """(hosts a CTA, threads, exchange bytes, slot chunk, dynamic
@@ -140,12 +149,14 @@ def greedy_plan(P: int, C: int, H: int) -> GreedyPlan:
     in_smem = geometry(cs, True) is not None
     hpc, threads, xch, cw, smem = geometry(cs, in_smem)
     stride = 0 if in_smem else 6 * hpc + hpc // 4
+    gang_in_smem = 0 < _GANG_BYTES * G <= smem
     return GreedyPlan(
         cluster=cs, threads=threads, hosts_per_cta=hpc,
         groups=-(-hpc // (HOSTS_PER_THREAD * threads)), slot_chunk=cw,
         exchange_bytes=xch,
         smem_bytes=smem, in_smem=in_smem, work_stride=stride,
-        work_floats=P * cs * stride)
+        work_floats=P * cs * stride, gangs=G, gang_in_smem=gang_in_smem,
+        gang_scratch_ints=0 if gang_in_smem or not G else 3 * P * G)
 
 
 def compose_mask(gpu_c, eid_c, host_gpu, host_blocked, exc_mask):
@@ -171,14 +182,10 @@ def _greedy_plain(res_c, valid_c, gpu_c, eid_c, host_gpu, host_blocked,
     return assign
 
 
-@cuda_lib.stage(KERNEL, _greedy_plain,
-                (torch.float32, torch.uint8, torch.uint8, torch.int32,
-                 torch.uint8, torch.uint8, None, torch.float32,
-                 torch.float32))
-def greedy(res_c, valid_c, gpu_c, eid_c, host_gpu, host_blocked, exc_mask,
-           avail, capacity):
-    """assign i32[P, C]: each compacted slot's host, -1 when empty or
-    nothing fits.  ``exc_mask`` bool or u8 [P, E, H]."""
+def _k5_inputs(res_c, valid_c, gpu_c, eid_c, host_gpu, host_blocked,
+               exc_mask, avail, capacity):
+    """K5's shapes (P, C, H, E) and its inputs' pointers, after the
+    checks the stage wrapper leaves to the launcher."""
     P, C, _ = res_c.shape
     H = avail.shape[1]
     E = exc_mask.shape[1]
@@ -188,20 +195,98 @@ def greedy(res_c, valid_c, gpu_c, eid_c, host_gpu, host_blocked, exc_mask,
     if exc_mask.dtype not in (torch.bool, torch.uint8) \
             or tuple(exc_mask.shape) != (P, E, H):
         raise ValueError("greedy: exc_mask must be bool or u8 [P, E, H]")
-    em = exc_mask.view(torch.uint8)
+    return (P, C, H, E), (
+        res_c.data_ptr(), valid_c.data_ptr(), gpu_c.data_ptr(),
+        eid_c.data_ptr(), host_gpu.data_ptr(), host_blocked.data_ptr(),
+        exc_mask.view(torch.uint8).data_ptr(), avail.data_ptr(),
+        capacity.data_ptr())
+
+
+def _geometry(plan: GreedyPlan) -> tuple:
+    return (plan.cluster, plan.threads, plan.hosts_per_cta, plan.groups,
+            plan.slot_chunk, plan.exchange_bytes, plan.smem_bytes,
+            plan.work_stride, int(plan.in_smem))
+
+
+@cuda_lib.stage(KERNEL, _greedy_plain,
+                (torch.float32, torch.uint8, torch.uint8, torch.int32,
+                 torch.uint8, torch.uint8, None, torch.float32,
+                 torch.float32))
+def greedy(res_c, valid_c, gpu_c, eid_c, host_gpu, host_blocked, exc_mask,
+           avail, capacity):
+    """assign i32[P, C]: each compacted slot's host, -1 when empty or
+    nothing fits.  ``exc_mask`` bool or u8 [P, E, H]."""
+    shape, ptrs = _k5_inputs(res_c, valid_c, gpu_c, eid_c, host_gpu,
+                             host_blocked, exc_mask, avail, capacity)
+    P, C, H, _ = shape
     plan = greedy_plan(P, C, H)
     work = torch.empty(max(plan.work_floats, 1), dtype=torch.float32,
                        device=res_c.device)
     assign = torch.empty((P, C), dtype=torch.int32, device=res_c.device)
-    cuda_lib.call("k5_greedy", KERNEL, res_c.data_ptr(), valid_c.data_ptr(),
-                  gpu_c.data_ptr(), eid_c.data_ptr(), host_gpu.data_ptr(),
-                  host_blocked.data_ptr(), em.data_ptr(), avail.data_ptr(),
-                  capacity.data_ptr(), work.data_ptr(), assign.data_ptr(),
-                  P, C, H, E, plan.cluster, plan.threads,
-                  plan.hosts_per_cta, plan.groups, plan.slot_chunk,
-                  plan.exchange_bytes, plan.smem_bytes, plan.work_stride,
-                  int(plan.in_smem))
+    cuda_lib.call("k5_greedy", KERNEL, *ptrs, work.data_ptr(),
+                  assign.data_ptr(), *shape, *_geometry(plan))
     return assign
+
+
+# ------------------------------------------------------ kernels K5 and K6
+# The cycle runs K6, the gang reduction (ops/gang.py), as the epilogue of
+# K5's launch: one launch, counted once as K5 and once as K6.
+from . import telemetry  # noqa: E402
+from .gang import gang_reduce_candidates  # noqa: E402
+
+GANG_KERNEL = "gang"
+_GANG_COUNTER = telemetry.counter(GANG_KERNEL)
+
+
+def _greedy_gang_plain(res_c, valid_c, gpu_c, eid_c, host_gpu, host_blocked,
+                       exc_mask, avail, capacity, cand_row, gang_id,
+                       gang_size, gang_attr, host_topo):
+    assign = _greedy_plain(res_c, valid_c, gpu_c, eid_c, host_gpu,
+                           host_blocked, exc_mask, avail, capacity)
+    cand_gang, dropped = gang_reduce_candidates(
+        cand_row, assign, gang_id, gang_size, gang_attr, host_topo)
+    return assign, cand_gang, dropped
+
+
+@cuda_lib.stage(KERNEL, _greedy_gang_plain,
+                greedy.dtypes + (torch.int32,) * 5)
+def greedy_gang(res_c, valid_c, gpu_c, eid_c, host_gpu, host_blocked,
+                exc_mask, avail, capacity, cand_row, gang_id, gang_size,
+                gang_attr, host_topo):
+    """(assign, cand_gang, cand_dropped) i32[P, C]: K5's assignment of
+    the compacted slots, then K6's verdicts (``cand_row`` [P, C] the
+    slots' task rows, ``gang_id`` [P, T], ``gang_size`` and
+    ``gang_attr`` [P, G], ``host_topo`` [P, A, H']), in one launch."""
+    shape, ptrs = _k5_inputs(res_c, valid_c, gpu_c, eid_c, host_gpu,
+                             host_blocked, exc_mask, avail, capacity)
+    P, C, H, _ = shape
+    T = gang_id.shape[1]
+    G = gang_size.shape[1]
+    A, Ht = host_topo.shape[1:]
+    cuda_lib.check(cand_row, torch.int32, (P, C), "cand_row")
+    cuda_lib.check(gang_attr, torch.int32, (P, G), "gang_attr")
+    if G < 1 or A < 1 or Ht < 1 or gang_id.shape[0] != P:
+        raise ValueError(f"greedy_gang: needs G, A, H' >= 1 (got {G}, {A}, "
+                         f"{Ht}) and gang wires of {P} pools")
+    plan = greedy_plan(P, C, H, G)
+    # one allocation: the three outputs, K6's scratch, K5's slices (at a
+    # 16-byte boundary)
+    at = _round_up(3 * P * C + plan.gang_scratch_ints, 4)
+    slab = torch.empty(at + plan.work_floats, dtype=torch.int32,
+                       device=res_c.device)
+    assign, cand_gang, dropped = (slab[i * P * C:(i + 1) * P * C].view(P, C)
+                                  for i in range(3))
+    base = slab.data_ptr()
+    cuda_lib.call("k56_greedy_gang", KERNEL, *ptrs,
+                  base + 4 * at if plan.work_floats else None,
+                  assign.data_ptr(), cand_row.data_ptr(), gang_id.data_ptr(),
+                  gang_size.data_ptr(), gang_attr.data_ptr(),
+                  host_topo.data_ptr(),
+                  base + 12 * P * C if plan.gang_scratch_ints else None,
+                  cand_gang.data_ptr(), dropped.data_ptr(), *shape,
+                  *_geometry(plan), T, G, A, Ht, int(plan.gang_in_smem))
+    _GANG_COUNTER.add()
+    return assign, cand_gang, dropped
 
 
 # ------------------------------------------------------- the split matchers

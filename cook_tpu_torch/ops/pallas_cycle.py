@@ -14,8 +14,9 @@ by hand for sm_90a (``csrc/``):
   K4 admit   (ops/admit.py)    over-quota limit, DRU, admission,
                                compaction (inside the K2 launches beside
                                them), compact outputs
-  K5 greedy  (ops/match.py)    greedy assignment, one CTA per pool
-  K6 gang    (ops/gang.py)     gang_min-gated segment reduction
+  K5 greedy  (ops/match.py)    greedy assignment, one cluster per pool
+  K6 gang    (ops/gang.py)     gang_min-gated segment reduction (the
+                               epilogue of K5's launch)
 
 Torch only allocates memory and calls them.  On the CPU ``megacycle``
 runs the plain cycle instead: ``parallel/sharded.pool_cycle`` plus

@@ -1,6 +1,7 @@
 """The cycle as a chain of stage kernels: ``megacycle`` on the card.
 
-Each call below is a stage wrapper (K1-K6); given CUDA tensors it
+Each call below is a stage wrapper (K1-K6, K4 inside K2's launches and
+K6 inside K5's); given CUDA tensors it
 launches its CUDA kernel, given CPU tensors its plain PyTorch version,
 so the same chain runs in the CPU tests.  The chain computes exactly
 ``parallel/sharded.pool_cycle`` followed by ``gang_reduce_body``.
@@ -11,8 +12,7 @@ from __future__ import annotations
 from . import admit, quant, scan, sort
 from .delta import FLAG_PENDING, FLAG_USER_FIRST, FLAG_VALID
 from .expand import expand
-from .gang import gang_stage
-from .match import greedy
+from .match import greedy_gang
 
 
 def megacycle_stages(wire, *, gpu_mode: bool = False,
@@ -53,13 +53,13 @@ def megacycle_stages(wire, *, gpu_mode: bool = False,
     accepted = admit.accept(quota_ok_s, ufirst, perm, r.tokens_r, quota_ok,
                             r.bits_r)
     mv = admit.match_valid(accepted, wire.num_considerable)
-    # compaction, match, compact outputs, gang reduction
+    # compaction, compact outputs, then the match with the gang reduction
+    # as its epilogue (K5 + K6, one launch)
     c = admit.compact(order, mv, r.queue_ok, x.job_res, x.exc_id, C)
-    assign = greedy(c.res_c, c.valid_c, c.gpu_c, c.eid_c, x.host_gpu,
-                    x.host_blocked, wire.exc_mask, x.avail, x.capacity)
-    cand_gang, dropped = gang_stage(c.cand_row, assign, wire.gang_id,
-                                    wire.gang_size, wire.gang_attr,
-                                    wire.host_topo)
+    assign, cand_gang, dropped = greedy_gang(
+        c.res_c, c.valid_c, c.gpu_c, c.eid_c, x.host_gpu, x.host_blocked,
+        wire.exc_mask, x.avail, x.capacity, c.cand_row, wire.gang_id,
+        wire.gang_size, wire.gang_attr, wire.host_topo)
     return MegaCycleResult(
         queue_rows=c.queue_rows, n_queue=c.n_queue, cand_row=c.cand_row,
         cand_assign=assign, cand_qpos=c.cand_qpos, cand_gang=cand_gang,
