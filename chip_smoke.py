@@ -21,9 +21,12 @@ hosts.
   2. builds the kernels from ``cook_tpu_torch/ops/csrc`` (nvcc);
   3. phase F: K1, K2, K3, K5 and K5+K6 against their plain versions,
      bit for bit, on edge worlds: K1 at S in {1, 4, 33} and T from 1 to
-     1,048,576 (tile edges at 1,024, 2,048 and 4,096 +-1; 33 pools take
-     group_base's window path), the three rows codecs, exception rows
-     with duplicates, -1, >= T and rows on tile boundaries at E in {0,
+     1,048,576 (tile edges at 1,024, 2,048 and 4,096 +-1; 33,000 and
+     100,000 pad two and three levels of the sum, so the tile grid
+     shifts and the finisher pads), and at S = 100 and 1,000 (the group
+     base's centred windows) with ragged T, the three rows codecs,
+     exception rows with duplicates, -1, >= T and rows on tile
+     boundaries at E in {0,
      1, 64, 256}, u16 and f32 avail and capacity at H in {1, 7, 8,
      8,192, 65,536}, group ids with -1 and shared groups, +-inf in
      res_base (0 x inf = NaN reaches the bases), 2 CUDA launches a call
@@ -1505,7 +1508,13 @@ def div_fast_check():
 # ------------------------------------------- phase F: K1 and K5+K6 edge worlds
 EXPAND_EDGE_S = (1, 4, 33)
 EXPAND_EDGE_T = (1, 31, 32, 33, 1_023, 1_024, 1_025, 2_047, 2_048, 2_049,
-                 4_095, 4_096, 4_097, 131_072, 1_048_576)
+                 4_095, 4_096, 4_097, 33_000, 100_000, 131_072, 1_048_576)
+# (S, T) beyond EXPAND_EDGE_S x EXPAND_EDGE_T: ragged pool counts past 64
+# (centred windows of the group base) at ragged T (33,000: the grid
+# shifted by 396 rows, three levels padded; 100,000: the finisher pads)
+EXPAND_EDGE_MORE = ((100, 33), (100, 1_025), (100, 4_000), (100, 4_097),
+                    (100, 33_000), (100, 100_000), (1_000, 1),
+                    (1_000, 33), (1_000, 1_025), (1_000, 4_097))
 EXPAND_EDGE_E = (0, 1, 64, 256)
 EXPAND_EDGE_H = (1, 7, 8, 8_192, 65_536)
 
@@ -1584,31 +1593,34 @@ def expand_edge_args(S, T, codec, E, H, u16, seed) -> tuple:
 
 def expand_edge_check():
     """K1 against its plain version, bit for bit (NaN where NaN), on
-    every (S, T) of EXPAND_EDGE_S x EXPAND_EDGE_T, the codecs, E, H and
-    the u16 / f32 host decode taken in turn; each call's CUDA launches
-    counted from a captured graph (2: the memset and the kernel)."""
+    every (S, T) of EXPAND_EDGE_S x EXPAND_EDGE_T and EXPAND_EDGE_MORE,
+    the codecs, E, H and the u16 / f32 host decode taken in turn; each
+    call's CUDA launches counted from a captured graph (2: the memset
+    and the kernel)."""
     from cook_tpu_torch.ops import expand as tex
     faults, worst, i, seen = [], 0, 0, set()
     t0 = time.perf_counter()
-    for S in EXPAND_EDGE_S:
-        for T in EXPAND_EDGE_T:
-            codec, E = i % 3, EXPAND_EDGE_E[i % 4]
-            H, u16 = EXPAND_EDGE_H[i % 5], i % 2 == 1
-            args, kw = expand_edge_args(S, T, codec, E, H, u16, SEED + 70 + i)
-            replay(i, tex.expand, args, kw, faults)
-            types, _ = captured_launches(
-                lambda: tex.expand.launch(*args, **kw))
-            if len(types) != 2:
-                faults.append(f"K1 at S={S}, T={T}: launched {types}")
-            worst = max(worst, len(types))
-            seen.add((codec, E, H, u16))
-            i += 1
-            del args
+    worlds = [(S, T) for S in EXPAND_EDGE_S for T in EXPAND_EDGE_T] \
+        + list(EXPAND_EDGE_MORE)
+    for S, T in worlds:
+        codec, E = i % 3, EXPAND_EDGE_E[i % 4]
+        H, u16 = EXPAND_EDGE_H[i % 5], i % 2 == 1
+        args, kw = expand_edge_args(S, T, codec, E, H, u16, SEED + 70 + i)
+        replay(i, tex.expand, args, kw, faults)
+        types, _ = captured_launches(
+            lambda: tex.expand.launch(*args, **kw))
+        if len(types) != 2:
+            faults.append(f"K1 at S={S}, T={T}: launched {types}")
+        worst = max(worst, len(types))
+        seen.add((codec, E, H, u16))
+        i += 1
+        del args
     if faults:
         raise AssertionError("K1: kernel != plain version:\n"
                              + "\n".join(faults))
     print(json.dumps({"phase": "F", "kernel": "expand", "S": EXPAND_EDGE_S,
-                      "T": EXPAND_EDGE_T, "worlds": i,
+                      "T": EXPAND_EDGE_T, "more": EXPAND_EDGE_MORE,
+                      "worlds": i,
                       "codec_E_H_u16_seen": len(seen),
                       "equal_to_plain": True, "launches_per_call": worst,
                       "replay_and_count_s": time.perf_counter() - t0}))

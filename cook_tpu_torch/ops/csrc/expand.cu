@@ -16,19 +16,26 @@
 // applied with a shared atomicMax (the highest e wins a duplicate: the
 // JAX scatter's last write), and the slice is stored once.
 //
-// pool_base is summed in window32_sum's order (ops/scan.py: windows of
-// 32 from +0.0, recursively) without reading usage back.  A tile holds
-// kTile / 1,024 level-1 windows (32 x 32 rows): it sums its masked usage
-// (usage * (valid & ~pending)) a 32-row window at a time from +0.0, then
-// each 32 of those, and stores the level-1 partials.  A ragged last
-// window sums only its own rows; window32_sum's zero padding changes no
-// sum that starts from +0.0, so the bits are the same.  The tile then
-// takes a ticket of its pool (atomic, after a fence); the tile that
-// finishes its pool last sums the remaining levels into pool_base[s] and
-// takes a ticket over pools; the last pool's finisher computes
-// group_base of every pool (a sequential sum up to 32 pools, windows of
-// 32 past that).  No tile waits on another, so any scheduling order is
-// safe.
+// pool_base is summed in window32_sum's order (ops/scan.py, XLA:CPU's:
+// while more than 32 values remain, centred zero padding to whole
+// windows of 32, each window summed from +0.0) without reading usage
+// back.  The level-0 windows start `shift0` rows before row 0 and the
+// level-1 windows (32 level-0 windows) `shift0 + 32 * shift1` rows
+// before it, where shift0 and shift1 are the two levels' leading
+// padding (0 at a power of two).  So the tile grid is shifted by
+// `shift = shift0 + 32 * shift1` rows: tile k holds rows [k * kTile -
+// shift, (k + 1) * kTile - shift) of the pool, the first tile is short,
+// and every tile holds whole level-1 windows.  A tile sums its masked
+// usage (usage * (valid & ~pending)) a 32-row window at a time from
+// +0.0, then each 32 of those, and stores the level-1 partials.  A
+// window sums only the rows it has; the zero padding changes no sum
+// that starts from +0.0, so the bits are the same.  The tile then takes
+// a ticket of its pool (atomic, after a fence); the tile that finishes
+// its pool last sums the remaining levels, with their own centred
+// padding, into pool_base[s] and takes a ticket over pools; the last
+// pool's finisher computes group_base of every pool in the same order
+// (a sequential sum up to 32 pools, centred windows of 32 past that).
+// No tile waits on another, so any scheduling order is safe.
 //
 // A host tile unpacks host_bits and decodes avail and capacity (u16
 // fixed point times the column's scale, or f32 through), float4 out.
@@ -104,6 +111,7 @@ struct Args {
   unsigned* ticket;     // [S] tiles finished a pool, then pools finished
   long long T;
   int codec, avail_u16, cap_u16, S, U, E, H, B, tiles, host_tiles, windows;
+  int shift;            // rows the tile grid starts before row 0
 };
 
 __device__ __forceinline__ long long decode_row(const Args& a, long long i,
@@ -141,6 +149,11 @@ __device__ void host_tile(const Args& a, int b) {
   }
 }
 
+// Zeros XLA:CPU's reduce puts before n values (ops/scan.centred_pad).
+__host__ __device__ __forceinline__ int centred_pad(long long n) {
+  return n <= kWin ? 0 : (int)(((n + kWin - 1) / kWin * kWin - n) / 2);
+}
+
 // pool_base[s] from the pool's level-1 partials, the levels above in
 // window32_sum's order; buf: two buffers of kRunFloats / 2 floats
 __device__ void finish_pool(const Args& a, int s, float* buf) {
@@ -151,12 +164,13 @@ __device__ void finish_pool(const Args& a, int s, float* buf) {
   int flip = 0;
   while (n > kWin) {
     int nb = (n + kWin - 1) / kWin;
+    int pad = centred_pad(n);
     float* dst = buf + flip * (kRunFloats / 2);
     for (int i = tid; i < nb * 4; i += kExpandThreads) {
       int w = i >> 2, c = i & 3;
-      int hi = min(w * kWin + kWin, n);
+      int hi = min(w * kWin - pad + kWin, n);
       float acc = 0.0f;
-      for (int j = w * kWin; j < hi; ++j)
+      for (int j = max(w * kWin - pad, 0); j < hi; ++j)
         acc = acc + (global ? __ldcg(src + j * 4 + c) : src[j * 4 + c]);
       dst[i] = acc;
     }
@@ -175,23 +189,26 @@ __device__ void finish_pool(const Args& a, int s, float* buf) {
   }
 }
 
-// group_base[s] = sum over pools q, in order, of pool_base[q] where q
-// shares s's quota group (windows of 32 past 32 pools)
+// group_base[s] = sum over pools q of pool_base[q] where q shares s's
+// quota group: in order up to 32 pools; past that, window w holds pools
+// [32 w - pad, 32 w - pad + 32) (centred padding), and the nw <= 32
+// window sums are summed in order.  Every sum starts from +0.0, so a
+// single window's sum is the sequential one.
 __device__ void finish_groups(const Args& a) {
+  const int nw = (a.S + kWin - 1) / kWin, pad = centred_pad(a.S);
   for (int i = threadIdx.x; i < a.S * 4; i += kExpandThreads) {
     int s = i >> 2, c = i & 3;
     int g = a.group_id[s];
-    int nw = (a.S + kWin - 1) / kWin;
-    float outer = 0.0f, first = 0.0f;
+    float outer = 0.0f;
     for (int w = 0; w < nw; ++w) {
       float acc = 0.0f;
-      for (int q = w * kWin; q < a.S && q < w * kWin + kWin; ++q)
+      for (int q = max(w * kWin - pad, 0);
+           q < a.S && q < w * kWin - pad + kWin; ++q)
         acc = acc + __ldcg(a.pool_base + q * 4 + c) *
                         ((a.group_id[q] == g && g >= 0) ? 1.0f : 0.0f);
-      if (w == 0) first = acc;
       outer = outer + acc;
     }
-    a.group_base[i] = nw == 1 ? first : outer;
+    a.group_base[i] = outer;
   }
 }
 
@@ -206,8 +223,10 @@ __global__ void __launch_bounds__(kExpandThreads, kMinCtas)
     return;
   }
   const int s = blockIdx.x / a.tiles, tile = blockIdx.x % a.tiles;
-  const long long T = a.T, lo = (long long)tile * kTile;
-  const int n = (int)(T - lo < kTile ? T - lo : kTile);
+  const long long T = a.T, lo = (long long)tile * kTile - a.shift;
+  // the tile's rows are [r0, r1) of its kTile
+  const int r0 = lo < 0 ? (int)-lo : 0;
+  const int r1 = (int)(T - lo < kTile ? T - lo : kTile);
   const long long base = (long long)s * T + lo;
   float* run = smem;
   int* exc = (int*)(smem + kRunFloats);
@@ -225,7 +244,7 @@ __global__ void __launch_bounds__(kExpandThreads, kMinCtas)
     for (int k = 0; k < kBatch; ++k) {
       int r = tid + (k0 + k) * kExpandThreads;
       long long t = lo + r, i = base + r;
-      bool ok = r < n;
+      bool ok = r >= r0 && r < r1;
       row[k] = ok ? (int)decode_row(a, i, t) : 0;
       fl[k] = ok ? a.flags[i] : 0;
       nfirst[k] = !ok || t + 1 >= T || (a.flags[i + 1] & kUserFirst);
@@ -240,7 +259,7 @@ __global__ void __launch_bounds__(kExpandThreads, kMinCtas)
 #pragma unroll
     for (int k = 0; k < kBatch; ++k) {
       int r = tid + (k0 + k) * kExpandThreads;
-      if (r >= n) continue;
+      if (r < r0 || r >= r1) continue;
       long long t = lo + r, i = base + r;
       uint8_t f = fl[k];
       float pend = (f & kPending) ? 1.0f : 0.0f;
@@ -260,7 +279,7 @@ __global__ void __launch_bounds__(kExpandThreads, kMinCtas)
 #pragma unroll
     for (int k = 0; k < kBatch; ++k) {
       int r = tid + (k0 + k) * kExpandThreads;
-      int ur = r < n ? a.user_rank[base + r] : 0;
+      int ur = r >= r0 && r < r1 ? a.user_rank[base + r] : 0;
       uc[k] = s * a.U + (ur < 0 ? 0 : (ur > a.U - 1 ? a.U - 1 : ur));
     }
     float tk[kBatch];
@@ -273,7 +292,7 @@ __global__ void __launch_bounds__(kExpandThreads, kMinCtas)
 #pragma unroll
     for (int k = 0; k < kBatch; ++k) {
       int r = tid + (k0 + k) * kExpandThreads;
-      if (r >= n) continue;
+      if (r < r0 || r >= r1) continue;
       long long i = base + r;
       const float* sh = a.shares_u + (long long)uc[k] * 3;
       a.tokens[i] = tk[k];
@@ -289,22 +308,24 @@ __global__ void __launch_bounds__(kExpandThreads, kMinCtas)
   const int* er = a.exc_rows + (long long)s * a.E;
   for (int e = tid; e < a.E; e += kExpandThreads) {
     long long r = er[e];
-    if (r >= lo && r < lo + n) atomicMax(&exc[r - lo], e);
+    if (r >= lo + r0 && r < lo + r1) atomicMax(&exc[r - lo], e);
   }
   // level 0: a thread a (32-row window, column), sequential from +0.0
   {
     const int w = tid >> 2, c = tid & 3;
-    const int hi = min(w * kWin + kWin, n);
+    const int hi = min(w * kWin + kWin, r1);
     float acc = 0.0f;
-    for (int r = w * kWin; r < hi; ++r) acc = acc + run[4 * (r + w) + c];
+    for (int r = max(w * kWin, r0); r < hi; ++r)
+      acc = acc + run[4 * (r + w) + c];
     lvl0[tid] = acc;
   }
   __syncthreads();
-  for (int r = tid; r < n; r += kExpandThreads) a.exc_id[base + r] = exc[r];
+  for (int r = r0 + tid; r < r1; r += kExpandThreads)
+    a.exc_id[base + r] = exc[r];
   // level 1: windows of 32 level-0 partials, stored for the finisher
   if (tid < 4 * kWindows1) {
     const int v = tid >> 2, c = tid & 3;
-    const int n0 = (n + kWin - 1) / kWin;
+    const int n0 = (r1 + kWin - 1) / kWin;
     if (v * kWin < n0) {
       float acc = 0.0f;
       for (int w = v * kWin; w < min(v * kWin + kWin, n0); ++w)
@@ -335,8 +356,8 @@ __global__ void __launch_bounds__(kExpandThreads, kMinCtas)
 // Outputs and scratch are views of one slab (ops/expand.py): partials
 // [S, windows, 4] f32, ticket [S + 1] u32 inside the ctl_words the
 // memset zeroes.  tile, host_tile, threads and smem must be the values
-// this source was compiled for; tiles, host_tiles and windows must cover
-// T and H.
+// this source was compiled for; shift must be the grid's (see above);
+// tiles, host_tiles and windows must cover T + shift and H.
 COOK_API int k1_expand(const void* rows, int codec, const uint8_t* flags,
                        const float* res_base, const float* disk_base,
                        const float* tokens_u, const float* shares_u,
@@ -353,11 +374,14 @@ COOK_API int k1_expand(const void* rows, int codec, const uint8_t* flags,
                        float* partials, unsigned* ctl, int ctl_words, int S,
                        long long T, int U, int E, int H, int B, int tile,
                        int host_tile_, int threads, int tiles, int host_tiles,
-                       int windows, int smem, void* stream) {
+                       int windows, int shift, int smem, void* stream) {
+  const int want_shift =
+      T < 1 ? 0 : centred_pad(T) + kWin * centred_pad((T + kWin - 1) / kWin);
   if (tile != kTile || host_tile_ != kHostTile || threads != kExpandThreads ||
       smem != kSmemBytes || S < 1 || S > kMaxPools || T < 1 || U < 1 ||
       E < 0 || H < 0 || codec < 0 || codec > 2 ||
-      (long long)tiles * kTile < T || (long long)(tiles - 1) * kTile >= T ||
+      shift != want_shift || (long long)tiles * kTile < T + shift ||
+      (long long)(tiles - 1) * kTile >= T + shift ||
       (long long)host_tiles * kHostTile < H ||
       (host_tiles > 0 && (long long)(host_tiles - 1) * kHostTile >= H) ||
       windows != (T + kLevel1 - 1) / kLevel1 ||
@@ -419,6 +443,7 @@ COOK_API int k1_expand(const void* rows, int codec, const uint8_t* flags,
   a.tiles = tiles;
   a.host_tiles = host_tiles;
   a.windows = windows;
+  a.shift = shift;
   expand_tiles<<<S * (tiles + host_tiles), kExpandThreads, kSmemBytes, st>>>(
       a);
   return cook::last_error();

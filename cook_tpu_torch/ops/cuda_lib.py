@@ -40,7 +40,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 # stream.
 _GEO = "piliiilli" + "p"
 _SIGNATURES = {
-    "k1_expand": "pipppppppppppiffffpiffff" + "p" * 16 + "iil" + "i" * 11
+    "k1_expand": "pipppppppppppiffffpiffff" + "p" * 16 + "iil" + "i" * 12
     + "p",
     "k2_seg_f32": "pppiipi" + _GEO,
     "k2_seg_count": "pipp" + _GEO,

@@ -17,6 +17,7 @@ from typing import List, NamedTuple, Tuple
 import torch
 
 from . import cuda_lib, quant
+from .scan import centred_pad
 from .delta import FLAG_PENDING, FLAG_USER_FIRST, FLAG_VALID
 
 KERNEL = "expand"
@@ -105,14 +106,17 @@ _ALIGN = 16
 class ExpandPlan(NamedTuple):
     """Launch geometry and slab layout of one K1 call: ``tiles`` task
     CTAs a pool then ``host_tiles`` host CTAs a pool (grid ``S * (tiles
-    + host_tiles)``); ``windows`` level-1 partials a pool.  ``offsets``
-    are byte offsets into one slab of ``slab_bytes``: the 14 outputs in
+    + host_tiles)``); ``windows`` level-1 partials a pool.  The task
+    tiles start ``shift`` rows before row 0 (:func:`grid_shift`), so
+    each holds whole level-1 windows of ``window32_sum``'s order.
+    ``offsets`` are byte offsets into one slab of ``slab_bytes``: the 14 outputs in
     ``Expanded`` order, then the partials [S, windows, 4] f32, then
     ``ctl_words`` u32 control words (a ticket a pool, then the ticket
     over pools at ``ctl_words - 1``), which the memset zeroes."""
     S: int
     T: int
     H: int
+    shift: int
     tiles: int
     host_tiles: int
     windows: int
@@ -129,12 +133,20 @@ _OUT_DTYPES = (_F32, _F32, _F32, _F32, _F32, _U8, _I32, _I32, _U8, _U8,
 _SIZE = {_F32: 4, _I32: 4, _U8: 1}
 
 
+def grid_shift(T: int) -> int:
+    """Rows before row 0 at which ``window32_sum``'s level-1 windows (32
+    windows of 32 rows) start over T rows: the first level's centred
+    padding plus 32 times the second's; 0 when T is a power of two."""
+    return centred_pad(T) + WIN * centred_pad(-(-T // WIN))
+
+
 @functools.lru_cache(maxsize=64)
 def expand_plan(S: int, T: int, H: int) -> ExpandPlan:
     if not (1 <= S <= MAX_POOLS and T >= 1 and H >= 0):
         raise ValueError(f"K1 needs 1 <= S <= {MAX_POOLS}, T >= 1, H >= 0; "
                          f"got {S}, {T}, {H}")
-    tiles = -(-T // TILE)
+    shift = grid_shift(T)
+    tiles = -(-(T + shift) // TILE)
     windows = -(-T // LEVEL1)
     if windows > MAX_WINDOWS:
         raise ValueError(f"K1 takes T up to {MAX_WINDOWS * LEVEL1}, got {T}")
@@ -147,7 +159,7 @@ def expand_plan(S: int, T: int, H: int) -> ExpandPlan:
         offsets.append(at)
         n = math.prod(shape) * _SIZE[dt]
         at += -(-n // _ALIGN) * _ALIGN
-    return ExpandPlan(S=S, T=T, H=H, tiles=tiles,
+    return ExpandPlan(S=S, T=T, H=H, shift=shift, tiles=tiles,
                       host_tiles=-(-H // HOST_TILE), windows=windows,
                       ctl_words=S + 1, offsets=tuple(offsets),
                       shapes=shapes, dtypes=dtypes, slab_bytes=at)
@@ -213,5 +225,6 @@ def expand(rows, flags, res_base, disk_base, tokens_u, shares_u, quota_u,
         exc_rows.data_ptr(), avail_in.data_ptr(), a_u16, *a_s,
         cap_in.data_ptr(), c_u16, *c_s, *(at + off for off in plan.offsets),
         plan.ctl_words, P, T, U, E, H, B, TILE, HOST_TILE, THREADS,
-        plan.tiles, plan.host_tiles, plan.windows, SMEM_BYTES, plan=plan)
+        plan.tiles, plan.host_tiles, plan.windows, plan.shift, SMEM_BYTES,
+        plan=plan)
     return out

@@ -7,10 +7,12 @@ package on XLA:CPU, so that float sums agree bit for bit:
   a sequential sum inside each block of 16, the same scan applied
   recursively to the block totals, and the exclusive prefix of those
   totals added to each element;
-* :func:`window32_sum` is the order of an axis ``jnp.sum`` over a
-  power-of-two length >= 64: sequential sums over windows of 32, applied
-  recursively until at most 32 partials remain, which are summed in
-  order.
+* :func:`window32_sum` is the order of an axis ``jnp.sum`` at every
+  length: while more than 32 values remain, pad ``pad // 2`` zeros
+  before them and the rest after, to a multiple of 32 (centred), and
+  replace each window of 32 by its sum in order from +0.0; then sum the
+  32 or fewer left in order from +0.0.  At a power of two no level
+  pads.
 
 Integer prefixes are exact in any order.  :func:`lexsort` is numpy's
 (last key primary), stable, built from chained stable sorts; float keys
@@ -127,18 +129,28 @@ def prefix_sum_xla_cpu(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
     return torch.movedim(out, 0, dim)
 
 
+def centred_pad(n: int) -> int:
+    """Zeros XLA:CPU's reduce puts before ``n`` values when it pads them
+    to whole windows of 32 (the rest go after); 0 at ``n <= 32``, where
+    it does not pad."""
+    return 0 if n <= 32 else (-(-n // 32) * 32 - n) // 2
+
+
 def window32_sum(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
-    """Sum over ``dim`` in XLA:CPU's reduce order for a power-of-two
-    length (windows of 32, each summed in order from zero)."""
+    """Sum over ``dim`` in XLA:CPU's reduce order at any length: windows
+    of 32 after centred zero padding (:func:`centred_pad`), each summed
+    in order from +0.0, recursively."""
     if dim < 0:
         dim += x.ndim
     xm = torch.movedim(x, dim, 0)
     while xm.shape[0] > 32:
         n = xm.shape[0]
         nb = (n + 31) // 32
-        if nb * 32 != n:
-            xm = torch.cat([xm, xm.new_zeros((nb * 32 - n,) + xm.shape[1:])])
-        w = xm.reshape((nb, 32) + xm.shape[1:])
+        lo = centred_pad(n)
+        rest = xm.shape[1:]
+        xm = torch.cat([xm.new_zeros((lo,) + rest), xm,
+                        xm.new_zeros((nb * 32 - n - lo,) + rest)])
+        w = xm.reshape((nb, 32) + rest)
         acc = torch.zeros_like(w[:, 0])
         for j in range(32):
             acc = acc + w[:, j]

@@ -259,8 +259,9 @@ def _pool_cycle_structured(usage, quota, shares, first_idx, user_rank,
 
 def pool_bases(usage, pending, valid, group_id):
     """Every pool's running usage and its quota group's total: f32[P, 4]
-    each, summed in XLA:CPU's orders (windows of 32 over tasks; pools in
-    order) so the port's caps see the reference's bits."""
+    each, summed in XLA:CPU's order over tasks and over pools
+    (``window32_sum``: centred windows of 32) so the port's caps see the
+    reference's bits."""
     run = usage * (valid & ~pending)[..., None]
     pool_base = window32_sum(run, dim=1)[:, :4]
     same = (group_id[None, :] == group_id[:, None]) & (group_id[:, None] >= 0)

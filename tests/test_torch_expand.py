@@ -2,10 +2,14 @@
 
 The kernel (``csrc/expand.cu``) runs only on the card; here:
 
-* a numpy model of its tile reduction (level-1 partials by tile, then
-  the levels the pool's last tile sums) against ``window32_sum`` at
-  every T of ``chip_smoke.py``'s phase F and both tile sizes, and
-  against ``jnp.sum`` at powers of two;
+* a numpy model of its tile reduction (the tile grid shifted by the
+  centred padding, level-1 partials by tile, then the levels the pool's
+  last tile sums) against ``window32_sum`` at every T of
+  ``chip_smoke.py``'s phase F and both tile sizes, and against
+  ``jnp.sum`` at powers of two and at ragged lengths;
+* a numpy model of its group-base finisher, and the plain version's
+  group base, against the reference's vmapped masked ``jnp.sum`` at
+  pool counts from 1 to 1,024;
 * a numpy model of its tile-local exception scatter against the JAX
   package's ``expand_compact``;
 * ``expand_plan`` against the constants ``expand.cu`` is compiled for;
@@ -27,11 +31,13 @@ from cook_tpu.ops import quant as jq
 from cook_tpu.parallel.sharded import CompactPoolCycleInputs, expand_compact
 from cook_tpu_torch.ops import expand as tex
 from cook_tpu_torch.ops import quant as tq
-from cook_tpu_torch.ops.scan import window32_sum
+from cook_tpu_torch.parallel.sharded import pool_bases
+from cook_tpu_torch.ops.scan import centred_pad, window32_sum
 
 F32 = np.float32
 EDGE_T = (1, 31, 32, 33, 1_023, 1_024, 1_025, 2_047, 2_048, 2_049, 4_095,
-          4_096, 4_097, 131_072, 1_048_576)
+          4_096, 4_097, 33_000, 131_072, 1_048_576)
+RAGGED_T = (33, 100, 1_025, 4_000, 4_097, 33_000, 100_000)
 WIN = 32
 
 
@@ -43,34 +49,57 @@ def _seq(x):
     return acc
 
 
-def _windows(x):
-    """Window sums of 32 rows along axis 0; a ragged last window sums
-    only its own rows."""
-    n = x.shape[0]
-    full = n // WIN
-    out = [_seq(x[:full * WIN].reshape((full, WIN) + x.shape[1:]))]
-    if n % WIN:
-        out.append(_seq(x[full * WIN:][None]))
-    return np.concatenate(out)
+def _centred_windows(x):
+    """One level of the finisher along axis 0: window w sums the values
+    [32 w - pad, 32 w - pad + 32) that exist, pad = centred_pad(n)."""
+    n, pad = x.shape[0], centred_pad(x.shape[0])
+    return np.stack([
+        _seq(x[None, max(w * WIN - pad, 0):w * WIN - pad + WIN])[0]
+        for w in range(-(-n // WIN))])
 
 
 def tile_model(run, tile):
-    """K1's pool base: each tile's level-0 windows (32 rows) and level-1
-    windows (32 of those) of its own rows, then the finisher's levels
-    over the pool's level-1 partials, windows of 32 until at most 32
-    remain, then their sum in order."""
+    """K1's pool base: the tile grid starts ``grid_shift(T)`` rows before
+    row 0; each tile sums the rows it has in level-0 windows (32 rows)
+    and level-1 windows (32 of those), from +0.0 (a row the tile does not
+    have counts as +0.0, which changes no sum from +0.0); then the
+    finisher's levels over the pool's level-1 partials, centred windows
+    of 32 until at most 32 remain, then their sum in order."""
     T = run.shape[0]
+    shift = tex.grid_shift(T)
+    tiles = -(-(T + shift) // tile)
+    rows = np.zeros((tiles * tile,) + run.shape[1:], F32)
+    rows[shift:shift + T] = run
     partials = []
-    for lo in range(0, T, tile):
-        lvl0 = _windows(run[lo:lo + tile])
-        for v in range(tile // (WIN * WIN)):
-            if v * WIN < lvl0.shape[0]:
-                partials.append(_seq(lvl0[None, v * WIN:(v + 1) * WIN])[0])
+    for k in range(tiles):
+        own = rows[k * tile:(k + 1) * tile]
+        lvl0 = _seq(own.reshape((tile // WIN, WIN) + run.shape[1:]))
+        lvl1 = _seq(lvl0.reshape((tile // WIN ** 2, WIN) + run.shape[1:]))
+        r1 = min(tile, T + shift - k * tile)
+        partials += [lvl1[v] for v in range(tile // WIN ** 2)
+                     if v * WIN ** 2 < r1]
     cur = np.stack(partials)
     assert cur.shape[0] == -(-T // (WIN * WIN))
     while cur.shape[0] > WIN:
-        cur = _windows(cur)
+        cur = _centred_windows(cur)
     return _seq(cur[None])[0]
+
+
+def group_model(base, gid):
+    """K1's group-base finisher: for each pool, the pools of its group
+    (gid >= 0) in order up to 32 pools, centred windows of 32 past that,
+    the window sums in order."""
+    S = base.shape[0]
+    pad, nw = centred_pad(S), -(-S // WIN)
+    out = np.empty_like(base)
+    for s in range(S):
+        m = ((gid == gid[s]) & (gid[s] >= 0)).astype(F32)[:, None]
+        outer = np.zeros(base.shape[1:], F32)
+        for w in range(nw):
+            lo, hi = max(w * WIN - pad, 0), min(w * WIN - pad + WIN, S)
+            outer = outer + _seq((base[lo:hi] * m[lo:hi])[None])[0]
+        out[s] = outer
+    return out
 
 
 def _run(rng, T, specials=False):
@@ -107,6 +136,17 @@ def test_tile_reduction_equals_jnp_sum_at_powers_of_two(T):
     run = _run(np.random.default_rng(T), T)
     want = np.asarray(jax.jit(lambda x: jnp.sum(x, axis=0))(run))
     _bits_equal(tile_model(run, tex.TILE), want)
+    assert tex.grid_shift(T) == 0
+
+
+@pytest.mark.parametrize("T", RAGGED_T)
+def test_tile_reduction_equals_jnp_sum_at_ragged_lengths(T):
+    """Lengths where one, two or three levels pad (33,000: the grid
+    shifted by 12 + 32 x 12 rows, and 33 partials at level 2)."""
+    run = _run(np.random.default_rng(T + 7), T)
+    want = np.asarray(jax.jit(lambda x: jnp.sum(x, axis=0))(run))
+    _bits_equal(tile_model(run, tex.TILE), want)
+    _bits_equal(tile_model(run, 4_096), want)
 
 
 def exc_tile_model(exc_rows, T, tile):
@@ -205,15 +245,13 @@ def test_exception_scatter_model_equals_expand_compact(tile):
 
 
 @pytest.mark.parametrize("codec", [jq.ROWS_WIDE, jq.ROWS_I16, jq.ROWS_I8])
-@pytest.mark.parametrize("S,T", [(33, 4_097), (4, 4_096)])
+@pytest.mark.parametrize("S,T", [(33, 4_097), (4, 4_096), (65, 33_000)])
 def test_expand_plain_equals_jax_decode_and_bases(codec, S, T):
     """Every output against the JAX package's decode (``expand_compact``
-    and the quant decodes); the bases against its phase-0 ``jnp.sum``
-    bit for bit where S and T are powers of two (the cycle's buckets).
-    At S = 33 and T = 4,097 XLA:CPU sums in another order than windows
-    of 32, so there the bases are held bit for bit against the tile
-    model and ``window32_sum`` (the kernel's order) and to one part in
-    10^5 against ``jnp.sum``."""
+    and the quant decodes); the bases bit for bit against its phase-0
+    ``jnp.sum`` (the vmapped masked sums of ``cook_tpu/parallel/
+    sharded.py``), against the tile model and the group finisher's model
+    (the kernel's order), at powers of two and at ragged S and T."""
     f, wire, kw = _world(codec + 10 * S, S, T, codec)
     got = _plain(f, wire, kw)
     s = expand_compact(CompactPoolCycleInputs(
@@ -259,19 +297,9 @@ def test_expand_plain_equals_jax_decode_and_bases(codec, S, T):
     model = np.stack([tile_model(run[p].astype(F32), tex.TILE)
                       for p in range(S)])
     _bits_equal(got.pool_base.numpy(), model)
-    same = (gid[None, :] == gid[:, None]) & (gid[:, None] >= 0)
-    group_model = np.stack([
-        window32_sum(torch.from_numpy(model * same[p][:, None]), 0).numpy()
-        for p in range(S)])
-    _bits_equal(got.group_base.numpy(), group_model)
-    if S & (S - 1) == 0 and T & (T - 1) == 0:
-        _bits_equal(got.pool_base.numpy(), pool_jax)
-        _bits_equal(got.group_base.numpy(), group_jax)
-    else:
-        np.testing.assert_allclose(got.pool_base.numpy(), pool_jax,
-                                   rtol=1e-5, atol=1e-3)
-        np.testing.assert_allclose(got.group_base.numpy(), group_jax,
-                                   rtol=1e-5, atol=1e-3)
+    _bits_equal(got.group_base.numpy(), group_model(model, gid))
+    _bits_equal(got.pool_base.numpy(), pool_jax)
+    _bits_equal(got.group_base.numpy(), group_jax)
 
 
 def _cu_constants():
@@ -296,6 +324,10 @@ def test_plan_constants_are_the_kernels():
     assert tex.SMEM_BYTES * int(src["kMinCtas"]) <= 232_448
     # one thread a (level-0 window, column); whole level-1 windows a tile
     assert tex.TILE // 32 * 4 == tex.THREADS and tex.TILE % 1024 == 0
+    # the grid shift: the C entry computes it as grid_shift does
+    text = (Path(tex.__file__).parent / "csrc" / "expand.cu").read_text()
+    assert "centred_pad(T) + kWin * centred_pad((T + kWin - 1) / kWin)" \
+        in text
 
 
 @pytest.mark.parametrize("S", [1, 4, 33, 1024])
@@ -303,18 +335,21 @@ def test_plan_constants_are_the_kernels():
 @pytest.mark.parametrize("H", [0, 1, 7, 8, 8_192, 65_536])
 def test_expand_plan_holds_every_tile(T, S, H):
     plan = tex.expand_plan(S, T, H)
-    # task tiles cover [0, T) of every pool once; host tiles [0, H)
-    assert plan.tiles * tex.TILE >= T > (plan.tiles - 1) * tex.TILE
+    # task tiles, shifted, cover [0, T) of every pool once (the first
+    # tile is short, none is empty); host tiles [0, H)
+    shift = plan.shift
+    assert shift == tex.grid_shift(T) < 1024
+    assert plan.tiles * tex.TILE >= T + shift > (plan.tiles - 1) * tex.TILE
     assert plan.host_tiles * tex.HOST_TILE >= H
     assert H == 0 or H > (plan.host_tiles - 1) * tex.HOST_TILE
-    assert plan.windows == -(-T // 1024)
+    assert plan.windows == -(-T // 1024) == -(-(T + shift) // 1024)
     # a tile's level-1 partials land at [tile * TILE / 1024, ...): every
     # window of the pool written by exactly one tile
     owners = [0] * plan.windows
     for tile in range(plan.tiles):
-        n = min(tex.TILE, T - tile * tex.TILE)
+        r1 = min(tex.TILE, T + shift - tile * tex.TILE)
         for v in range(tex.TILE // 1024):
-            if v * 32 < -(-n // 32):
+            if v * 1024 < r1:
                 owners[tile * (tex.TILE // 1024) + v] += 1
     assert owners == [1] * plan.windows
     # the slab: 14 outputs, the partials, the control words; 16-byte
@@ -355,21 +390,30 @@ def test_carve_gives_contiguous_views_of_one_slab():
         assert v.data_ptr() == slab.data_ptr() + off
 
 
-@pytest.mark.parametrize("S,agree", [(32, True), (64, True), (33, False),
-                                     (62, False), (65, False)])
-def test_group_sum_order_of_the_reference_at_ragged_pool_counts(S, agree):
-    """An open fault of the port (ROADMAP section 3): over a ragged pool
-    count XLA:CPU's ``jnp.sum`` does not sum in windows of 32, so the
-    reference's group base can differ in its last bits from
-    ``window32_sum``'s, which K1 and its plain version follow; at
-    powers of two the two agree."""
+@pytest.mark.parametrize("S", [1, 4, 31, 32, 33, 48, 62, 63, 64, 65, 100,
+                               129, 1000, 1024])
+def test_group_sum_order_of_the_reference_at_ragged_pool_counts(S):
+    """The group base over S pools in the reference's own form (the
+    vmapped masked ``jnp.sum`` of ``cook_tpu/parallel/sharded.py``'s
+    phase 0) against the port's plain ``pool_bases`` and the model of
+    K1's finisher, bit for bit: XLA:CPU pads a ragged pool count to
+    windows of 32 with the zeros centred, and so do both."""
     rng = np.random.default_rng(S)
-    same = []
-    for _ in range(10):
+    gid = rng.integers(-1, max(2, S // 3), S).astype(np.int32)
+    gid[: min(S, 3)] = [0, 0, -1][: min(S, 3)]
+    for _ in range(3):
         base = (rng.standard_normal((S, 4)) * rng.uniform(1, 1e4, (S, 4))) \
             .astype(F32)
-        want = np.asarray(jax.jit(lambda x: jnp.sum(x, axis=0))(base))
-        got = window32_sum(torch.from_numpy(base), dim=0).numpy()
-        same.append(np.array_equal(want.view(np.uint32),
-                                   got.view(np.uint32)))
-    assert all(same) == agree
+        want = np.asarray(jax.jit(jax.vmap(lambda g: jnp.sum(
+            jnp.asarray(base) * ((jnp.asarray(gid) == g) & (g >= 0))[:, None],
+            axis=0)))(jnp.asarray(gid)))
+        # one task row a pool: the pool base is the row itself
+        _, got = pool_bases(torch.from_numpy(base)[:, None],
+                            torch.zeros((S, 1), dtype=torch.bool),
+                            torch.ones((S, 1), dtype=torch.bool),
+                            torch.from_numpy(gid))
+        _bits_equal(got.numpy(), want)
+        _bits_equal(group_model(base, gid), want)
+    # and the axis sum the group sums are made of
+    want = np.asarray(jax.jit(lambda x: jnp.sum(x, axis=0))(base))
+    _bits_equal(window32_sum(torch.from_numpy(base), dim=0).numpy(), want)

@@ -107,6 +107,22 @@ def test_waterfill_knobs():
           jm.waterfill_match_kernel(jinp, **kw))
 
 
+def test_waterfill_at_a_ragged_host_count():
+    """Called directly at H = 4,000 (``dispatch`` would bucket H to a
+    power of two): the compaction's ``mean_used_util`` is a sum over
+    4,000 hosts, whose second level XLA:CPU pads (125 partials)."""
+    raw = _workload(1_500, 4_000, 5)
+    arrays = jhp.pack_match_inputs(*raw, pad=False)
+    ours = thp.pack_match_inputs(*raw, pad=False)
+    assert ours["avail"].shape[0] == 4_000
+    jinp = jm.MatchInputs(*(jnp.asarray(arrays[k]) for k in FIELDS))
+    tinp = tm.MatchInputs(*(torch.from_numpy(ours[k]) for k in FIELDS))
+    kw = dict(num_rounds=4, num_compaction=3)
+    assign = _same(tm.waterfill_match_kernel(tinp, **kw),
+                   jm.waterfill_match_kernel(jinp, **kw))
+    assert (assign >= 0).any()
+
+
 def test_ordered_fold_is_segment_sum_order():
     rng = np.random.default_rng(5)
     N, H = 500, 13

@@ -3,8 +3,9 @@
 The port must reproduce the JAX package's float summation orders bit
 for bit: ``lax.associative_scan``'s odd/even recursion
 (``segmented_cumsum``), ``jnp.cumsum``'s blocked-16 order on XLA:CPU
-(``prefix_sum_xla_cpu``) and the windows-of-32 order of an axis
-``jnp.sum`` (``window32_sum``).  Inputs are non-dyadic floats, so an
+(``prefix_sum_xla_cpu``) and the order of ``jnp.sum``
+(``window32_sum``: windows of 32 after centred zero padding, at every
+length).  Inputs are non-dyadic floats, so an
 order mistake changes bits.  Exact equality (tolerance 0) throughout.
 """
 
@@ -65,13 +66,32 @@ def test_prefix_sum_matches_jnp_cumsum(T):
     np.testing.assert_array_equal(_bits(got), _bits(want))
 
 
-@pytest.mark.parametrize("T", [8, 64, 512, 4096])
+SUM_N = sorted(set(range(1, 131)) | {512, 1_000, 4_000, 4_096, 4_097,
+                                      50_000, 65_536})
+
+
+@pytest.mark.parametrize("T", SUM_N)
 def test_window32_sum_matches_jnp_sum(T):
+    """Every length, ragged ones included: an axis sum (vmapped over a
+    batch, as the reference's pool bases are) and a 1-D sum, on values
+    of both signs and many magnitudes, so that a window placed one row
+    off changes bits."""
     rng = np.random.default_rng(T)
-    x = _vals(rng, (3, T, 4))
+    x = (rng.standard_normal((3, T, 4))
+         * rng.uniform(0.01, 900.0, (3, T, 4))).astype(F32)
     want = jax.jit(jax.vmap(lambda a: jnp.sum(a, axis=0)))(jnp.asarray(x))
     got = tscan.window32_sum(torch.from_numpy(x), dim=1)
     np.testing.assert_array_equal(_bits(got), _bits(want))
+    flat = x[0, :, 1].copy()
+    want1 = jax.jit(jnp.sum)(jnp.asarray(flat))
+    got1 = tscan.window32_sum(torch.from_numpy(flat), dim=0)
+    np.testing.assert_array_equal(_bits(got1), _bits(want1))
+
+
+def test_centred_pad():
+    assert [tscan.centred_pad(n) for n in (1, 32, 33, 62, 63, 64, 65, 100,
+                                           4_000, 4_097, 65_536)] == \
+        [0, 0, 15, 1, 0, 0, 15, 14, 0, 15, 0]
 
 
 def test_user_segments_from_flags():
