@@ -819,10 +819,13 @@ TOPK = {
     "topk_structured": dict(
         replaces="cook_tpu/ops/pallas_match.py:162",
         stage="top-K host preferences, structured mask (host vectors + "
-              "exception rows), one thread per job"),
+              "exception rows staged in shared memory), one thread per "
+              "job, host terms once a tile, a two-FMA pre-filter"),
     "topk_dense": dict(
         replaces="cook_tpu/ops/pallas_match.py:116",
-        stage="top-K host preferences, dense u8 mask, one thread per job"),
+        stage="top-K host preferences, dense u8 mask staged by cp.async "
+              "(double-buffered), one thread per job, host terms once a "
+              "tile, a two-FMA pre-filter"),
 }
 TOPK_K = 16
 
@@ -874,43 +877,6 @@ def dense_world(J=10_000, H=50_000):
             torch.from_numpy(avail).cuda(), torch.from_numpy(cap).cuda())
 
 
-def structured_check_world(J=30_000, H=20_000, E=64, seed=7):
-    """The paths the bench world leaves idle: gpu jobs and gpu hosts, 10%
-    invalid jobs (some holding an exception row), non-dyadic demands;
-    run with k = 8 (eight kept entries) and 3 host splits."""
-    rng = np.random.default_rng(seed)
-    job_res = np.stack([rng.uniform(0.1, 8.0, J), rng.uniform(64, 2048, J),
-                        (rng.random(J) < 0.2) * rng.integers(1, 4, J),
-                        rng.uniform(0.0, 10.0, J)], 1).astype(np.float32)
-    cap = np.stack([rng.uniform(16, 64, H), rng.uniform(4096, 16384, H),
-                    (rng.random(H) < 0.3) * 8.0, np.full(H, 1e3)],
-                   1).astype(np.float32)
-    avail = (cap * rng.uniform(0.2, 1.0, (H, 4))).astype(np.float32)
-    exc_id = np.full(J, -1, np.int32)
-    exc_id[rng.choice(J, size=E, replace=False)] = np.arange(E, dtype=np.int32)
-    u8 = np.uint8
-
-    def dev(a, dtype=None):
-        return torch.from_numpy(np.ascontiguousarray(a, dtype)).cuda()
-    return (dev(job_res), dev(rng.random(J) >= 0.1, u8), dev(exc_id),
-            dev(cap[:, 2] > 0, u8), dev(rng.random(H) < 0.05, u8),
-            dev(rng.random((E, H)) < 0.5, u8), dev(avail), dev(cap))
-
-
-def dense_check_world(J=2_000, H=30_000, seed=8):
-    """A small J (16 job blocks, so 30 host splits of fewer hosts than a
-    tile), run with k = 4: eight kept entries, four written."""
-    job_res, _, avail, cap = make_match_workload(J, H, seed=seed)
-    job_res[:, 0] += np.float32(0.3)
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    cmask = (torch.rand((J, H), generator=g, device="cuda") < 0.8) \
-        .view(torch.uint8)
-    valid = (torch.rand(J, generator=g, device="cuda") < 0.9) \
-        .view(torch.uint8)
-    return (torch.from_numpy(job_res).cuda(), cmask, valid,
-            torch.from_numpy(avail).cuda(), torch.from_numpy(cap).cuda())
-
-
 def topk_parity(got, want) -> float:
     """fit bit for bit; host equal where fit > -inf (the -inf entries'
     hosts mean nothing).  Returns the max abs error of the finite fits."""
@@ -948,9 +914,168 @@ def topk_library_ms(wrapper, args) -> float:
     return total
 
 
+def ptxas_report(pattern: str) -> list:
+    """Registers, stack and spills of every kernel whose mangled name
+    matches ``pattern``, from the build's ``-Xptxas -v`` output."""
+    import re
+    from cook_tpu_torch.ops import cuda_lib
+    out, name = [], None
+    for line in cuda_lib.BUILD_LOG.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)'?", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name and re.search(pattern, name):
+            out.append({"function": name, "stack": int(m.group(1)),
+                        "spill_stores": int(m.group(2)),
+                        "spill_loads": int(m.group(3))})
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name and re.search(pattern, name):
+            for row in out:
+                if row["function"] == name:
+                    row["registers"] = int(m.group(1))
+    return out
+
+
+def forced_splits(tpm, splits):
+    """A context in which the top-K wrappers plan ``splits`` host splits
+    (the same work in another geometry, for comparison)."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def ctx():
+        plan = tpm._plan
+
+        def forced(J, H, k, dense, device):
+            p = plan(J, H, k, dense, device)
+            tiles = -(-H // p.tile)
+            S = min(splits, tiles)
+            return p._replace(splits=S, per=-(-tiles // S) * p.tile)
+        tpm._plan = forced
+        try:
+            yield
+        finally:
+            tpm._plan = plan
+    return ctx()
+
+
+def topk_edge_world(seed, J, H, E=0, *, structured=True, exc_block=None,
+                    ties=False, edges=False, nan_hosts=False):
+    """A check world for the top-K kernels, on the card.  ``exc_block``:
+    every job of that scan block holds an exception row (more rows than
+    a round stages); ``ties``: integer demands and capacities, so fits
+    tie at the K-th entry; ``edges``: capacity 0 and below 1e-9,
+    capacities and demands past the fast division's range (the ``/``
+    path, and the pre-filter off), negative cap - avail, zero demands;
+    ``nan_hosts``: three hosts of infinite cpu capacity and avail (a
+    NaN fitness: the row of a job they fit becomes that NaN).  10% invalid jobs, 20%
+    gpu jobs and 30% gpu hosts."""
+    from cook_tpu_torch.ops import pallas_match as tpm
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    if ties:
+        job_res = rng.integers(0, 4, (J, 4)).astype(f32)
+        cap = rng.integers(4, 9, (H, 4)).astype(f32)
+        avail = rng.integers(0, 9, (H, 4)).astype(f32)
+    else:
+        job_res = np.stack([rng.uniform(0.1, 8.0, J),
+                            rng.uniform(64, 2048, J), np.zeros(J),
+                            rng.uniform(0.0, 10.0, J)], 1).astype(f32)
+        cap = np.stack([rng.uniform(16, 64, H), rng.uniform(4096, 16384, H),
+                        np.zeros(H), np.full(H, 1e3)], 1).astype(f32)
+        avail = (cap * rng.uniform(0.2, 1.0, (H, 4))).astype(f32)
+    gpu_host = rng.random(H) < 0.3
+    cap[:, 2] = np.where(gpu_host, 8.0, 0.0)
+    avail[:, 2] = np.where(gpu_host, rng.integers(0, 9, H), 0.0)
+    job_res[:, 2] = np.where(rng.random(J) < 0.2, rng.integers(1, 4, J), 0)
+    if edges:
+        hc = [0.0, 1e-12, 1e-10, 1e-9, 2e12, 5e13, 1e-30]
+        pick = rng.random(H) < 0.3
+        for r in (0, 1):
+            cap[pick, r] = rng.choice(hc, int(pick.sum()))
+        neg = rng.random(H) < 0.2          # avail above capacity
+        avail[neg, :2] = cap[neg, :2] * f32(1.25) + f32(3.0)
+        full = rng.random(H) < 0.1         # cap - avail exactly 0
+        avail[full, :2] = cap[full, :2]
+        jc = [0.0, 1e-20, 1e-13, 2.0 ** 41, 3e12]
+        pick = rng.random(J) < 0.2
+        for r in (0, 1):
+            job_res[pick, r] = rng.choice(jc, int(pick.sum()))
+    if nan_hosts:   # feasible only for jobs of disk demand below 0.5
+        for h in (3, H // 2, H - 2):
+            cap[h, 0] = avail[h, 0] = np.inf
+            avail[h, 3] = 0.5
+    valid = rng.random(J) >= 0.1
+    exc_id = np.full(J, -1, np.int32)
+    if E:
+        exc_id[rng.choice(J, size=min(E, J) // 2, replace=False)] = \
+            rng.integers(0, E, min(E, J) // 2)
+        if exc_block is not None:
+            b = slice(exc_block * tpm.JOBS_PER_BLOCK,
+                      (exc_block + 1) * tpm.JOBS_PER_BLOCK)
+            exc_id[b] = rng.integers(0, E, exc_id[b].shape[0])
+    exc_mask = rng.random((max(E, 1), H)) < 0.5
+
+    def dev(a, dtype=None):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype)).cuda()
+    u8 = np.uint8
+    if structured:
+        return (dev(job_res), dev(valid, u8), dev(exc_id), dev(gpu_host, u8),
+                dev(rng.random(H) < 0.05, u8), dev(exc_mask, u8), dev(avail),
+                dev(cap))
+    cmask = rng.random((J, H)) < 0.8
+    return (dev(job_res), dev(cmask, u8), dev(valid, u8), dev(avail),
+            dev(cap))
+
+
+# (name, structured, J, H, E, world options, k values): H not a multiple
+# of the tile (and of 16: the byte path) and J not of the block; every
+# job of one block holding an exception row, with the 16-byte path and
+# the byte path; ties at the K-th entry; the division's edges; NaN rows
+TOPK_CHECKS = (
+    ("structured_mixed", True, 30_000, 20_000, 64, {}, (8, 16)),
+    ("structured_exc_block_vec", True, 2_000, 20_480, 200,
+     dict(exc_block=3), (16, 9)),
+    ("structured_exc_block_bytes", True, 1_037, 20_013, 300,
+     dict(exc_block=0), (4, 1)),
+    ("structured_ties", True, 3_001, 5_003, 16, dict(ties=True), (16, 8)),
+    ("structured_edges", True, 4_000, 9_000, 32,
+     dict(edges=True, nan_hosts=True), (16, 9)),
+    ("dense_ragged", False, 2_001, 30_007, 0, {}, (4, 1)),
+    ("dense_ties", False, 3_000, 8_192, 0, dict(ties=True), (16, 9)),
+    ("dense_edges", False, 2_500, 10_000, 0,
+     dict(edges=True, nan_hosts=True), (8, 16)),
+)
+
+
+def topk_check():
+    """Each TOPK_CHECKS world at each of its k, kernel against the plain
+    version bit for bit (topk_parity)."""
+    from cook_tpu_torch.ops import pallas_match as tpm
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for i, (name, structured, J, H, E, opts, ks) in enumerate(TOPK_CHECKS):
+        args = topk_edge_world(SEED + 80 + i, J, H, E,
+                               structured=structured, **opts)
+        wrapper = tpm.topk_structured if structured else tpm.topk_dense
+        for k in ks:
+            got = wrapper(*args, k)
+            topk_parity(got, wrapper.plain(*args, k))
+            plan = tpm._plan(J, H, k, not structured, args[0].device)
+            print(json.dumps({
+                "phase": "D", "check": name, "J": J, "H": H, "E": E, "k": k,
+                "host_splits": plan.splits, "sms": sms,
+                "finite_entries": int((got[0] > float("-inf")).sum()),
+                "nan_rows": int(torch.isnan(got[0]).all(1).sum()),
+                "equal_to_plain": True}))
+        del args
+
+
 def phase_d():
     """The top-K kernels through their entry points at the bench worlds
-    (counted), then each held against its plain version and timed."""
+    (counted), then each held against its plain version and timed; then
+    the check worlds."""
     from cook_tpu_torch.ops import pallas_match as tpm
     from cook_tpu_torch.ops import telemetry
     worlds = {"topk_structured": (tpm.topk_structured, structured_world()),
@@ -966,26 +1091,24 @@ def phase_d():
             outs[name] = tpm.topk_prefs(*args, k=TOPK_K)
     torch.cuda.synchronize()
     counts = telemetry.snapshot()
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = {}
     for name, (wrapper, args) in worlds.items():
         if counts.get(name, 0) <= 0:
             raise AssertionError(f"{name} was not launched")
         want = wrapper.plain(*args, TOPK_K)
         err = topk_parity(outs[name], want)
-        ms = cuda_ms(lambda: wrapper(*args, TOPK_K), 3)
+        call = lambda: wrapper(*args, TOPK_K)  # noqa: E731
+        ms = cuda_ms(call, 3)
+        dev_ms = device_ms(call, 3)
+        types, _ = captured_launches(call)
         job_res, avail = args[0], args[-2]
         J, H = job_res.shape[0], avail.shape[0]
-        splits = tpm.host_splits(J, H, sms)
+        plan = tpm._plan(J, H, TOPK_K, name == "topk_dense", job_res.device)
         one_split_ms = None
-        if splits > 1:   # the same work with the hosts left unsplit
-            per_sm = tpm.BLOCKS_PER_SM
-            tpm.BLOCKS_PER_SM = 0
-            try:
-                topk_parity(wrapper(*args, TOPK_K), want)
-                one_split_ms = cuda_ms(lambda: wrapper(*args, TOPK_K), 3)
-            finally:
-                tpm.BLOCKS_PER_SM = per_sm
+        if plan.splits > 1:   # the same work with the hosts left unsplit
+            with forced_splits(tpm, 1):
+                topk_parity(call(), want)
+                one_split_ms = cuda_ms(call, 3)
         del want
         plain_ms = cuda_ms(lambda: wrapper.plain(*args, TOPK_K), 1)
         lib_ms = topk_library_ms(wrapper, args)
@@ -997,26 +1120,22 @@ def phase_d():
         ops = int((valid != 0).sum()) * avail.shape[0] * 12
         fit = outs[name][0]
         rows[name] = dict(calls=1, launches=counts[name], max_abs_err=err,
-                          ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                          ms=ms, device_ms=dev_ms,
+                          cuda_launches_per_call=len(types),
+                          plain_ms=plain_ms, library_ms=lib_ms,
                           bytes=nbytes, ops=ops)
         b_ms, b_by = bound(rows[name])
         print(json.dumps({
             "phase": "D", "kernel": name, "J": J, "H": H, "k": TOPK_K,
             **rows[name], "bound_ms": b_ms, "bound_by": b_by,
-            "host_splits": splits, "one_split_ms": one_split_ms,
+            "launched": types, "host_splits": plan.splits,
+            "blocks_per_sm": tpm.blocks_per_sm(
+                name == "topk_dense", tpm.kept(TOPK_K), 0),
+            "one_split_ms": one_split_ms,
             "finite_entries": int((fit > float("-inf")).sum())}))
-    checks = (("topk_structured", tpm.topk_structured,
-               structured_check_world(), 8),
-              ("topk_dense", tpm.topk_dense, dense_check_world(), 4))
-    for name, wrapper, args, k in checks:
-        got = wrapper(*args, k)
-        topk_parity(got, wrapper.plain(*args, k))
-        J, H = args[0].shape[0], args[-2].shape[0]
-        print(json.dumps({
-            "phase": "D", "check": name, "J": J, "H": H, "k": k,
-            "host_splits": tpm.host_splits(J, H, sms),
-            "finite_entries": int((got[0] > float("-inf")).sum()),
-            "equal_to_plain": True}))
+    print(json.dumps({"phase": "D", "ptxas": ptxas_report(
+        r"topk|greedy_cluster|div_check|div_recip")}))
+    topk_check()
     return rows
 
 
@@ -1472,20 +1591,25 @@ def div_fast_check():
     """K5's fast-path division (``div_fast`` in csrc/greedy.cu) against
     IEEE ``/`` on the card: wherever its range check passes the two are
     equal bit for bit, and the check passes exactly where both operands
-    have magnitudes in [2^-40, 2^40)."""
+    have magnitudes in [2^-40, 2^40); the top-K kernels' split form
+    (``recip_fast`` stored, then ``div_by_recip``) equals ``div_fast``
+    on every pair."""
     from cook_tpu_torch.ops import cuda_lib
     a, b = div_operands(np.random.default_rng(SEED + 60))
     da, db = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
     fast, ieee = torch.empty_like(da), torch.empty_like(da)
+    recip, pre = torch.empty_like(da), torch.empty_like(da)
     safe = torch.empty(a.size, dtype=torch.int32, device="cuda")
     rc = cuda_lib.lib().k5_div_check(
         da.data_ptr(), db.data_ptr(), fast.data_ptr(), ieee.data_ptr(),
-        safe.data_ptr(), a.size, torch.cuda.current_stream().cuda_stream)
+        safe.data_ptr(), recip.data_ptr(), pre.data_ptr(), a.size,
+        torch.cuda.current_stream().cuda_stream)
     if rc:
         raise RuntimeError(f"k5_div_check: CUDA error {rc}")
     torch.cuda.synchronize()
     fast = fast.cpu().numpy().view(np.uint32)
     ieee = ieee.cpu().numpy().view(np.uint32)
+    pre = pre.cpu().numpy().view(np.uint32)
     safe = safe.cpu().numpy() != 0
 
     def inside(x):
@@ -1497,9 +1621,15 @@ def div_fast_check():
     if bad:
         raise AssertionError(f"div_fast differs from / on {bad} pairs in "
                              f"its range")
+    # the top-K kernels' split form: the reciprocal stored, then the
+    # quotient from it, equal to div_fast everywhere
+    bad = int((pre != fast).sum())
+    if bad:
+        raise AssertionError(f"div_by_recip from a stored reciprocal "
+                             f"differs from div_fast on {bad} pairs")
     print(json.dumps({"phase": "F", "kernel": "greedy", "check": "div_fast",
                       "pairs": int(a.size), "in_range": int(safe.sum()),
-                      "equal_in_range": True,
+                      "equal_in_range": True, "split_form_equal": True,
                       "differ_out_of_range": int((~safe
                                                   & (fast != ieee)).sum())}))
 
@@ -1848,7 +1978,9 @@ def main() -> int:
             "replaces": TOPK[k]["replaces"], "stage": TOPK[k]["stage"],
             "launches": row["launches"], "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": row["library_ms"]})
+            "bound_by": b_by, "library_ms": row["library_ms"],
+            "device_ms": row["device_ms"],
+            "cuda_launches_per_call": row["cuda_launches_per_call"]})
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -58,10 +58,11 @@ _SIGNATURES = {
     "k3_sort_user": "pippppiliiiiillllip",
     "k4_compact_slots": "p" * 14 + "ilip",
     "k5_greedy": "p" * 11 + "iiii" + "iiiiiiil" + "ip",
-    "k5_div_check": "pppppip",
+    "k5_div_check": "pppppppip",
     "k56_greedy_gang": "p" * 19 + "i" * 11 + "lil" + "iiii" + "p",
-    "topk_dense": "p" * 9 + "iiiip",
-    "topk_structured": "p" * 12 + "iiiip",
+    "topk_dense": "p" * 9 + "i" * 8 + "p",
+    "topk_structured": "p" * 12 + "i" * 8 + "p",
+    "topk_blocks_per_sm": "ii",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int,
            "l": ctypes.c_longlong, "f": ctypes.c_float}

@@ -14,14 +14,18 @@ across the sequential host grid (``_merge_running_topk`` :78).  On the
 card both become ``csrc/topk.cu``: one thread per job keeps a running
 top-K in registers while it walks its hosts in increasing order, a
 candidate entering only when strictly better than the K-th entry, so no
-[J, H] score ever reaches device memory.  The plain versions below
+[J, H] score ever reaches device memory.  Blocks stage tiles of hosts
+(and of the mask) in shared memory with each host's terms computed once;
+a conservative pre-filter of two FMAs a pair skips the pairs that
+cannot beat a job's K-th entry (the source gives its error argument).  The plain versions below
 materialize the score in chunks of jobs and take the top K through a
 stable descending sort.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import functools
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -77,9 +81,17 @@ def structured_mask(job_res, valid, exc_id, host_gpu, host_blocked,
 
 def take_topk(score_rows: torch.Tensor, k: int):
     """The first ``k`` of a stable descending sort: ties keep the lowest
-    host first (``torch.topk`` promises no order among ties)."""
+    host first (``torch.topk`` promises no order among ties).  A row
+    holding a NaN score becomes that NaN (its first) with host 0, as the
+    Pallas merge's running max leaves it."""
     fit, host = torch.sort(score_rows, dim=1, descending=True, stable=True)
-    return fit[:, :k].contiguous(), host[:, :k].to(torch.int32).contiguous()
+    fit, host = fit[:, :k], host[:, :k].to(torch.int32)
+    nan = torch.isnan(score_rows)
+    first = score_rows.gather(1, torch.argmax(nan.to(torch.uint8), dim=1,
+                                              keepdim=True))
+    rows = nan.any(dim=1, keepdim=True)
+    return (torch.where(rows, first.expand_as(fit), fit).contiguous(),
+            torch.where(rows, torch.zeros_like(host), host).contiguous())
 
 
 def _chunked(J: int, H: int, k: int, mask_of, job_res, avail, capacity,
@@ -114,10 +126,17 @@ def _structured_plain(job_res, valid, exc_id, host_gpu, host_blocked,
 # ----------------------------------------------------------- the kernels
 KERNEL_DENSE = "topk_dense"
 KERNEL_STRUCTURED = "topk_structured"
-JOBS_PER_BLOCK = 128     # csrc/topk.cu kTopkThreads
-HOSTS_PER_TILE = 1024    # csrc/topk.cu kTopkTile
+# The geometry csrc/topk.cu is compiled for (its constants of the same
+# meaning; the C entries refuse any other).
+THREADS = 128            # kTopkThreads: threads a scan block
+JOBS_PER_THREAD = 1      # kJobsPerThread
+JOBS_PER_BLOCK = THREADS * JOBS_PER_THREAD
+STRUCT_TILE = 1024       # kStructTile: hosts a tile, structured form
+DENSE_TILE = 256         # kDenseTile: hosts a tile, dense form
+EXC_SLOTS = 8            # kExcSlots: exception rows staged a round
+ROW_PAD = 16             # kRowPad: bytes after each staged mask row
+HOST_BYTES = 56          # kHostBytes: a host's records in shared memory
 MAX_K = 16               # csrc/topk.cu keeps at most 16 entries a job
-BLOCKS_PER_SM = 4        # scan blocks wanted on each SM of the card
 _F32, _U8, _I32 = torch.float32, torch.uint8, torch.int32
 
 
@@ -128,23 +147,86 @@ def kept(k: int) -> int:
     return 8 if k <= 8 else 16
 
 
-def host_splits(J: int, H: int, sms: int) -> int:
-    """Host ranges scanned by separate blocks, so that a small J still
-    gives ``BLOCKS_PER_SM`` blocks to each of the card's ``sms`` SMs;
-    their partial lists are merged in host order."""
+def smem_bytes(dense: bool) -> int:
+    """A scan block's dynamic shared memory: the host records of a tile,
+    then two buffers of the block's mask rows (dense) or the two class
+    rows and ``EXC_SLOTS`` exception rows (structured)."""
+    tile = DENSE_TILE if dense else STRUCT_TILE
+    rows = 2 * JOBS_PER_BLOCK * (tile + ROW_PAD) if dense \
+        else 2 * tile + EXC_SLOTS * (tile + ROW_PAD)
+    return tile * HOST_BYTES + rows
+
+
+class TopkPlan(NamedTuple):
+    """One call's launch: ``splits`` host ranges of ``per`` hosts (whole
+    tiles) for each block of ``JOBS_PER_BLOCK`` jobs (grid ``job_blocks
+    x splits``), then the merge."""
+    tile: int
+    smem: int
+    job_blocks: int
+    splits: int
+    per: int
+
+
+def topk_plan(J: int, H: int, dense: bool, sms: int,
+              blocks_per_sm: int) -> TopkPlan:
+    """Split the hosts where the jobs alone leave the card's ``sms`` SMs
+    (``blocks_per_sm`` scan blocks each) idle: the split count whose
+    waves of blocks times (tiles a block + 1, the block's own set-up and
+    its share of the merge) is least, the fewest splits on a tie.  Each
+    split's partial lists are merged in host order."""
+    if H < 1:
+        raise ValueError("topk kernels need H >= 1")
+    tile = DENSE_TILE if dense else STRUCT_TILE
     job_blocks = max(1, -(-J // JOBS_PER_BLOCK))
-    tiles = max(1, -(-H // HOSTS_PER_TILE))
-    return max(1, min(tiles, -(-BLOCKS_PER_SM * sms // job_blocks)))
+    tiles = -(-H // tile)
+    slots = max(1, sms * blocks_per_sm)
+    best = None
+    for S in range(1, tiles + 1):
+        per_tiles = -(-tiles // S)
+        cost = -(-job_blocks * S // slots) * (per_tiles + 1)
+        if best is None or cost < best[0]:
+            best = (cost, S, per_tiles)
+    _, S, per_tiles = best
+    return TopkPlan(tile=tile, smem=smem_bytes(dense), job_blocks=job_blocks,
+                    splits=S, per=per_tiles * tile)
 
 
-def _outputs(J: int, H: int, k: int, device):
-    S = host_splits(J, H, torch.cuda.get_device_properties(device)
-                    .multi_processor_count)
+@functools.lru_cache(maxsize=16)
+def blocks_per_sm(dense: bool, k: int, device_index: int) -> int:
+    """Scan blocks of the form an SM of the card holds at once (the
+    CUDA occupancy calculator, through the library)."""
+    with torch.cuda.device(device_index):
+        n = cuda_lib.lib().topk_blocks_per_sm(int(dense), k)
+    if n < 1:
+        raise RuntimeError("topk: the scan kernel fits no SM")
+    return n
+
+
+def _plan(J: int, H: int, k: int, dense: bool, device) -> TopkPlan:
+    idx = torch.device(device).index
+    idx = torch.cuda.current_device() if idx is None else idx
+    sms = torch.cuda.get_device_properties(idx).multi_processor_count
+    return topk_plan(J, H, dense, sms, blocks_per_sm(dense, kept(k), idx))
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy where it does not start on 16 bytes (the kernels
+    read it a float4 at a time)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _outputs(J: int, k: int, plan: TopkPlan, device):
     kt = kept(k)
-    return (S, torch.empty((S, J, kt), dtype=_F32, device=device),
+    S = plan.splits
+    return (torch.empty((S, J, kt), dtype=_F32, device=device),
             torch.empty((S, J, kt), dtype=_I32, device=device),
             torch.empty((J, k), dtype=_F32, device=device),
             torch.empty((J, k), dtype=_I32, device=device))
+
+
+def _geometry(plan: TopkPlan):
+    return (plan.splits, plan.per, plan.tile, JOBS_PER_BLOCK, plan.smem)
 
 
 @cuda_lib.stage(KERNEL_DENSE, _dense_plain, (_F32, _U8, _U8, _F32, _F32))
@@ -155,11 +237,14 @@ def topk_dense(job_res, cmask, valid, avail, capacity, k):
     cuda_lib.check(valid, _U8, (J,), "valid")
     cuda_lib.check(avail, _F32, (H, 4), "avail")
     cuda_lib.check(capacity, _F32, (H, 4), "capacity")
-    S, pf, ph, fit, host = _outputs(J, H, k, job_res.device)
+    job_res, avail, capacity = map(_aligned, (job_res, avail, capacity))
+    plan = _plan(J, H, k, True, job_res.device)
+    pf, ph, fit, host = _outputs(J, k, plan, job_res.device)
     cuda_lib.call("topk_dense", KERNEL_DENSE, job_res.data_ptr(),
                   cmask.data_ptr(), valid.data_ptr(), avail.data_ptr(),
                   capacity.data_ptr(), pf.data_ptr(), ph.data_ptr(),
-                  fit.data_ptr(), host.data_ptr(), J, H, k, S)
+                  fit.data_ptr(), host.data_ptr(), J, H, k, *_geometry(plan),
+                  plan=plan)
     return fit, host
 
 
@@ -168,7 +253,8 @@ def topk_dense(job_res, cmask, valid, avail, capacity, k):
 def topk_structured(job_res, valid, exc_id, host_gpu, host_blocked,
                     exc_mask, avail, capacity, k):
     """(fit f32[J, k], host i32[J, k]) over the structured mask: u8 host
-    vectors [H], exception rows u8 [E, H] selected by ``exc_id`` i32[J]."""
+    vectors [H], exception rows u8 [E, H] selected by ``exc_id`` i32[J]
+    (each below E)."""
     J, H = job_res.shape[0], avail.shape[0]
     E = exc_mask.shape[0]
     cuda_lib.check(job_res, _F32, (J, 4), "job_res")
@@ -179,12 +265,15 @@ def topk_structured(job_res, valid, exc_id, host_gpu, host_blocked,
                            (avail, (H, 4), "avail"),
                            (capacity, (H, 4), "capacity")):
         cuda_lib.check(t, t.dtype, shape, name)
-    S, pf, ph, fit, host = _outputs(J, H, k, job_res.device)
+    job_res, avail, capacity = map(_aligned, (job_res, avail, capacity))
+    plan = _plan(J, H, k, False, job_res.device)
+    pf, ph, fit, host = _outputs(J, k, plan, job_res.device)
     cuda_lib.call("topk_structured", KERNEL_STRUCTURED, job_res.data_ptr(),
                   valid.data_ptr(), exc_id.data_ptr(), host_gpu.data_ptr(),
                   host_blocked.data_ptr(), cuda_lib.ptr(exc_mask),
                   avail.data_ptr(), capacity.data_ptr(), pf.data_ptr(),
-                  ph.data_ptr(), fit.data_ptr(), host.data_ptr(), J, H, k, S)
+                  ph.data_ptr(), fit.data_ptr(), host.data_ptr(), J, H, k,
+                  *_geometry(plan), plan=plan)
     return fit, host
 
 

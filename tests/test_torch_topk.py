@@ -87,6 +87,36 @@ def test_topk_prefs_structured_matches_pallas(J, H, E, k):
     _assert_parity(tpm.topk_prefs_structured(*args, k=k, device="cpu"), want)
 
 
+@pytest.mark.parametrize("structured", [False, True])
+def test_nan_fitness_rows_match_pallas(structured):
+    """A feasible host of infinite cpu capacity and avail makes a NaN
+    fitness (inf - inf); the Pallas merge's running max then leaves the
+    job's whole row NaN (host 0).  The port gives the same rows."""
+    if structured:
+        args = list(_structured(120, 300, 3))
+        avail, cap, mask_ok = args[6], args[7], ~args[3]
+    else:
+        args = list(_problem(np.random.default_rng(11), 120, 300))
+        avail, cap, mask_ok = args[3], args[4], np.ones(300, bool)
+    for h in (5, 77, 250):
+        cap[h, 0] = avail[h, 0] = np.inf
+        mask_ok[h] = True
+    if structured:
+        args[3] = ~mask_ok
+        fn = tpm.topk_prefs_structured
+        want = jpm.topk_prefs_structured(*(jnp.asarray(a) for a in args),
+                                         k=8, interpret=True)
+    else:
+        fn = tpm.topk_prefs
+        want = jpm.topk_prefs(*(jnp.asarray(a) for a in args), k=8,
+                              interpret=True)
+    got = fn(*args, k=8, device="cpu")
+    _assert_parity(got, want)
+    nan_rows = np.isnan(np.asarray(want[0])).all(axis=1)
+    assert 0 < nan_rows.sum() < 120
+    assert (got[1].numpy()[nan_rows] == 0).all()
+
+
 def test_structured_equals_dense_on_the_composed_mask():
     job_res, valid, hg, hb, exc_id, exc_mask, avail, cap = \
         _structured(300, 520, 7)
@@ -136,10 +166,10 @@ def test_topk_defaults_to_cuda():
 
 def test_launch_shapes():
     """Host splits fill the card for small J; kept entries cover k."""
-    assert tpm.host_splits(100_000, 50_000, 132) == 1
-    assert tpm.host_splits(10_000, 50_000, 132) == 7
-    assert tpm.host_splits(10_000, 50_000, 66) == 4
-    assert tpm.host_splits(16, 8, 132) == 1
+    assert tpm.topk_plan(100_000, 50_000, False, 132, 3).splits == 1
+    assert tpm.topk_plan(10_000, 50_000, True, 132, 2).splits == 10
+    assert tpm.topk_plan(10_000, 50_000, True, 66, 2).splits == 5
+    assert tpm.topk_plan(16, 8, True, 132, 2).splits == 1
     assert [tpm.kept(k) for k in (1, 8, 9, 16)] == [8, 8, 16, 16]
     with pytest.raises(ValueError):
         tpm.kept(17)
