@@ -1013,8 +1013,8 @@ def topk_edge_world(seed, J, H, E=0, *, structured=True, exc_block=None,
         exc_id[rng.choice(J, size=min(E, J) // 2, replace=False)] = \
             rng.integers(0, E, min(E, J) // 2)
         if exc_block is not None:
-            b = slice(exc_block * tpm.JOBS_PER_BLOCK,
-                      (exc_block + 1) * tpm.JOBS_PER_BLOCK)
+            jobs = tpm.jobs_per_block(False)
+            b = slice(exc_block * jobs, (exc_block + 1) * jobs)
             exc_id[b] = rng.integers(0, E, exc_id[b].shape[0])
     exc_mask = rng.random((max(E, 1), H)) < 0.5
 

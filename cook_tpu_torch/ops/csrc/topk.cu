@@ -32,13 +32,14 @@
 //   put it within 2^-21.6 W of V + M, and M >= 2^-16.01 W + 2^-120.01.
 //   So est - fit >= 2^-16.1 W - 2^-20.6 W + 2^-121 - 2^-148 > 0.  A host
 //   outside that range gets hh = NaN, a job outside it n = NaN for the
-//   pre-filter, and a NaN est never skips.  A pair is skipped where est
-//   < K-th entry, since then fit < K-th entry too; every other pair takes
-//   the exact path: the mask, the resource fit, the fitness in the Pallas
-//   kernel's order (fit = 0; fit += q0; fit += q1; fit * 0.5) with each
-//   quotient by div_by_recip where div_safe holds and `/` elsewhere, and
-//   the strict insertion.  tests/test_torch_topk_design.py holds a numpy
-//   model of the rule to est >= fit on adversarial worlds.
+//   pre-filter, and a NaN est never skips.  Since est >= fit, a pair
+//   whose est is at most the K-th entry cannot enter and is skipped;
+//   every other pair takes the exact path: the mask, the resource fit,
+//   the fitness in the Pallas kernel's order (fit = 0; fit += q0; fit +=
+//   q1; fit * 0.5) with each quotient by div_by_recip where div_safe
+//   holds and `/` elsewhere, and the strict insertion.
+//   tests/test_torch_topk_design.py holds a numpy model of the rule to
+//   est >= fit on adversarial worlds.
 // * The mask from shared memory.  A thread reads its job's mask 16 hosts
 //   at a time (a uint4) from a row in shared memory: the dense form
 //   stages the block's [jobs x tile] u8 mask with 16-byte cp.async
@@ -48,9 +49,9 @@
 //   read, and stages the exception rows its jobs name, kExcSlots rows a
 //   round.  Rows are kRowPad bytes apart beyond the tile, so that the 8
 //   threads of a quarter warp read 8 rows without a bank conflict.
-// * A chunk's 16 pre-filter tests run without a branch; the candidates'
-//   bits are then taken lowest host first, so the rare exact path is
-//   one copy of its code.
+// * A chunk's 16 pre-filter tests run without a branch into a mask of
+//   candidate bits, then taken lowest host first, so the rare exact path
+//   is one copy of its code.
 //
 // When the jobs alone give too few blocks to fill the card, blockIdx.y
 // splits the hosts into S ranges of whole tiles; each writes a partial
@@ -62,14 +63,14 @@
 
 namespace {
 
-constexpr int kTopkThreads = 128;   // threads a scan block
-constexpr int kJobsPerThread = 1;   // jobs a thread
-constexpr int kJobs = kTopkThreads * kJobsPerThread;  // jobs a block
-constexpr int kStructTile = 1024;   // hosts a tile, structured form
-constexpr int kDenseTile = 256;     // hosts a tile, dense form
-constexpr int kExcSlots = 8;        // exception rows a round (structured)
-constexpr int kRowPad = 16;         // bytes after each staged mask row
-constexpr int kChunk = 16;          // hosts a uint4 of mask bytes
+constexpr int kStructThreads = 256;   // threads a scan block, structured
+constexpr int kDenseThreads = 128;    // threads a scan block, dense
+constexpr int kJobsPerThread = 1;     // jobs a thread
+constexpr int kStructTile = 1024;     // hosts a tile, structured form
+constexpr int kDenseTile = 128;       // hosts a tile, dense form
+constexpr int kExcSlots = 8;          // exception rows a round (structured)
+constexpr int kRowPad = 16;           // bytes after each staged mask row
+constexpr int kChunk = 16;            // hosts a uint4 of mask bytes
 
 // shared memory of a scan block: the host records (three float4 and a
 // float2 a host), then the mask rows
@@ -77,9 +78,15 @@ constexpr int kHostBytes = 3 * 16 + 8;
 __host__ __device__ constexpr int row_bytes(int tile) {
   return tile + kRowPad;
 }
+__host__ __device__ constexpr int threads_of(bool dense) {
+  return dense ? kDenseThreads : kStructThreads;
+}
+__host__ __device__ constexpr int jobs_of(bool dense) {
+  return threads_of(dense) * kJobsPerThread;
+}
 constexpr int smem_bytes(bool dense, int tile) {
   return tile * kHostBytes +
-         (dense ? 2 * kJobs * row_bytes(tile)
+         (dense ? 2 * jobs_of(true) * row_bytes(tile)
                 : 2 * tile + kExcSlots * row_bytes(tile));
 }
 constexpr int kDenseSmem = smem_bytes(true, kDenseTile);
@@ -154,8 +161,8 @@ struct Params {
 struct Hosts {
   float4* pre;     // ha0, ha1, hh, 0: the pre-filter
   float4* um;      // u0, u1, m0, m1
-  float2* rcp;     // recip_fast(m0), recip_fast(m1)
   float4* avail;
+  float2* rcp;     // recip_fast(m0), recip_fast(m1)
 };
 
 template <int TILE>
@@ -168,13 +175,21 @@ __device__ __forceinline__ Hosts carve_hosts(uint8_t* smem) {
   return s;
 }
 
-// Hosts [h0, h0 + n) into the records; nmax: the block's largest |n0|,
-// |n1| among the jobs the pre-filter takes.
+// Hosts [h0, h0 + n) into the records, and -inf hh up to the chunk's
+// end (no candidate there); nmax: the block's largest |n0|, |n1| among
+// the jobs the pre-filter takes.
+template <int THREADS>
 __device__ __forceinline__ void stage_hosts(const Params& p, const Hosts& s,
                                             int h0, int n, float nmax0,
                                             float nmax1) {
   const float tiny = pow2(-120), rel = pow2(-16);
-  for (int t = threadIdx.x; t < n; t += kTopkThreads) {
+  const float neg_inf = -__int_as_float(0x7F800000);
+  for (int t = threadIdx.x; t < (n + kChunk - 1) / kChunk * kChunk;
+       t += THREADS) {
+    if (t >= n) {
+      s.pre[t] = make_float4(0.0f, 0.0f, neg_inf, 0.0f);
+      continue;
+    }
     const int h = h0 + t;
     const float4 av = __ldg((const float4*)p.avail + h);
     const float4 cp = __ldg((const float4*)p.cap + h);
@@ -212,12 +227,12 @@ __device__ __forceinline__ void cp_async_wait() {
 // Row r of the staged rows gets bytes [h0, h0 + n) of src_row(r) (null:
 // nothing), zeros after them up to the chunk; 16-byte copies when vec
 // (n is then a multiple of 16), else byte loads and stores.
-template <int TILE, typename RowOf>
+template <int THREADS, int TILE, typename RowOf>
 __device__ __forceinline__ void stage_rows(uint8_t* rows, int nrows, int h0,
                                            int n, bool vec, RowOf src_row) {
   if (vec) {
     const int per_row = n / kChunk;
-    for (int i = threadIdx.x; i < nrows * per_row; i += kTopkThreads) {
+    for (int i = threadIdx.x; i < nrows * per_row; i += THREADS) {
       const int r = i / per_row, c = i - r * per_row;
       const uint8_t* src = src_row(r);
       if (src)
@@ -226,7 +241,7 @@ __device__ __forceinline__ void stage_rows(uint8_t* rows, int nrows, int h0,
     }
   } else {
     const int width = (n + kChunk - 1) / kChunk * kChunk;
-    for (int i = threadIdx.x; i < nrows * width; i += kTopkThreads) {
+    for (int i = threadIdx.x; i < nrows * width; i += THREADS) {
       const int r = i / width, b = i - r * width;
       const uint8_t* src = src_row(r);
       if (src) rows[r * row_bytes(TILE) + b] = b < n ? src[h0 + b] : 0;
@@ -236,22 +251,23 @@ __device__ __forceinline__ void stage_rows(uint8_t* rows, int nrows, int h0,
 
 // One job of a thread: its demand, the pre-filter's copy of it (NaN
 // where the pre-filter does not apply), its list, and its mask row for
-// the current tile (a byte offset into shared memory; -1: nothing to
-// scan).
+// the current round (a byte offset into shared memory; -1: not in this
+// round).
 template <int KT>
 struct Job {
   float n0, n1, n2, n3, pn0, pn1;
   bool active;
   int slot;        // structured: exception slot, or -1
-  bool gpu;        // structured: a gpu job
+  int cls;         // structured: 1 for a gpu job, else 0
   int row;
   bool nan;        // a feasible pair's fitness was NaN: nanv
   float nanv;
   RunningTopK<KT> top;
 };
 
-// The exact path at tile host t (host h): the mask was set; the resource
-// fit, the fitness in the Pallas kernel's order, the strict insertion.
+// The exact path at tile host t (host h), whose mask is set: the
+// resource fit, the fitness in the Pallas kernel's order, the strict
+// insertion.
 template <int KT>
 __device__ __forceinline__ void exact(Job<KT>& q, const Hosts& s, int t,
                                      int h) {
@@ -276,11 +292,16 @@ __device__ __forceinline__ void exact(Job<KT>& q, const Hosts& s, int t,
   q.top.offer(f, h);
 }
 
-// Scan the tile's hosts [h0, h0 + 16 nc) for each job with a row.
+// Scan the tile's hosts [h0, h0 + 16 nc) for each job with a row in
+// this round (a warp without one skips the tile).
 template <int KT>
 __device__ __forceinline__ void scan_tile(Job<KT> (&jobs)[kJobsPerThread],
                                           const uint8_t* smem,
                                           const Hosts& s, int h0, int nc) {
+  bool live = false;
+#pragma unroll
+  for (int jj = 0; jj < kJobsPerThread; ++jj) live |= jobs[jj].row >= 0;
+  if (!__any_sync(0xFFFFFFFFu, live)) return;
 #pragma unroll 1
   for (int c = 0; c < nc; ++c) {
     uint4 mw[kJobsPerThread];
@@ -303,7 +324,7 @@ __device__ __forceinline__ void scan_tile(Job<KT> (&jobs)[kJobsPerThread],
         const float est = __fmaf_rn(jobs[jj].pn0, pre.x,
                                     __fmaf_rn(jobs[jj].pn1, pre.y, pre.z));
         const bool m = (w >> (8 * (k & 3))) & 0xFFu;
-        cand[jj] |= (m && !(est < jobs[jj].top.v[KT - 1])) ? 1u << k : 0u;
+        cand[jj] |= (m && !(est <= jobs[jj].top.v[KT - 1])) ? 1u << k : 0u;
       }
     }
 #pragma unroll
@@ -318,18 +339,20 @@ __device__ __forceinline__ void scan_tile(Job<KT> (&jobs)[kJobsPerThread],
 }
 
 template <int KT, bool kDense>
-__global__ void __launch_bounds__(kTopkThreads)
+__global__ void __launch_bounds__(threads_of(kDense))
     topk_scan_kernel(Params p) {
   constexpr int TILE = kDense ? kDenseTile : kStructTile;
+  constexpr int THREADS = threads_of(kDense);
+  constexpr int JOBS = jobs_of(kDense);
   extern __shared__ __align__(16) uint8_t smem[];
   __shared__ unsigned s_nmax[2];
   __shared__ int s_nexc;
-  __shared__ int s_eid[kJobs];
+  __shared__ int s_eid[JOBS];
   const Hosts hs = carve_hosts<TILE>(smem);
   constexpr int kRows = TILE * kHostBytes;   // the mask rows' offset
   uint8_t* rows = smem + kRows;
   const int tid = threadIdx.x;
-  const int j0 = blockIdx.x * kJobs;
+  const int j0 = blockIdx.x * JOBS;
   const int h_lo = blockIdx.y * p.per;
   const int h_hi = min(p.H, h_lo + p.per);
   if (tid == 0) {
@@ -342,11 +365,11 @@ __global__ void __launch_bounds__(kTopkThreads)
 #pragma unroll
   for (int jj = 0; jj < kJobsPerThread; ++jj) {
     Job<KT>& q = jobs[jj];
-    const int j = j0 + jj * kTopkThreads + tid;
+    const int j = j0 + jj * THREADS + tid;
     q.active = j < p.J && p.valid[j] != 0;
     q.n0 = q.n1 = q.n2 = q.n3 = 0.0f;
     q.slot = -1;
-    q.gpu = false;
+    q.cls = 0;
     q.row = -1;
     q.nan = false;
     q.nanv = 0.0f;
@@ -358,7 +381,7 @@ __global__ void __launch_bounds__(kTopkThreads)
       q.n2 = n.z;
       q.n3 = n.w;
       if (!kDense) {
-        q.gpu = n.z > 0.0f;
+        q.cls = n.z > 0.0f ? 1 : 0;
         const int eid = p.exc_id[j];
         if (eid >= 0) {
           q.slot = atomicAdd(&s_nexc, 1);
@@ -387,26 +410,26 @@ __global__ void __launch_bounds__(kTopkThreads)
       return j < p.J ? p.cmask + (long long)j * p.H : nullptr;
     };
     if (h_lo < h_hi)
-      stage_rows<TILE>(rows, kJobs, h_lo, min(TILE, h_hi - h_lo), vec,
-                       src_row);
+      stage_rows<THREADS, TILE>(rows, JOBS, h_lo, min(TILE, h_hi - h_lo),
+                                vec, src_row);
     cp_async_commit();
     int buf = 0;
     for (int h0 = h_lo; h0 < h_hi; h0 += TILE, buf ^= 1) {
       const int n = min(TILE, h_hi - h0);
       __syncthreads();   // the previous tile's scan is done
       if (h0 + TILE < h_hi)
-        stage_rows<TILE>(rows + (buf ^ 1) * kJobs * row_bytes(TILE), kJobs,
-                         h0 + TILE, min(TILE, h_hi - h0 - TILE), vec,
-                         src_row);
+        stage_rows<THREADS, TILE>(rows + (buf ^ 1) * JOBS * row_bytes(TILE),
+                                  JOBS, h0 + TILE,
+                                  min(TILE, h_hi - h0 - TILE), vec, src_row);
       cp_async_commit();
-      stage_hosts(p, hs, h0, n, nmax0, nmax1);
+      stage_hosts<THREADS>(p, hs, h0, n, nmax0, nmax1);
       cp_async_wait<1>();   // this tile's copies have landed
       __syncthreads();
-      const int mine = kRows + buf * kJobs * row_bytes(TILE);
+      const int mine = kRows + buf * JOBS * row_bytes(TILE);
 #pragma unroll
       for (int jj = 0; jj < kJobsPerThread; ++jj)
         jobs[jj].row = jobs[jj].active
-                           ? mine + (jj * kTopkThreads + tid) * row_bytes(TILE)
+                           ? mine + (jj * THREADS + tid) * row_bytes(TILE)
                            : -1;
       scan_tile(jobs, smem, hs, h0, (n + kChunk - 1) / kChunk);
     }
@@ -414,14 +437,16 @@ __global__ void __launch_bounds__(kTopkThreads)
     uint8_t* cls = rows;                 // [2][TILE]: cpu jobs, gpu jobs
     uint8_t* exc = rows + 2 * TILE;      // kExcSlots rows
     constexpr int kExc = kRows + 2 * TILE;
+    // round r: the exception slots [r kExcSlots, (r + 1) kExcSlots), and
+    // in round 0 the jobs without an exception row
     const int nexc = s_nexc;
     const int rounds = nexc > 0 ? (nexc + kExcSlots - 1) / kExcSlots : 1;
     for (int h0 = h_lo; h0 < h_hi; h0 += TILE) {
       const int n = min(TILE, h_hi - h0);
       const int nc = (n + kChunk - 1) / kChunk;
       __syncthreads();   // the previous tile's scan is done
-      stage_hosts(p, hs, h0, n, nmax0, nmax1);
-      for (int t = tid; t < nc * kChunk; t += kTopkThreads) {
+      stage_hosts<THREADS>(p, hs, h0, n, nmax0, nmax1);
+      for (int t = tid; t < nc * kChunk; t += THREADS) {
         const bool ok = t < n && p.host_blocked[h0 + t] == 0;
         const bool g = t < n && p.host_gpu[h0 + t] != 0;
         cls[t] = ok && !g;
@@ -430,22 +455,22 @@ __global__ void __launch_bounds__(kTopkThreads)
       for (int rd = 0; rd < rounds; ++rd) {
         if (rd > 0) __syncthreads();   // the previous round's scan is done
         const int first = rd * kExcSlots;
-        stage_rows<TILE>(exc, min(kExcSlots, nexc - first), h0, n, vec,
-                         [&](int r) -> const uint8_t* {
-                           return p.exc_mask +
-                                  (long long)s_eid[first + r] * p.H;
-                         });
+        stage_rows<THREADS, TILE>(exc, min(kExcSlots, nexc - first), h0, n,
+                                  vec, [&](int r) -> const uint8_t* {
+                                    return p.exc_mask +
+                                           (long long)s_eid[first + r] * p.H;
+                                  });
         cp_async_commit();
         cp_async_wait<0>();
         __syncthreads();
 #pragma unroll
         for (int jj = 0; jj < kJobsPerThread; ++jj) {
           Job<KT>& q = jobs[jj];
-          const bool now = q.active && (q.slot < 0 ? rd == 0
-                                                   : q.slot / kExcSlots == rd);
-          q.row = !now ? -1
-                  : q.slot >= 0 ? kExc + (q.slot - first) * row_bytes(TILE)
-                                : kRows + (q.gpu ? TILE : 0);
+          q.row = !q.active ? -1
+                  : q.slot < 0 ? (rd == 0 ? kRows + q.cls * TILE : -1)
+                  : q.slot >= first && q.slot < first + kExcSlots
+                      ? kExc + (q.slot - first) * row_bytes(TILE)
+                      : -1;
         }
         scan_tile(jobs, smem, hs, h0, nc);
       }
@@ -454,7 +479,7 @@ __global__ void __launch_bounds__(kTopkThreads)
 
 #pragma unroll
   for (int jj = 0; jj < kJobsPerThread; ++jj) {
-    const int j = j0 + jj * kTopkThreads + tid;
+    const int j = j0 + jj * THREADS + tid;
     if (j >= p.J) continue;
     const long long o = ((long long)blockIdx.y * p.J + j) * KT;
     const Job<KT>& q = jobs[jj];
@@ -519,8 +544,8 @@ int launch(Params p, float* out_fit, int* out_host, int k, int S,
   constexpr int smem = kDense ? kDenseSmem : kStructSmem;
   if (int e = prepare<KT, kDense>()) return e;
   if (p.J <= 0) return 0;
-  dim3 grid(cook::grid_for(p.J, kJobs), S);
-  topk_scan_kernel<KT, kDense><<<grid, kTopkThreads, smem, st>>>(p);
+  dim3 grid(cook::grid_for(p.J, jobs_of(kDense)), S);
+  topk_scan_kernel<KT, kDense><<<grid, threads_of(kDense), smem, st>>>(p);
   int e = cook::last_error();
   if (e != 0) return e;
   topk_merge_kernel<KT><<<cook::grid_for(p.J), cook::kThreads, 0, st>>>(
@@ -535,10 +560,21 @@ bool geometry_ok(int H, int S, int per, int tile, int jobs, int smem,
   const int want_tile = dense ? kDenseTile : kStructTile;
   const int want_smem = dense ? kDenseSmem : kStructSmem;
   const int tiles = (H + want_tile - 1) / want_tile;
-  return tile == want_tile && jobs == kJobs && smem == want_smem && S >= 1 &&
-         per > 0 && per % want_tile == 0 &&
+  return tile == want_tile && jobs == jobs_of(dense) && smem == want_smem &&
+         S >= 1 && per > 0 && per % want_tile == 0 &&
          per == (tiles + S - 1) / S * want_tile &&
          (long long)per * S >= H;
+}
+
+template <int KT, bool kDense>
+int blocks_per_sm() {
+  int n = 0;
+  if (prepare<KT, kDense>() != 0 ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, topk_scan_kernel<KT, kDense>, threads_of(kDense),
+          kDense ? kDenseSmem : kStructSmem) != cudaSuccess)
+    return 0;
+  return n;
 }
 
 }  // namespace
@@ -584,21 +620,6 @@ COOK_API int topk_structured(const float* res, const uint8_t* valid,
   return k <= 8 ? launch<8, false>(p, out_fit, out_host, k, S, st)
                 : launch<16, false>(p, out_fit, out_host, k, S, st);
 }
-
-namespace {
-
-template <int KT, bool kDense>
-int blocks_per_sm() {
-  int n = 0;
-  if (prepare<KT, kDense>() != 0 ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &n, topk_scan_kernel<KT, kDense>, kTopkThreads,
-          kDense ? kDenseSmem : kStructSmem) != cudaSuccess)
-    return 0;
-  return n;
-}
-
-}  // namespace
 
 // Scan blocks of a form (dense or structured, k <= 8 or above) that an
 // SM holds at once, for the plan's host splits; 0 on error.

@@ -128,11 +128,11 @@ KERNEL_DENSE = "topk_dense"
 KERNEL_STRUCTURED = "topk_structured"
 # The geometry csrc/topk.cu is compiled for (its constants of the same
 # meaning; the C entries refuse any other).
-THREADS = 128            # kTopkThreads: threads a scan block
+STRUCT_THREADS = 256     # kStructThreads: threads a scan block
+DENSE_THREADS = 128      # kDenseThreads
 JOBS_PER_THREAD = 1      # kJobsPerThread
-JOBS_PER_BLOCK = THREADS * JOBS_PER_THREAD
 STRUCT_TILE = 1024       # kStructTile: hosts a tile, structured form
-DENSE_TILE = 256         # kDenseTile: hosts a tile, dense form
+DENSE_TILE = 128         # kDenseTile: hosts a tile, dense form
 EXC_SLOTS = 8            # kExcSlots: exception rows staged a round
 ROW_PAD = 16             # kRowPad: bytes after each staged mask row
 HOST_BYTES = 56          # kHostBytes: a host's records in shared memory
@@ -147,22 +147,27 @@ def kept(k: int) -> int:
     return 8 if k <= 8 else 16
 
 
+def jobs_per_block(dense: bool) -> int:
+    return (DENSE_THREADS if dense else STRUCT_THREADS) * JOBS_PER_THREAD
+
+
 def smem_bytes(dense: bool) -> int:
     """A scan block's dynamic shared memory: the host records of a tile,
     then two buffers of the block's mask rows (dense) or the two class
     rows and ``EXC_SLOTS`` exception rows (structured)."""
     tile = DENSE_TILE if dense else STRUCT_TILE
-    rows = 2 * JOBS_PER_BLOCK * (tile + ROW_PAD) if dense \
+    rows = 2 * jobs_per_block(True) * (tile + ROW_PAD) if dense \
         else 2 * tile + EXC_SLOTS * (tile + ROW_PAD)
     return tile * HOST_BYTES + rows
 
 
 class TopkPlan(NamedTuple):
     """One call's launch: ``splits`` host ranges of ``per`` hosts (whole
-    tiles) for each block of ``JOBS_PER_BLOCK`` jobs (grid ``job_blocks
-    x splits``), then the merge."""
+    tiles) for each block of ``jobs`` jobs (grid ``job_blocks x
+    splits``), then the merge."""
     tile: int
     smem: int
+    jobs: int
     job_blocks: int
     splits: int
     per: int
@@ -178,7 +183,8 @@ def topk_plan(J: int, H: int, dense: bool, sms: int,
     if H < 1:
         raise ValueError("topk kernels need H >= 1")
     tile = DENSE_TILE if dense else STRUCT_TILE
-    job_blocks = max(1, -(-J // JOBS_PER_BLOCK))
+    jobs = jobs_per_block(dense)
+    job_blocks = max(1, -(-J // jobs))
     tiles = -(-H // tile)
     slots = max(1, sms * blocks_per_sm)
     best = None
@@ -188,8 +194,8 @@ def topk_plan(J: int, H: int, dense: bool, sms: int,
         if best is None or cost < best[0]:
             best = (cost, S, per_tiles)
     _, S, per_tiles = best
-    return TopkPlan(tile=tile, smem=smem_bytes(dense), job_blocks=job_blocks,
-                    splits=S, per=per_tiles * tile)
+    return TopkPlan(tile=tile, smem=smem_bytes(dense), jobs=jobs,
+                    job_blocks=job_blocks, splits=S, per=per_tiles * tile)
 
 
 @functools.lru_cache(maxsize=16)
@@ -226,7 +232,7 @@ def _outputs(J: int, k: int, plan: TopkPlan, device):
 
 
 def _geometry(plan: TopkPlan):
-    return (plan.splits, plan.per, plan.tile, JOBS_PER_BLOCK, plan.smem)
+    return (plan.splits, plan.per, plan.tile, plan.jobs, plan.smem)
 
 
 @cuda_lib.stage(KERNEL_DENSE, _dense_plain, (_F32, _U8, _U8, _F32, _F32))

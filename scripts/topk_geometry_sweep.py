@@ -1,15 +1,19 @@
 #!/usr/bin/env python3
 """Top-K kernel geometries side by side on one CUDA card.
 
-Each geometry (threads a block, jobs a thread, hosts a tile of each
-form) is built from ``cook_tpu_torch/ops/csrc/topk.cu`` with its
+Each geometry (threads a block of each form, jobs a thread, hosts a
+tile of each form) is built from ``cook_tpu_torch/ops/csrc/topk.cu`` with its
 constants replaced, into a library of its own, with ptxas's report of
 registers and spills.  Each is held against the plain version on
 ``chip_smoke.py``'s bench worlds (structured: 100,000 jobs x 50,000
 hosts, E = 256; dense: 10,000 x 50,000) and timed there (CUDA events,
 and torch.profiler's device time), in turns, forward then backward.
 Then the dense form's host splits are swept on the source's own
-geometry.
+geometry.  A geometry marked ``scan_only`` is timed without its exact
+path (the pre-filter's threshold set past every fit, so no pair
+becomes a candidate): what the walk over the pairs costs alone.  Its
+results are not the function's, so it is not held to the plain
+version.
 
 Usage: ``python3 scripts/topk_geometry_sweep.py`` from the root of a
 checkout, on a machine with one CUDA card and nvcc; writes into
@@ -32,13 +36,15 @@ import chip_smoke as cs  # noqa: E402
 from cook_tpu_torch.ops import cuda_lib  # noqa: E402
 from cook_tpu_torch.ops import pallas_match as tpm  # noqa: E402
 
-# name: (kTopkThreads, kJobsPerThread, kStructTile, kDenseTile)
-GEOMETRIES = {"t128_j1_s1024_d256": (128, 1, 1024, 256),
-              "t128_j2_s1024_d128": (128, 2, 1024, 128),
-              "t256_j1_s1024_d128": (256, 1, 1024, 128),
-              "t128_j1_s512_d128": (128, 1, 512, 128),
-              "t64_j2_s1024_d256": (64, 2, 1024, 256)}
-DENSE_SPLITS = (1, 5, 10, 20, 40)
+# name: (kStructThreads, kDenseThreads, kJobsPerThread, kStructTile,
+# kDenseTile)
+GEOMETRIES = {"s256x1024_d128x128": (256, 128, 1, 1024, 128),
+              "s128x1024_d128x256": (128, 128, 1, 1024, 256),
+              "s256x512_d128x64": (256, 128, 1, 512, 64),
+              "s256x1024_d128x128_scan_only": (256, 128, 1, 1024, 128)}
+SCAN_ONLY = (("!(est <= jobs[jj].top.v[KT - 1])", "!(est <= 3e38f)"),)
+DENSE_SPLITS = (1, 4, 8, 13, 20)
+DENSE_GEOMETRY = "s256x1024_d128x128"
 REPS = 5
 
 
@@ -60,10 +66,10 @@ def load(path):
 
 def use(dll, geometry):
     """Point the wrappers at a variant library and its plan constants."""
-    threads, jpt, stile, dtile = geometry
+    sthreads, dthreads, jpt, stile, dtile = geometry
     cuda_lib._LIB = dll
-    tpm.THREADS, tpm.JOBS_PER_THREAD = threads, jpt
-    tpm.JOBS_PER_BLOCK = threads * jpt
+    tpm.STRUCT_THREADS, tpm.DENSE_THREADS = sthreads, dthreads
+    tpm.JOBS_PER_THREAD = jpt
     tpm.STRUCT_TILE, tpm.DENSE_TILE = stile, dtile
     tpm.blocks_per_sm.cache_clear()
 
@@ -97,11 +103,16 @@ def main() -> int:
     nvcc = [cuda_lib.nvcc(), *cuda_lib.NVCC_FLAGS, "-Xptxas", "-v"]
     text = (src / "topk.cu").read_text()
     procs = {}
-    for name, (thr, jpt, stile, dtile) in GEOMETRIES.items():
+    for name, (sthr, dthr, jpt, stile, dtile) in GEOMETRIES.items():
         t = text
-        for k, v in (("kTopkThreads", thr), ("kJobsPerThread", jpt),
-                     ("kStructTile", stile), ("kDenseTile", dtile)):
+        for k, v in (("kStructThreads", sthr), ("kDenseThreads", dthr),
+                     ("kJobsPerThread", jpt), ("kStructTile", stile),
+                     ("kDenseTile", dtile)):
             t = set_const(t, k, v)
+        if name.endswith("scan_only"):
+            for old, new in SCAN_ONLY:
+                assert t.count(old) == 1, old
+                t = t.replace(old, new)
         (vdir / f"topk_{name}.cu").write_text(t)
         procs[name] = subprocess.Popen(
             nvcc + ["-shared", str(vdir / f"topk_{name}.cu"), "-o",
@@ -124,16 +135,18 @@ def main() -> int:
         use(libs[name], GEOMETRIES[name])
         for w, (fn, args) in worlds.items():
             call = lambda: fn(*args, cs.TOPK_K)  # noqa: E731,B023
-            cs.topk_parity(call(), wants[w])
+            if not name.endswith("scan_only"):
+                cs.topk_parity(call(), wants[w])
             J, H = args[0].shape[0], args[-2].shape[0]
             plan = tpm._plan(J, H, cs.TOPK_K, w == "dense", args[0].device)
             print(json.dumps({
                 "turn": turn, "geometry": name, "world": w,
-                "equal_to_plain": True, "ms": cs.cuda_ms(call, REPS),
+                "equal_to_plain": not name.endswith("scan_only"),
+                "ms": cs.cuda_ms(call, REPS),
                 "device_ms": cs.device_ms(call, REPS),
                 "splits": plan.splits, "blocks_per_sm": tpm.blocks_per_sm(
                     w == "dense", tpm.kept(cs.TOPK_K), 0)}), flush=True)
-    name = next(iter(GEOMETRIES))
+    name = DENSE_GEOMETRY
     use(libs[name], GEOMETRIES[name])
     fn, args = worlds["dense"]
     call = lambda: fn(*args, cs.TOPK_K)  # noqa: E731

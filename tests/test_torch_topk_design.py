@@ -14,7 +14,7 @@ The kernels run only on the card; here:
   estimate is never below the exact fitness, so the rule never skips a
   pair the exact rule admits;
 * the kernels' walk with the rule (hosts in order, pairs skipped where
-  the estimate is below the K-th entry, the exact strict insertion
+  the estimate is at most the K-th entry, the exact strict insertion
   elsewhere) against the plain version, bit for bit.
 """
 
@@ -40,10 +40,13 @@ def _cu_constants():
 
 def test_plan_constants_are_the_kernels():
     text, src = _cu_constants()
-    assert int(src["kTopkThreads"]) == tpm.THREADS
+    assert int(src["kStructThreads"]) == tpm.STRUCT_THREADS
+    assert int(src["kDenseThreads"]) == tpm.DENSE_THREADS
     assert int(src["kJobsPerThread"]) == tpm.JOBS_PER_THREAD
-    assert src["kJobs"].startswith("kTopkThreads * kJobsPerThread")
-    assert tpm.JOBS_PER_BLOCK == tpm.THREADS * tpm.JOBS_PER_THREAD
+    assert "return threads_of(dense) * kJobsPerThread;" in text
+    assert tpm.jobs_per_block(True) == tpm.DENSE_THREADS * tpm.JOBS_PER_THREAD
+    assert tpm.jobs_per_block(False) \
+        == tpm.STRUCT_THREADS * tpm.JOBS_PER_THREAD
     assert int(src["kStructTile"]) == tpm.STRUCT_TILE
     assert int(src["kDenseTile"]) == tpm.DENSE_TILE
     assert int(src["kExcSlots"]) == tpm.EXC_SLOTS
@@ -52,7 +55,7 @@ def test_plan_constants_are_the_kernels():
     assert eval(src["kHostBytes"]) == tpm.HOST_BYTES == 3 * 16 + 8
     # the shared memory formula, and it fits a block (and 2 an SM)
     assert "tile * kHostBytes" in text
-    assert "2 * kJobs * row_bytes(tile)" in text
+    assert "2 * jobs_of(true) * row_bytes(tile)" in text
     assert "2 * tile + kExcSlots * row_bytes(tile)" in text
     for dense in (False, True):
         assert 2 * (tpm.smem_bytes(dense) + 1024) <= 233_472
@@ -79,13 +82,14 @@ def test_host_splits_cover_the_hosts(J, H, dense):
     starts = [s * plan.per for s in range(plan.splits)]
     assert starts[0] == 0 and all(b - a == plan.per
                                   for a, b in zip(starts, starts[1:]))
-    assert plan.job_blocks == max(1, -(-J // tpm.JOBS_PER_BLOCK))
+    assert plan.jobs == tpm.jobs_per_block(dense)
+    assert plan.job_blocks == max(1, -(-J // plan.jobs))
     assert plan.smem == tpm.smem_bytes(dense)
 
 
 def test_launch_plans_of_the_bench_worlds():
-    """The jobs fill the card at 100,000 jobs; 10,000 jobs (79 blocks of
-    128) split the hosts."""
+    """The jobs fill the card at 100,000 jobs (391 blocks of 256);
+    10,000 jobs (79 blocks of 128) split the hosts."""
     assert tpm.topk_plan(100_000, 50_000, False, 132, 3).splits == 1
     assert tpm.topk_plan(10_000, 50_000, True, 132, 2).splits == 10
     assert tpm.topk_plan(16, 8, True, 132, 2).splits == 1
@@ -143,11 +147,11 @@ def in_range(x):
 def job_prefilter(job_res, valid):
     """Each job's pre-filter demand (NaN where the pre-filter does not
     apply) and the block maxima N0, N1 of their magnitudes, a block of
-    ``JOBS_PER_BLOCK`` jobs as the kernels group them."""
+    ``jobs_per_block(True)`` jobs as the dense kernel groups them."""
     n0, n1 = job_res[:, 0], job_res[:, 1]
     pre = valid & (np.abs(n0) < F32(2.0 ** 40)) & (np.abs(n1) < F32(2.0 ** 40))
     pn0, pn1 = np.where(pre, n0, NAN), np.where(pre, n1, NAN)
-    blocks = np.arange(job_res.shape[0]) // tpm.JOBS_PER_BLOCK
+    blocks = np.arange(job_res.shape[0]) // tpm.jobs_per_block(True)
     nmax = np.zeros((blocks.max() + 1, 2), F32)
     for b in range(nmax.shape[0]):
         sel = pre & (blocks == b)
@@ -260,7 +264,7 @@ def test_prefilter_at_the_margin_of_ties(scale):
 
 def walk_model(job_res, cmask, valid, avail, cap, k):
     """The kernels' scan of one split: each valid job walks the hosts in
-    order; a masked pair whose estimate is below the K-th entry is
+    order; a masked pair whose estimate is at most the K-th entry is
     skipped, any other takes the exact path (resource fit, fitness,
     strict insertion after equal entries)."""
     kt = tpm.kept(k)
@@ -275,7 +279,7 @@ def walk_model(job_res, cmask, valid, avail, cap, k):
     for j in np.flatnonzero(valid):
         v, ix, nan = [-np.inf] * kt, [0] * kt, None
         for h in range(H):
-            if not cmask[j, h] or est[j, h] < v[-1]:
+            if not cmask[j, h] or est[j, h] <= v[-1]:
                 continue
             exact_pairs += 1
             f = fit[j, h]
