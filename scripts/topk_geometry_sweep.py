@@ -37,10 +37,12 @@ from cook_tpu_torch.ops import cuda_lib  # noqa: E402
 from cook_tpu_torch.ops import pallas_match as tpm  # noqa: E402
 
 # name: (kStructThreads, kDenseThreads, kJobsPerThread, kStructTile,
-# kDenseTile)
+# kDenseTile); the first is the source's own
 GEOMETRIES = {"s256x1024_d128x128": (256, 128, 1, 1024, 128),
               "s128x1024_d128x256": (128, 128, 1, 1024, 256),
               "s256x512_d128x64": (256, 128, 1, 512, 64),
+              "s256x1024_d128x64_j2": (256, 128, 2, 1024, 64),
+              "s128x512_d64x128_j2": (128, 64, 2, 512, 128),
               "s256x1024_d128x128_scan_only": (256, 128, 1, 1024, 128)}
 SCAN_ONLY = (("!(est <= jobs[jj].top.v[KT - 1])", "!(est <= 3e38f)"),)
 DENSE_SPLITS = (1, 4, 8, 13, 20)
