@@ -337,24 +337,27 @@ def cuda_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def device_ms(fn, reps: int):
+def device_ms(fn, reps: int, kernels_per_call: int = 0):
     """The card's own time a call (kernels and memsets, from
     torch.profiler's CUDA activity over ``reps`` calls), or None where
     the profiler reports no device time.  Unlike ``cuda_ms`` it does not
-    count the gaps in which the card waits for the host."""
+    count the gaps in which the card waits for the host.
+    ``kernels_per_call``: the kernels one call launches (counted from a
+    captured graph), which a whole trace must hold."""
     fn()
-    prof, _ = profiled(fn, reps)
+    prof, _ = profiled(fn, reps, kernels=kernels_per_call * reps)
     us = sum(device_us(e) for e in prof.key_averages()) if prof else 0.0
     return us / 1e3 / reps if us > 0 else None
 
 
-def profiled(fn, reps: int, tries: int = 3) -> tuple:
+def profiled(fn, reps: int, tries: int = 3, kernels: int = 0) -> tuple:
     """(torch.profiler's trace of ``reps`` calls of ``fn``, its device
     activities in launch order), or (None, []).  The profiler can drop
     activities, even a whole trace's: a trace that holds fewer kernels
     than the C entries the calls made (each launches at least one; the
-    stage counters count them on the host) is taken again, at most
-    ``tries`` times, and then reported as not measured."""
+    stage counters count them on the host), or than ``kernels``, is
+    taken again, at most ``tries`` times, and then reported as not
+    measured."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from cook_tpu_torch.ops import telemetry
@@ -372,7 +375,8 @@ def profiled(fn, reps: int, tries: int = 3) -> tuple:
                        if e.device_type == DeviceType.CUDA
                        and not getattr(e, "is_user_annotation", False)),
                       key=lambda e: e.time_range.start)
-        if sum(1 for e in acts if "Memset" not in e.name) >= entries:
+        if sum(1 for e in acts if "Memset" not in e.name) \
+                >= max(entries, kernels):
             return prof, acts
     return None, []
 
@@ -1099,8 +1103,8 @@ def phase_d():
         err = topk_parity(outs[name], want)
         call = lambda: wrapper(*args, TOPK_K)  # noqa: E731
         ms = cuda_ms(call, 3)
-        dev_ms = device_ms(call, 3)
         types, _ = captured_launches(call)
+        dev_ms = device_ms(call, 3, types.count("kernel"))
         job_res, avail = args[0], args[-2]
         J, H = job_res.shape[0], avail.shape[0]
         plan = tpm._plan(J, H, TOPK_K, name == "topk_dense", job_res.device)
