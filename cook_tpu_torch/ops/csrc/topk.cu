@@ -175,21 +175,15 @@ __device__ __forceinline__ Hosts carve_hosts(uint8_t* smem) {
   return s;
 }
 
-// Hosts [h0, h0 + n) into the records, and -inf hh up to the chunk's
-// end (no candidate there); nmax: the block's largest |n0|, |n1| among
-// the jobs the pre-filter takes.
+// Hosts [h0, h0 + n) into the records (past n a chunk's mask bytes are
+// 0); nmax: the block's largest |n0|, |n1| among the jobs the pre-filter
+// takes.
 template <int THREADS>
 __device__ __forceinline__ void stage_hosts(const Params& p, const Hosts& s,
                                             int h0, int n, float nmax0,
                                             float nmax1) {
   const float tiny = pow2(-120), rel = pow2(-16);
-  const float neg_inf = -__int_as_float(0x7F800000);
-  for (int t = threadIdx.x; t < (n + kChunk - 1) / kChunk * kChunk;
-       t += THREADS) {
-    if (t >= n) {
-      s.pre[t] = make_float4(0.0f, 0.0f, neg_inf, 0.0f);
-      continue;
-    }
+  for (int t = threadIdx.x; t < n; t += THREADS) {
     const int h = h0 + t;
     const float4 av = __ldg((const float4*)p.avail + h);
     const float4 cp = __ldg((const float4*)p.cap + h);
