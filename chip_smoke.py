@@ -974,8 +974,8 @@ def topk_edge_world(seed, J, H, E=0, *, structured=True, exc_block=None,
     capacities and demands past the fast division's range (the ``/``
     path, and the pre-filter off), negative cap - avail, zero demands;
     ``nan_hosts``: three hosts of infinite cpu capacity and avail (a
-    NaN fitness: the row of a job they fit becomes that NaN).  10% invalid jobs, 20%
-    gpu jobs and 30% gpu hosts."""
+    NaN fitness: the row of a job they fit becomes that NaN).  10%
+    invalid jobs, 20% gpu jobs and 30% gpu hosts."""
     from cook_tpu_torch.ops import pallas_match as tpm
     rng = np.random.default_rng(seed)
     f32 = np.float32

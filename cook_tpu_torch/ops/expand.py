@@ -109,10 +109,10 @@ class ExpandPlan(NamedTuple):
     + host_tiles)``); ``windows`` level-1 partials a pool.  The task
     tiles start ``shift`` rows before row 0 (:func:`grid_shift`), so
     each holds whole level-1 windows of ``window32_sum``'s order.
-    ``offsets`` are byte offsets into one slab of ``slab_bytes``: the 14 outputs in
-    ``Expanded`` order, then the partials [S, windows, 4] f32, then
-    ``ctl_words`` u32 control words (a ticket a pool, then the ticket
-    over pools at ``ctl_words - 1``), which the memset zeroes."""
+    ``offsets`` are byte offsets into one slab of ``slab_bytes``: the 14
+    outputs in ``Expanded`` order, then the partials [S, windows, 4] f32,
+    then ``ctl_words`` u32 control words (a ticket a pool, then the
+    ticket over pools at ``ctl_words - 1``), which the memset zeroes."""
     S: int
     T: int
     H: int

@@ -17,9 +17,9 @@ candidate entering only when strictly better than the K-th entry, so no
 [J, H] score ever reaches device memory.  Blocks stage tiles of hosts
 (and of the mask) in shared memory with each host's terms computed once;
 a conservative pre-filter of two FMAs a pair skips the pairs that
-cannot beat a job's K-th entry (the source gives its error argument).  The plain versions below
-materialize the score in chunks of jobs and take the top K through a
-stable descending sort.
+cannot beat a job's K-th entry (the source gives its error argument).
+The plain versions below materialize the score in chunks of jobs and
+take the top K through a stable descending sort.
 """
 
 from __future__ import annotations
@@ -173,6 +173,7 @@ class TopkPlan(NamedTuple):
     per: int
 
 
+@functools.lru_cache(maxsize=64)
 def topk_plan(J: int, H: int, dense: bool, sms: int,
               blocks_per_sm: int) -> TopkPlan:
     """Split the hosts where the jobs alone leave the card's ``sms`` SMs

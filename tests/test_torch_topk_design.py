@@ -255,10 +255,9 @@ def test_prefilter_at_the_margin_of_ties(scale):
     est = estimates(job_res, valid, avail, cap)
     fit = exact_fit(job_res, avail, cap)
     assert np.isfinite(est).all() and (est >= fit).all()
-    w = (np.abs(cap[None, :, 0] - avail[None, :, 0]) + np.abs(job_res[:, :1])) \
-        / (2 * cap[None, :, 0].astype(F64)) \
-        + (np.abs(cap[None, :, 1] - avail[None, :, 1]) + np.abs(job_res[:, 1:2])) \
-        / (2 * cap[None, :, 1].astype(F64))
+    w = sum((np.abs(cap[None, :, r] - avail[None, :, r])
+             + np.abs(job_res[:, r:r + 1])) / (2 * cap[None, :, r].astype(F64))
+            for r in (0, 1))
     assert ((est.astype(F64) - fit) <= 2.0 ** -14 * w + 1e-30).all()
 
 
