@@ -81,9 +81,11 @@ hosts.
      E = 256; dense at 10,000 x 50,000), counted, then held against
      their plain versions (fit bit for bit, host where fit > -inf) and
      timed beside ``torch.topk`` of the materialized score, the dense
-     one also with its hosts left unsplit; then two check worlds for the
-     paths those leave idle (gpu jobs and hosts, invalid jobs, k = 8
-     and k = 4, many host splits), held the same way;
+     one also with its hosts left unsplit; their operations bound from
+     the pairs whose mask is set and the pairs that take the exact path
+     (counted by the kernel in one more launch); then the eight
+     ``TOPK_CHECKS`` worlds for the paths those leave idle, held the
+     same way;
   8. phase E: ``dispatch`` on the card for the three full-width worlds
      (auto: greedy at 1,000 jobs; waterfill at 10,000; auction + tail at
      10,000 with tight packing), counted and recorded; every recorded
@@ -832,6 +834,15 @@ TOPK = {
               "tile, a two-FMA pre-filter"),
 }
 TOPK_K = 16
+# f32 operations (an FMA counts two, as the peak rate does) the top-K
+# function needs: for each (job, host) pair whose mask is set, the
+# pre-filter's two FMAs and its compare against the job's K-th entry;
+# for each pair that then takes the exact path, four compares of the
+# resource fit, two adds (u + n), two quotients from the stored
+# reciprocal (a multiply and two FMAs each), two adds and a multiply of
+# the fitness and the compare of the insertion
+TOPK_PAIR_OPS = 5
+TOPK_EXACT_OPS = 4 + 2 + 2 * 5 + 3 + 1
 
 
 def structured_world(J=100_000, H=50_000, E=256):
@@ -894,6 +905,32 @@ def topk_parity(got, want) -> float:
         raise AssertionError(f"top-K host differs in "
                              f"{int((host != whost)[finite].sum())} entries")
     return 0.0
+
+
+def masked_pairs(wrapper, args) -> int:
+    """The (valid job, host) pairs whose mask is set, counted on the card
+    from the mask's own form (structured: each job's class row or
+    exception row)."""
+    if wrapper.kernel == "topk_dense":
+        return int(((args[1] != 0) & (args[2] != 0)[:, None]).sum())
+    job_res, valid, exc_id, host_gpu, host_blocked, exc_mask = args[:6]
+    ok, gpu = host_blocked == 0, host_gpu != 0
+    per_class = torch.stack([(ok & ~gpu).sum(), (ok & gpu).sum()])
+    v, exc = valid != 0, exc_id >= 0
+    rows = (exc_mask != 0).sum(1)
+    base = per_class[(job_res[:, 2] > 0).long()][v & ~exc].sum()
+    return int(base) + int(rows[exc_id[v & exc].long()].sum())
+
+
+def exact_pairs(wrapper, args) -> int:
+    """The pairs that take the exact path in one walk over the hosts in
+    order (the kernel with one host split, counting; not a counted
+    launch of the main path)."""
+    from cook_tpu_torch.ops import pallas_match as tpm
+    n = torch.zeros(1, dtype=torch.int64, device="cuda")
+    with forced_splits(tpm, 1):
+        wrapper.launch(*args, TOPK_K, exact_pairs=n)
+    return int(n)
 
 
 def topk_library_ms(wrapper, args) -> float:
@@ -1116,18 +1153,21 @@ def phase_d():
         del want
         plain_ms = cuda_ms(lambda: wrapper.plain(*args, TOPK_K), 1)
         lib_ms = topk_library_ms(wrapper, args)
-        valid = args[2] if name == "topk_dense" else args[1]
         ins = [a for a in args if isinstance(a, torch.Tensor)]
         nbytes = sum(t.numel() * t.element_size()
                      for t in ins + list(outs[name]))
-        # ~12 f32 operations per (valid job, host) pair
-        ops = int((valid != 0).sum()) * avail.shape[0] * 12
+        pairs, exact = masked_pairs(wrapper, args), exact_pairs(wrapper, args)
+        ops = pairs * TOPK_PAIR_OPS + exact * TOPK_EXACT_OPS
+        if not 0 < exact <= pairs:
+            raise AssertionError(f"{name}: {exact} exact-path pairs of "
+                                 f"{pairs} masked")
         fit = outs[name][0]
         rows[name] = dict(calls=1, launches=counts[name], max_abs_err=err,
                           ms=ms, device_ms=dev_ms,
                           cuda_launches_per_call=len(types),
                           plain_ms=plain_ms, library_ms=lib_ms,
-                          bytes=nbytes, ops=ops)
+                          bytes=nbytes, ops=ops, masked_pairs=pairs,
+                          exact_pairs=exact)
         b_ms, b_by = bound(rows[name])
         print(json.dumps({
             "phase": "D", "kernel": name, "J": J, "H": H, "k": TOPK_K,

@@ -53,6 +53,11 @@
 //   candidate bits, then taken lowest host first, so the rare exact path
 //   is one copy of its code.
 //
+// One job a thread (two were measured slower: more registers, fewer
+// blocks an SM).  Where the caller passes exact_pairs, the scan adds to
+// it the pairs that took the exact path (the work the pre-filter leaves,
+// for the operations bound; nothing else reads it).
+//
 // When the jobs alone give too few blocks to fill the card, blockIdx.y
 // splits the hosts into S ranges of whole tiles; each writes a partial
 // list and a second kernel merges the S lists in host order with the
@@ -65,7 +70,6 @@ namespace {
 
 constexpr int kStructThreads = 256;   // threads a scan block, structured
 constexpr int kDenseThreads = 128;    // threads a scan block, dense
-constexpr int kJobsPerThread = 1;     // jobs a thread
 constexpr int kStructTile = 1024;     // hosts a tile, structured form
 constexpr int kDenseTile = 128;       // hosts a tile, dense form
 constexpr int kExcSlots = 8;          // exception rows a round (structured)
@@ -81,12 +85,9 @@ __host__ __device__ constexpr int row_bytes(int tile) {
 __host__ __device__ constexpr int threads_of(bool dense) {
   return dense ? kDenseThreads : kStructThreads;
 }
-__host__ __device__ constexpr int jobs_of(bool dense) {
-  return threads_of(dense) * kJobsPerThread;
-}
 constexpr int smem_bytes(bool dense, int tile) {
   return tile * kHostBytes +
-         (dense ? 2 * jobs_of(true) * row_bytes(tile)
+         (dense ? 2 * kDenseThreads * row_bytes(tile)
                 : 2 * tile + kExcSlots * row_bytes(tile));
 }
 constexpr int kDenseSmem = smem_bytes(true, kDenseTile);
@@ -155,6 +156,7 @@ struct Params {
   int* part_host;
   int J, H, per;              // per: hosts a split, whole tiles
   int vec;                    // mask rows take 16-byte copies
+  unsigned long long* exact_pairs;   // null, or the count to add to
 };
 
 // The host records of one tile in shared memory.
@@ -243,7 +245,7 @@ __device__ __forceinline__ void stage_rows(uint8_t* rows, int nrows, int h0,
   }
 }
 
-// One job of a thread: its demand, the pre-filter's copy of it (NaN
+// The thread's job: its demand, the pre-filter's copy of it (NaN
 // where the pre-filter does not apply), its list, and its mask row for
 // the current round (a byte offset into shared memory; -1: not in this
 // round).
@@ -256,6 +258,7 @@ struct Job {
   int row;
   bool nan;        // a feasible pair's fitness was NaN: nanv
   float nanv;
+  int nexact;      // pairs that took the exact path
   RunningTopK<KT> top;
 };
 
@@ -286,48 +289,32 @@ __device__ __forceinline__ void exact(Job<KT>& q, const Hosts& s, int t,
   q.top.offer(f, h);
 }
 
-// Scan the tile's hosts [h0, h0 + 16 nc) for each job with a row in
-// this round (a warp without one skips the tile).
+// Scan the tile's hosts [h0, h0 + 16 nc) for the job if it has a row
+// in this round (a warp without one skips the tile).
 template <int KT>
-__device__ __forceinline__ void scan_tile(Job<KT> (&jobs)[kJobsPerThread],
-                                          const uint8_t* smem,
+__device__ __forceinline__ void scan_tile(Job<KT>& q, const uint8_t* smem,
                                           const Hosts& s, int h0, int nc) {
-  bool live = false;
-#pragma unroll
-  for (int jj = 0; jj < kJobsPerThread; ++jj) live |= jobs[jj].row >= 0;
-  if (!__any_sync(0xFFFFFFFFu, live)) return;
+  if (!__any_sync(0xFFFFFFFFu, q.row >= 0)) return;
 #pragma unroll 1
   for (int c = 0; c < nc; ++c) {
-    uint4 mw[kJobsPerThread];
-    unsigned cand[kJobsPerThread];
-#pragma unroll
-    for (int jj = 0; jj < kJobsPerThread; ++jj) {
-      mw[jj] = jobs[jj].row >= 0
-                   ? *(const uint4*)(smem + jobs[jj].row + c * kChunk)
-                   : make_uint4(0, 0, 0, 0);
-      cand[jj] = 0;
-    }
+    const uint4 mw = q.row >= 0
+                         ? *(const uint4*)(smem + q.row + c * kChunk)
+                         : make_uint4(0, 0, 0, 0);
+    unsigned cand = 0;
 #pragma unroll
     for (int k = 0; k < kChunk; ++k) {
       const float4 pre = s.pre[c * kChunk + k];
-#pragma unroll
-      for (int jj = 0; jj < kJobsPerThread; ++jj) {
-        const unsigned w = k < 4 ? mw[jj].x
-                         : k < 8 ? mw[jj].y
-                         : k < 12 ? mw[jj].z : mw[jj].w;
-        const float est = __fmaf_rn(jobs[jj].pn0, pre.x,
-                                    __fmaf_rn(jobs[jj].pn1, pre.y, pre.z));
-        const bool m = (w >> (8 * (k & 3))) & 0xFFu;
-        cand[jj] |= (m && !(est <= jobs[jj].top.v[KT - 1])) ? 1u << k : 0u;
-      }
+      const unsigned w = k < 4 ? mw.x : k < 8 ? mw.y : k < 12 ? mw.z : mw.w;
+      const float est = __fmaf_rn(q.pn0, pre.x,
+                                  __fmaf_rn(q.pn1, pre.y, pre.z));
+      const bool m = (w >> (8 * (k & 3))) & 0xFFu;
+      cand |= (m && !(est <= q.top.v[KT - 1])) ? 1u << k : 0u;
     }
-#pragma unroll
-    for (int jj = 0; jj < kJobsPerThread; ++jj) {
-      while (cand[jj]) {
-        const int k = __ffs(cand[jj]) - 1;
-        cand[jj] &= cand[jj] - 1;
-        exact(jobs[jj], s, c * kChunk + k, h0 + c * kChunk + k);
-      }
+    while (cand) {
+      const int k = __ffs(cand) - 1;
+      cand &= cand - 1;
+      ++q.nexact;
+      exact(q, s, c * kChunk + k, h0 + c * kChunk + k);
     }
   }
 }
@@ -337,7 +324,7 @@ __global__ void __launch_bounds__(threads_of(kDense))
     topk_scan_kernel(Params p) {
   constexpr int TILE = kDense ? kDenseTile : kStructTile;
   constexpr int THREADS = threads_of(kDense);
-  constexpr int JOBS = jobs_of(kDense);
+  constexpr int JOBS = THREADS;   // one job a thread
   extern __shared__ __align__(16) uint8_t smem[];
   __shared__ unsigned s_nmax[2];
   __shared__ int s_nexc;
@@ -355,42 +342,39 @@ __global__ void __launch_bounds__(threads_of(kDense))
   }
   __syncthreads();
 
-  Job<KT> jobs[kJobsPerThread];
-#pragma unroll
-  for (int jj = 0; jj < kJobsPerThread; ++jj) {
-    Job<KT>& q = jobs[jj];
-    const int j = j0 + jj * THREADS + tid;
-    q.active = j < p.J && p.valid[j] != 0;
-    q.n0 = q.n1 = q.n2 = q.n3 = 0.0f;
-    q.slot = -1;
-    q.cls = 0;
-    q.row = -1;
-    q.nan = false;
-    q.nanv = 0.0f;
-    q.top.init();
-    if (q.active) {
-      const float4 n = __ldg((const float4*)p.res + j);
-      q.n0 = n.x;
-      q.n1 = n.y;
-      q.n2 = n.z;
-      q.n3 = n.w;
-      if (!kDense) {
-        q.cls = n.z > 0.0f ? 1 : 0;
-        const int eid = p.exc_id[j];
-        if (eid >= 0) {
-          q.slot = atomicAdd(&s_nexc, 1);
-          s_eid[q.slot] = eid;
-        }
+  Job<KT> q;
+  const int j = j0 + tid;
+  q.active = j < p.J && p.valid[j] != 0;
+  q.n0 = q.n1 = q.n2 = q.n3 = 0.0f;
+  q.slot = -1;
+  q.cls = 0;
+  q.row = -1;
+  q.nan = false;
+  q.nanv = 0.0f;
+  q.nexact = 0;
+  q.top.init();
+  if (q.active) {
+    const float4 n = __ldg((const float4*)p.res + j);
+    q.n0 = n.x;
+    q.n1 = n.y;
+    q.n2 = n.z;
+    q.n3 = n.w;
+    if (!kDense) {
+      q.cls = n.z > 0.0f ? 1 : 0;
+      const int eid = p.exc_id[j];
+      if (eid >= 0) {
+        q.slot = atomicAdd(&s_nexc, 1);
+        s_eid[q.slot] = eid;
       }
     }
-    const bool pre = q.active && fabsf(q.n0) < pow2(40) &&
-                     fabsf(q.n1) < pow2(40);
-    q.pn0 = pre ? q.n0 : __int_as_float(0x7FC00000);
-    q.pn1 = pre ? q.n1 : __int_as_float(0x7FC00000);
-    if (pre) {   // non-negative floats order as their bits
-      atomicMax(&s_nmax[0], __float_as_uint(fabsf(q.n0)));
-      atomicMax(&s_nmax[1], __float_as_uint(fabsf(q.n1)));
-    }
+  }
+  const bool pre = q.active && fabsf(q.n0) < pow2(40) &&
+                   fabsf(q.n1) < pow2(40);
+  q.pn0 = pre ? q.n0 : __int_as_float(0x7FC00000);
+  q.pn1 = pre ? q.n1 : __int_as_float(0x7FC00000);
+  if (pre) {   // non-negative floats order as their bits
+    atomicMax(&s_nmax[0], __float_as_uint(fabsf(q.n0)));
+    atomicMax(&s_nmax[1], __float_as_uint(fabsf(q.n1)));
   }
   __syncthreads();
   const float nmax0 = __uint_as_float(s_nmax[0]);
@@ -419,13 +403,10 @@ __global__ void __launch_bounds__(threads_of(kDense))
       stage_hosts<THREADS>(p, hs, h0, n, nmax0, nmax1);
       cp_async_wait<1>();   // this tile's copies have landed
       __syncthreads();
-      const int mine = kRows + buf * JOBS * row_bytes(TILE);
-#pragma unroll
-      for (int jj = 0; jj < kJobsPerThread; ++jj)
-        jobs[jj].row = jobs[jj].active
-                           ? mine + (jj * THREADS + tid) * row_bytes(TILE)
-                           : -1;
-      scan_tile(jobs, smem, hs, h0, (n + kChunk - 1) / kChunk);
+      q.row = q.active
+                  ? kRows + (buf * JOBS + tid) * row_bytes(TILE)
+                  : -1;
+      scan_tile(q, smem, hs, h0, (n + kChunk - 1) / kChunk);
     }
   } else {
     uint8_t* cls = rows;                 // [2][TILE]: cpu jobs, gpu jobs
@@ -457,26 +438,23 @@ __global__ void __launch_bounds__(threads_of(kDense))
         cp_async_commit();
         cp_async_wait<0>();
         __syncthreads();
-#pragma unroll
-        for (int jj = 0; jj < kJobsPerThread; ++jj) {
-          Job<KT>& q = jobs[jj];
-          q.row = !q.active ? -1
-                  : q.slot < 0 ? (rd == 0 ? kRows + q.cls * TILE : -1)
-                  : q.slot >= first && q.slot < first + kExcSlots
-                      ? kExc + (q.slot - first) * row_bytes(TILE)
-                      : -1;
-        }
-        scan_tile(jobs, smem, hs, h0, nc);
+        q.row = !q.active ? -1
+                : q.slot < 0 ? (rd == 0 ? kRows + q.cls * TILE : -1)
+                : q.slot >= first && q.slot < first + kExcSlots
+                    ? kExc + (q.slot - first) * row_bytes(TILE)
+                    : -1;
+        scan_tile(q, smem, hs, h0, nc);
       }
     }
   }
 
-#pragma unroll
-  for (int jj = 0; jj < kJobsPerThread; ++jj) {
-    const int j = j0 + jj * THREADS + tid;
-    if (j >= p.J) continue;
+  if (p.exact_pairs) {   // uniform: every thread of the warp is here
+    const unsigned n = __reduce_add_sync(0xFFFFFFFFu, (unsigned)q.nexact);
+    if ((tid & 31) == 0 && n != 0u)
+      atomicAdd(p.exact_pairs, (unsigned long long)n);
+  }
+  if (j < p.J) {
     const long long o = ((long long)blockIdx.y * p.J + j) * KT;
-    const Job<KT>& q = jobs[jj];
 #pragma unroll
     for (int i = 0; i < KT; ++i) {
       p.part_fit[o + i] = q.nan ? q.nanv : q.top.v[i];
@@ -517,19 +495,13 @@ __global__ void topk_merge_kernel(const float* __restrict__ part_fit,
   }
 }
 
-// Allow the scan kernel its shared memory (above 48 KB), once.
+// Allow the scan kernel its shared memory (above 48 KB) on the current
+// device; set at every call, since the attribute is the device's.
 template <int KT, bool kDense>
 int prepare() {
-  static bool smem_set = false;
-  if (!smem_set) {
-    cudaError_t e = cudaFuncSetAttribute(
-        topk_scan_kernel<KT, kDense>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kDense ? kDenseSmem : kStructSmem);
-    if (e != cudaSuccess) return (int)e;
-    smem_set = true;
-  }
-  return 0;
+  return (int)cudaFuncSetAttribute(topk_scan_kernel<KT, kDense>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   kDense ? kDenseSmem : kStructSmem);
 }
 
 template <int KT, bool kDense>
@@ -538,7 +510,7 @@ int launch(Params p, float* out_fit, int* out_host, int k, int S,
   constexpr int smem = kDense ? kDenseSmem : kStructSmem;
   if (int e = prepare<KT, kDense>()) return e;
   if (p.J <= 0) return 0;
-  dim3 grid(cook::grid_for(p.J, jobs_of(kDense)), S);
+  dim3 grid(cook::grid_for(p.J, threads_of(kDense)), S);
   topk_scan_kernel<KT, kDense><<<grid, threads_of(kDense), smem, st>>>(p);
   int e = cook::last_error();
   if (e != 0) return e;
@@ -554,7 +526,8 @@ bool geometry_ok(int H, int S, int per, int tile, int jobs, int smem,
   const int want_tile = dense ? kDenseTile : kStructTile;
   const int want_smem = dense ? kDenseSmem : kStructSmem;
   const int tiles = (H + want_tile - 1) / want_tile;
-  return tile == want_tile && jobs == jobs_of(dense) && smem == want_smem &&
+  return tile == want_tile && jobs == threads_of(dense) &&
+         smem == want_smem &&
          S >= 1 && per > 0 && per % want_tile == 0 &&
          per == (tiles + S - 1) / S * want_tile &&
          (long long)per * S >= H;
@@ -575,19 +548,21 @@ int blocks_per_sm() {
 
 // fit[J, k], host[J, k] over a dense mask cmask[J, H] (u8).  part_fit and
 // part_host hold S * J * KT entries, KT = 8 when k <= 8, else 16.
-// res, avail and cap must be 16-byte aligned.
+// res, avail and cap must be 16-byte aligned.  exact_pairs: null, or a
+// count to which the scan adds the pairs that took the exact path.
 COOK_API int topk_dense(const float* res, const uint8_t* cmask,
                         const uint8_t* valid, const float* avail,
                         const float* cap, float* part_fit, int* part_host,
                         float* out_fit, int* out_host, int J, int H, int k,
                         int S, int per, int tile, int jobs, int smem,
-                        void* stream) {
+                        unsigned long long* exact_pairs, void* stream) {
   if (k < 1 || k > 16 || J < 0 || H < 1 ||
       !geometry_ok(H, S, per, tile, jobs, smem, true))
     return (int)cudaErrorInvalidValue;
   Params p{res, cmask, valid, nullptr, nullptr, nullptr, nullptr, avail,
            cap, part_fit, part_host, J, H, per,
-           ((uintptr_t)cmask % 16 == 0 && H % kChunk == 0) ? 1 : 0};
+           ((uintptr_t)cmask % 16 == 0 && H % kChunk == 0) ? 1 : 0,
+           exact_pairs};
   cudaStream_t st = (cudaStream_t)stream;
   return k <= 8 ? launch<8, true>(p, out_fit, out_host, k, S, st)
                 : launch<16, true>(p, out_fit, out_host, k, S, st);
@@ -603,13 +578,15 @@ COOK_API int topk_structured(const float* res, const uint8_t* valid,
                              const float* cap, float* part_fit, int* part_host,
                              float* out_fit, int* out_host, int J, int H,
                              int k, int S, int per, int tile, int jobs,
-                             int smem, void* stream) {
+                             int smem, unsigned long long* exact_pairs,
+                             void* stream) {
   if (k < 1 || k > 16 || J < 0 || H < 1 ||
       !geometry_ok(H, S, per, tile, jobs, smem, false))
     return (int)cudaErrorInvalidValue;
   Params p{res, nullptr, valid, exc_id, host_gpu, host_blocked, exc_mask,
            avail, cap, part_fit, part_host, J, H, per,
-           ((uintptr_t)exc_mask % 16 == 0 && H % kChunk == 0) ? 1 : 0};
+           ((uintptr_t)exc_mask % 16 == 0 && H % kChunk == 0) ? 1 : 0,
+           exact_pairs};
   cudaStream_t st = (cudaStream_t)stream;
   return k <= 8 ? launch<8, false>(p, out_fit, out_host, k, S, st)
                 : launch<16, false>(p, out_fit, out_host, k, S, st);

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Top-K kernel geometries side by side on one CUDA card.
 
-Each geometry (threads a block of each form, jobs a thread, hosts a
-tile of each form) is built from ``cook_tpu_torch/ops/csrc/topk.cu`` with its
+Each geometry (threads a block of each form, one job a thread, hosts
+a tile of each form) is built from ``cook_tpu_torch/ops/csrc/topk.cu`` with its
 constants replaced, into a library of its own, with ptxas's report of
 registers and spills.  Each is held against the plain version on
 ``chip_smoke.py``'s bench worlds (structured: 100,000 jobs x 50,000
@@ -36,15 +36,13 @@ import chip_smoke as cs  # noqa: E402
 from cook_tpu_torch.ops import cuda_lib  # noqa: E402
 from cook_tpu_torch.ops import pallas_match as tpm  # noqa: E402
 
-# name: (kStructThreads, kDenseThreads, kJobsPerThread, kStructTile,
-# kDenseTile); the first is the source's own
-GEOMETRIES = {"s256x1024_d128x128": (256, 128, 1, 1024, 128),
-              "s128x1024_d128x256": (128, 128, 1, 1024, 256),
-              "s256x512_d128x64": (256, 128, 1, 512, 64),
-              "s256x1024_d128x64_j2": (256, 128, 2, 1024, 64),
-              "s128x512_d64x128_j2": (128, 64, 2, 512, 128),
-              "s256x1024_d128x128_scan_only": (256, 128, 1, 1024, 128)}
-SCAN_ONLY = (("!(est <= jobs[jj].top.v[KT - 1])", "!(est <= 3e38f)"),)
+# name: (kStructThreads, kDenseThreads, kStructTile, kDenseTile); the
+# first is the source's own
+GEOMETRIES = {"s256x1024_d128x128": (256, 128, 1024, 128),
+              "s128x1024_d128x256": (128, 128, 1024, 256),
+              "s256x512_d128x64": (256, 128, 512, 64),
+              "s256x1024_d128x128_scan_only": (256, 128, 1024, 128)}
+SCAN_ONLY = (("!(est <= q.top.v[KT - 1])", "!(est <= 3e38f)"),)
 DENSE_SPLITS = (1, 4, 8, 13, 20)
 DENSE_GEOMETRY = "s256x1024_d128x128"
 REPS = 5
@@ -67,13 +65,14 @@ def load(path):
 
 
 def use(dll, geometry):
-    """Point the wrappers at a variant library and its plan constants."""
-    sthreads, dthreads, jpt, stile, dtile = geometry
+    """Point the wrappers at a variant library and its plan constants
+    (the cached plans and occupancies are the previous variant's)."""
+    sthreads, dthreads, stile, dtile = geometry
     cuda_lib._LIB = dll
     tpm.STRUCT_THREADS, tpm.DENSE_THREADS = sthreads, dthreads
-    tpm.JOBS_PER_THREAD = jpt
     tpm.STRUCT_TILE, tpm.DENSE_TILE = stile, dtile
     tpm.blocks_per_sm.cache_clear()
+    tpm.topk_plan.cache_clear()
 
 
 def ptxas_lines(text):
@@ -105,11 +104,10 @@ def main() -> int:
     nvcc = [cuda_lib.nvcc(), *cuda_lib.NVCC_FLAGS, "-Xptxas", "-v"]
     text = (src / "topk.cu").read_text()
     procs = {}
-    for name, (sthr, dthr, jpt, stile, dtile) in GEOMETRIES.items():
+    for name, (sthr, dthr, stile, dtile) in GEOMETRIES.items():
         t = text
         for k, v in (("kStructThreads", sthr), ("kDenseThreads", dthr),
-                     ("kJobsPerThread", jpt), ("kStructTile", stile),
-                     ("kDenseTile", dtile)):
+                     ("kStructTile", stile), ("kDenseTile", dtile)):
             t = set_const(t, k, v)
         if name.endswith("scan_only"):
             for old, new in SCAN_ONLY:

@@ -42,11 +42,11 @@ def test_plan_constants_are_the_kernels():
     text, src = _cu_constants()
     assert int(src["kStructThreads"]) == tpm.STRUCT_THREADS
     assert int(src["kDenseThreads"]) == tpm.DENSE_THREADS
-    assert int(src["kJobsPerThread"]) == tpm.JOBS_PER_THREAD
-    assert "return threads_of(dense) * kJobsPerThread;" in text
-    assert tpm.jobs_per_block(True) == tpm.DENSE_THREADS * tpm.JOBS_PER_THREAD
-    assert tpm.jobs_per_block(False) \
-        == tpm.STRUCT_THREADS * tpm.JOBS_PER_THREAD
+    # one job a thread
+    assert "constexpr int JOBS = THREADS;" in text
+    assert "jobs == threads_of(dense)" in text
+    assert tpm.jobs_per_block(True) == tpm.DENSE_THREADS
+    assert tpm.jobs_per_block(False) == tpm.STRUCT_THREADS
     assert int(src["kStructTile"]) == tpm.STRUCT_TILE
     assert int(src["kDenseTile"]) == tpm.DENSE_TILE
     assert int(src["kExcSlots"]) == tpm.EXC_SLOTS
@@ -55,7 +55,7 @@ def test_plan_constants_are_the_kernels():
     assert eval(src["kHostBytes"]) == tpm.HOST_BYTES == 3 * 16 + 8
     # the shared memory formula, and it fits a block (and 2 an SM)
     assert "tile * kHostBytes" in text
-    assert "2 * jobs_of(true) * row_bytes(tile)" in text
+    assert "2 * kDenseThreads * row_bytes(tile)" in text
     assert "2 * tile + kExcSlots * row_bytes(tile)" in text
     for dense in (False, True):
         assert 2 * (tpm.smem_bytes(dense) + 1024) <= 233_472
