@@ -82,8 +82,8 @@ hosts.
      their plain versions (fit bit for bit, host where fit > -inf) and
      timed beside ``torch.topk`` of the materialized score, the dense
      one also with its hosts left unsplit; their operations bound from
-     the pairs whose mask is set and the pairs that take the exact path
-     (counted by the kernel in one more launch); then the eight
+     the pairs whose mask is set and the pairs that enter a job's list
+     (counted from the plain scores); then the eight
      ``TOPK_CHECKS`` worlds for the paths those leave idle, held the
      same way;
   8. phase E: ``dispatch`` on the card for the three full-width worlds
@@ -835,12 +835,12 @@ TOPK = {
 }
 TOPK_K = 16
 # f32 operations (an FMA counts two, as the peak rate does) the top-K
-# function needs: for each (job, host) pair whose mask is set, the
-# pre-filter's two FMAs and its compare against the job's K-th entry;
-# for each pair that then takes the exact path, four compares of the
-# resource fit, two adds (u + n), two quotients from the stored
-# reciprocal (a multiply and two FMAs each), two adds and a multiply of
-# the fitness and the compare of the insertion
+# function needs: for each (job, host) pair whose mask is set, a test
+# that it cannot beat the job's K-th entry (the pre-filter's two FMAs
+# and a compare); for each pair that enters the job's list, the exact
+# fitness: four compares of the resource fit, two adds (u + n), two
+# quotients from the stored reciprocal (a multiply and two FMAs each),
+# two adds and a multiply, and the compare of the insertion
 TOPK_PAIR_OPS = 5
 TOPK_EXACT_OPS = 4 + 2 + 2 * 5 + 3 + 1
 
@@ -922,14 +922,34 @@ def masked_pairs(wrapper, args) -> int:
     return int(base) + int(rows[exc_id[v & exc].long()].sum())
 
 
-def exact_pairs(wrapper, args) -> int:
-    """The pairs that take the exact path in one walk over the hosts in
-    order (the kernel with one host split, counting; not a counted
-    launch of the main path)."""
+def list_entries(wrapper, args, block=1024) -> int:
+    """The feasible pairs that enter their job's running list of the
+    best ``TOPK_K`` in a walk over the hosts in order (strictly above
+    its K-th entry then): the pairs whose exact fitness the function
+    needs.  From the plain version's scores, a block of hosts at a
+    time, on the card."""
     from cook_tpu_torch.ops import pallas_match as tpm
-    n = torch.zeros(1, dtype=torch.int64, device="cuda")
-    with forced_splits(tpm, 1):
-        wrapper.launch(*args, TOPK_K, exact_pairs=n)
+    job_res, avail, capacity = args[0], args[-2], args[-1]
+    J, H = job_res.shape[0], avail.shape[0]
+    if wrapper.kernel == "topk_dense":
+        def mask_of(h0, h1):
+            return (args[1][:, h0:h1] != 0) & (args[2] != 0)[:, None]
+    else:
+        def mask_of(h0, h1):
+            return tpm.structured_mask(job_res, args[1], args[2],
+                                       args[3][h0:h1], args[4][h0:h1],
+                                       args[5][:, h0:h1])
+    top = torch.full((J, TOPK_K), float("-inf"), device=job_res.device)
+    n = torch.zeros((), dtype=torch.int64, device=job_res.device)
+    for h0 in range(0, H, block):
+        h1 = min(H, h0 + block)
+        av, cap = avail[h0:h1], capacity[h0:h1]
+        sc = tpm.score(job_res, tpm.resource_fit(job_res, av)
+                       & mask_of(h0, h1), av, cap)
+        for i in range(h1 - h0):
+            col = sc[:, i:i + 1]
+            n += (col[:, 0] > top[:, -1]).sum()
+            top = torch.topk(torch.cat([top, col], 1), TOPK_K, dim=1).values
     return int(n)
 
 
@@ -1156,18 +1176,19 @@ def phase_d():
         ins = [a for a in args if isinstance(a, torch.Tensor)]
         nbytes = sum(t.numel() * t.element_size()
                      for t in ins + list(outs[name]))
-        pairs, exact = masked_pairs(wrapper, args), exact_pairs(wrapper, args)
-        ops = pairs * TOPK_PAIR_OPS + exact * TOPK_EXACT_OPS
-        if not 0 < exact <= pairs:
-            raise AssertionError(f"{name}: {exact} exact-path pairs of "
-                                 f"{pairs} masked")
+        pairs, entries = masked_pairs(wrapper, args), list_entries(wrapper,
+                                                                   args)
+        ops = pairs * TOPK_PAIR_OPS + entries * TOPK_EXACT_OPS
+        if not 0 < entries <= pairs:
+            raise AssertionError(f"{name}: {entries} list entries of "
+                                 f"{pairs} masked pairs")
         fit = outs[name][0]
         rows[name] = dict(calls=1, launches=counts[name], max_abs_err=err,
                           ms=ms, device_ms=dev_ms,
                           cuda_launches_per_call=len(types),
                           plain_ms=plain_ms, library_ms=lib_ms,
                           bytes=nbytes, ops=ops, masked_pairs=pairs,
-                          exact_pairs=exact)
+                          list_entries=entries)
         b_ms, b_by = bound(rows[name])
         print(json.dumps({
             "phase": "D", "kernel": name, "J": J, "H": H, "k": TOPK_K,

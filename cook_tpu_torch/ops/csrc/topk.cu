@@ -54,9 +54,7 @@
 //   is one copy of its code.
 //
 // One job a thread (two were measured slower: more registers, fewer
-// blocks an SM).  Where the caller passes exact_pairs, the scan adds to
-// it the pairs that took the exact path (the work the pre-filter leaves,
-// for the operations bound; nothing else reads it).
+// blocks an SM).
 //
 // When the jobs alone give too few blocks to fill the card, blockIdx.y
 // splits the hosts into S ranges of whole tiles; each writes a partial
@@ -156,7 +154,6 @@ struct Params {
   int* part_host;
   int J, H, per;              // per: hosts a split, whole tiles
   int vec;                    // mask rows take 16-byte copies
-  unsigned long long* exact_pairs;   // null, or the count to add to
 };
 
 // The host records of one tile in shared memory.
@@ -258,7 +255,6 @@ struct Job {
   int row;
   bool nan;        // a feasible pair's fitness was NaN: nanv
   float nanv;
-  int nexact;      // pairs that took the exact path
   RunningTopK<KT> top;
 };
 
@@ -313,7 +309,6 @@ __device__ __forceinline__ void scan_tile(Job<KT>& q, const uint8_t* smem,
     while (cand) {
       const int k = __ffs(cand) - 1;
       cand &= cand - 1;
-      ++q.nexact;
       exact(q, s, c * kChunk + k, h0 + c * kChunk + k);
     }
   }
@@ -351,7 +346,6 @@ __global__ void __launch_bounds__(threads_of(kDense))
   q.row = -1;
   q.nan = false;
   q.nanv = 0.0f;
-  q.nexact = 0;
   q.top.init();
   if (q.active) {
     const float4 n = __ldg((const float4*)p.res + j);
@@ -448,11 +442,6 @@ __global__ void __launch_bounds__(threads_of(kDense))
     }
   }
 
-  if (p.exact_pairs) {   // uniform: every thread of the warp is here
-    const unsigned n = __reduce_add_sync(0xFFFFFFFFu, (unsigned)q.nexact);
-    if ((tid & 31) == 0 && n != 0u)
-      atomicAdd(p.exact_pairs, (unsigned long long)n);
-  }
   if (j < p.J) {
     const long long o = ((long long)blockIdx.y * p.J + j) * KT;
 #pragma unroll
@@ -548,21 +537,19 @@ int blocks_per_sm() {
 
 // fit[J, k], host[J, k] over a dense mask cmask[J, H] (u8).  part_fit and
 // part_host hold S * J * KT entries, KT = 8 when k <= 8, else 16.
-// res, avail and cap must be 16-byte aligned.  exact_pairs: null, or a
-// count to which the scan adds the pairs that took the exact path.
+// res, avail and cap must be 16-byte aligned.
 COOK_API int topk_dense(const float* res, const uint8_t* cmask,
                         const uint8_t* valid, const float* avail,
                         const float* cap, float* part_fit, int* part_host,
                         float* out_fit, int* out_host, int J, int H, int k,
                         int S, int per, int tile, int jobs, int smem,
-                        unsigned long long* exact_pairs, void* stream) {
+                        void* stream) {
   if (k < 1 || k > 16 || J < 0 || H < 1 ||
       !geometry_ok(H, S, per, tile, jobs, smem, true))
     return (int)cudaErrorInvalidValue;
   Params p{res, cmask, valid, nullptr, nullptr, nullptr, nullptr, avail,
            cap, part_fit, part_host, J, H, per,
-           ((uintptr_t)cmask % 16 == 0 && H % kChunk == 0) ? 1 : 0,
-           exact_pairs};
+           ((uintptr_t)cmask % 16 == 0 && H % kChunk == 0) ? 1 : 0};
   cudaStream_t st = (cudaStream_t)stream;
   return k <= 8 ? launch<8, true>(p, out_fit, out_host, k, S, st)
                 : launch<16, true>(p, out_fit, out_host, k, S, st);
@@ -578,15 +565,13 @@ COOK_API int topk_structured(const float* res, const uint8_t* valid,
                              const float* cap, float* part_fit, int* part_host,
                              float* out_fit, int* out_host, int J, int H,
                              int k, int S, int per, int tile, int jobs,
-                             int smem, unsigned long long* exact_pairs,
-                             void* stream) {
+                             int smem, void* stream) {
   if (k < 1 || k > 16 || J < 0 || H < 1 ||
       !geometry_ok(H, S, per, tile, jobs, smem, false))
     return (int)cudaErrorInvalidValue;
   Params p{res, nullptr, valid, exc_id, host_gpu, host_blocked, exc_mask,
            avail, cap, part_fit, part_host, J, H, per,
-           ((uintptr_t)exc_mask % 16 == 0 && H % kChunk == 0) ? 1 : 0,
-           exact_pairs};
+           ((uintptr_t)exc_mask % 16 == 0 && H % kChunk == 0) ? 1 : 0};
   cudaStream_t st = (cudaStream_t)stream;
   return k <= 8 ? launch<8, false>(p, out_fit, out_host, k, S, st)
                 : launch<16, false>(p, out_fit, out_host, k, S, st);

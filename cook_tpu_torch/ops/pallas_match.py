@@ -232,22 +232,13 @@ def _outputs(J: int, k: int, plan: TopkPlan, device):
             torch.empty((J, k), dtype=_I32, device=device))
 
 
-def _geometry(plan: TopkPlan, exact_pairs):
-    """The entries' geometry arguments, then the exact-pair count's
-    address (None: not counted)."""
-    if exact_pairs is not None:
-        cuda_lib.check(exact_pairs, torch.int64, (1,), "exact_pairs")
-    return (plan.splits, plan.per, plan.tile, plan.jobs, plan.smem,
-            cuda_lib.ptr(exact_pairs))
+def _geometry(plan: TopkPlan):
+    return (plan.splits, plan.per, plan.tile, plan.jobs, plan.smem)
 
 
 @cuda_lib.stage(KERNEL_DENSE, _dense_plain, (_F32, _U8, _U8, _F32, _F32))
-def topk_dense(job_res, cmask, valid, avail, capacity, k, *,
-               exact_pairs=None):
-    """(fit f32[J, k], host i32[J, k]) over a dense u8 mask [J, H].
-    ``exact_pairs``: None, or an i64[1] tensor on the card to which the
-    scan adds the (job, host) pairs that took the exact path (for the
-    operations bound; a CUDA launch only, called as ``.launch``)."""
+def topk_dense(job_res, cmask, valid, avail, capacity, k):
+    """(fit f32[J, k], host i32[J, k]) over a dense u8 mask [J, H]."""
     J, H = cmask.shape
     cuda_lib.check(job_res, _F32, (J, 4), "job_res")
     cuda_lib.check(valid, _U8, (J,), "valid")
@@ -259,18 +250,18 @@ def topk_dense(job_res, cmask, valid, avail, capacity, k, *,
     cuda_lib.call("topk_dense", KERNEL_DENSE, job_res.data_ptr(),
                   cmask.data_ptr(), valid.data_ptr(), avail.data_ptr(),
                   capacity.data_ptr(), pf.data_ptr(), ph.data_ptr(),
-                  fit.data_ptr(), host.data_ptr(), J, H, k,
-                  *_geometry(plan, exact_pairs), plan=plan)
+                  fit.data_ptr(), host.data_ptr(), J, H, k, *_geometry(plan),
+                  plan=plan)
     return fit, host
 
 
 @cuda_lib.stage(KERNEL_STRUCTURED, _structured_plain,
                 (_F32, _U8, _I32, _U8, _U8, _U8, _F32, _F32))
 def topk_structured(job_res, valid, exc_id, host_gpu, host_blocked,
-                    exc_mask, avail, capacity, k, *, exact_pairs=None):
+                    exc_mask, avail, capacity, k):
     """(fit f32[J, k], host i32[J, k]) over the structured mask: u8 host
     vectors [H], exception rows u8 [E, H] selected by ``exc_id`` i32[J]
-    (each below E).  ``exact_pairs`` as :func:`topk_dense`'s."""
+    (each below E)."""
     J, H = job_res.shape[0], avail.shape[0]
     E = exc_mask.shape[0]
     cuda_lib.check(job_res, _F32, (J, 4), "job_res")
@@ -289,7 +280,7 @@ def topk_structured(job_res, valid, exc_id, host_gpu, host_blocked,
                   host_blocked.data_ptr(), cuda_lib.ptr(exc_mask),
                   avail.data_ptr(), capacity.data_ptr(), pf.data_ptr(),
                   ph.data_ptr(), fit.data_ptr(), host.data_ptr(), J, H, k,
-                  *_geometry(plan, exact_pairs), plan=plan)
+                  *_geometry(plan), plan=plan)
     return fit, host
 
 
