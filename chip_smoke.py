@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of cook_tpu_torch on one NVIDIA card.
 
-Drives two paths of the port through their CUDA kernels.
+Drives the port's paths through their CUDA kernels.
 
 The fused scheduling cycle (``ops/pallas_cycle.megacycle``, stage kernels
 K1-K6; K4 runs inside K2's launches and K6 inside K5's) at the production
@@ -16,6 +16,11 @@ auction, waterfill) and the top-K preference kernels
 (``ops/pallas_match``) at the JAX package's bench worlds: 100,000 jobs x
 50,000 hosts with 256 exception rows, and 1,000 or 10,000 jobs x 50,000
 hosts.
+
+The resident wire (``sched/fused.sync_resident``, ``ops/delta``), the
+split ranker (``ops/dru``) and the preemption search
+(``ops/rebalance``), PyTorch code over kernels K2 and K3, at the design
+point.
 
   1. prints the card's name and power limit (nvidia-smi);
   2. builds the kernels from ``cook_tpu_torch/ops/csrc`` (nvcc);
@@ -76,7 +81,28 @@ hosts.
      profiled cycles: the card's time by stage kernel (torch.profiler),
      its idle share of the cycles' span, and the host's time by function
      and its allocating calls (``torch.empty`` and kin) a cycle
-     (cProfile);
+     (cProfile); then the resident wire: the same 5 cycles from the
+     same world through ``sync_resident`` and
+     ``stage_mega_wire(resident=True)`` (a cold repack, then scatters),
+     each cycle's outputs equal to the rebuilt wire's and to the plain
+     cycle's, counted on their own; 5 churn cycles (1,000 running rows
+     a pool finish, 1,000 jobs arrive across its users, user-contiguous)
+     staged both ways from the same host arrays, kernels on both wires
+     and the plain cycle equal; each cycle's ``stage_ms``,
+     ``h2d_bytes``, delta k, path and the sync's device ms; and the
+     host time of staging by part in both modes (cProfile);
+  6b. phase M: ``DeviceBaseMirror.sync`` through cold, append, no-op,
+     overflow, compaction and growth, each step against numpy;
+  6c. phase R: the split ranker (``rank_kernel_compact``,
+     ``rank_kernel``) on each design pool, then both quota masks over
+     its ranked queue, counted and recorded (K2, K3), held bit for bit
+     against the plain versions on the card, every recorded launch
+     replayed against its plain version, timed;
+  6d. phase P: the preemption search for 64 demands on 100,000 tasks x
+     5,000 hosts (R = 4) with spare, without, and without with eligible
+     NaN DRUs, one call a demand, counted, recorded and replayed, every
+     decision bit for bit against the plain version on the card,
+     timed;
   7. phase D: the two top-K kernels (structured at 100,000 x 50,000,
      E = 256; dense at 10,000 x 50,000), counted, then held against
      their plain versions (fit bit for bit, host where fit > -inf) and
@@ -95,8 +121,9 @@ hosts.
      against the plain greedy on the card; and every backend on a
      reduced split world, on the card and on the CPU, equal bit for
      bit;
-  9. prints the card line again, the ``{"kernels": [...]}`` line and
-     last ``{"ok": true, "device": {...}}``.
+  9. prints the card line again, the ``{"kernels": [...]}`` line (each
+     stage kernel's launches on every path in ``launches_by_path``)
+     and last ``{"ok": true, "device": {...}}``.
 
 Usage: ``python3 chip_smoke.py`` from the root of a checkout (needs one
 CUDA card and nvcc; builds into ./build/cuda, with the ptxas report in
@@ -175,6 +202,7 @@ def build_world(rng, live=LIVE, users=USERS, hosts=HOSTS, gangs=GANGS,
     disk = rng.integers(0, 2048, N).astype(np.float32)
     rows = np.zeros((P, T), np.int32)
     flags = np.zeros((P, T), np.uint8)
+    task_user = np.zeros((P, T), np.int32)
     weights = 1.0 / np.arange(1, users + 1) ** 0.8
     weights /= weights.sum()
     for p in range(P):
@@ -184,6 +212,7 @@ def build_world(rng, live=LIVE, users=USERS, hosts=HOSTS, gangs=GANGS,
             pend[user == 0] = True
         key = np.lexsort((rng.random(live), pend, user))
         user, pend = user[key], pend[key]
+        task_user[p, :live] = user
         rows[p, :live] = p * live + key
         first = np.ones(live, bool)
         first[1:] = user[1:] != user[:-1]
@@ -258,19 +287,30 @@ def build_world(rng, live=LIVE, users=USERS, hosts=HOSTS, gangs=GANGS,
         shares=shares, quota=quota, tokens=tokens, cap=cap, avail=avail,
         host_gpu=gpu_host, blocked=blocked, exc_rows=exc_rows,
         exc_mask=exc_mask, scalars=scalars,
-        gangs=[gang0] + [None] * (P - 1))
+        gangs=[gang0] + [None] * (P - 1),
+        # what churn needs to keep the layout: each task's user, the user
+        # weights, and the base rows of the exception rows and gangs
+        task_user=task_user, weights=weights, run_total=run_total,
+        exc_ids=np.take_along_axis(rows, exc_rows, 1),
+        gang_ids={g: [rows[0, r] for r, _ in m] for g, m in by_gang.items()},
+        gang_groups=groups, gang_offers=offers)
 
 
-def stage(w, res_dev, disk_dev, scales, device="cuda", quantize=True):
+def stage(w, res_dev, disk_dev, scales, device="cuda", quantize=True,
+          rows=None, flags=None, **resident):
+    """``stage_mega_wire`` on the world's host arrays (or on ``rows`` /
+    ``flags``); ``resident`` passes ``rows_dev``, ``flags_dev`` and
+    ``resident``."""
     from cook_tpu_torch.sched.fused import stage_mega_wire
     return stage_mega_wire(
-        rows_p=w.rows, flags_p=w.flags, n_tasks=[w.live] * P,
+        rows_p=w.rows if rows is None else rows,
+        flags_p=w.flags if flags is None else flags, n_tasks=[w.live] * P,
         res_base=res_dev, disk_base=disk_dev, tokens_u_p=w.tokens,
         shares_u_p=w.shares, quota_u_p=w.quota, scalars=w.scalars,
         host_gpu_p=w.host_gpu, host_blocked_p=w.blocked,
         exc_rows_p=w.exc_rows, exc_mask_p=w.exc_mask, avail_p=w.avail,
         cap_p=w.cap, gang_wires=w.gangs, quantize=quantize, scales=scales,
-        device=device)
+        device=device, **resident)
 
 
 def apply(w, res) -> int:
@@ -818,6 +858,598 @@ def phase_c():
         print(json.dumps({"phase": "C", "world": i, "T": w.T, "H": w.H,
                           "modes": spec["modes"], "codecs": seen,
                           "placed": placed}))
+
+
+# ------------------------------- phase B: the resident wire, and churn
+CHURN = 1_000          # rows that finish, and jobs that arrive, a pool
+CHURN_CYCLES = 5
+RESIDENT_KEY = ("design", P)
+# the parts of staging, by the function that does each (cProfile)
+STAGE_PARTS = {
+    "rows negotiation": ("fused.py", "negotiate_rows"),
+    "avail/cap quantization": ("fused.py", "quantize_hosts"),
+    "bit packing": ("fused.py", "pack_host_bits"),
+    "gang padding": ("fused.py", "pad_gangs"),
+    "uploads (wire_from_numpy)": ("pallas_cycle.py", "wire_from_numpy"),
+    "stage_mega_wire": ("fused.py", "stage_mega_wire"),
+    "sync_resident": ("fused.py", "sync_resident"),
+    "pack_diff": ("delta.py", "pack_diff"),
+    "delta stage": ("delta.py", "stage"),
+    "delta commit": ("delta.py", "commit"),
+    "full upload (resident_buffer)": ("delta.py", "resident_buffer"),
+    "synchronize": ("__init__.py", "synchronize"),
+}
+
+
+def snapshot(w) -> dict:
+    """What a cycle's apply changes in the world."""
+    return {"flags": w.flags.copy(), "avail": w.avail.copy()}
+
+
+def outputs_of(res) -> dict:
+    return {name: getattr(res, name).clone() for name in res._fields}
+
+
+def same_outputs(res, want: dict, what: str) -> None:
+    for name in res._fields:
+        try:
+            max_err(getattr(res, name), want[name])
+        except AssertionError as e:
+            raise AssertionError(f"{what}: {name}: {e}") from None
+
+
+def resident_stage(w, packs, applier, res_dev, disk_dev, scales,
+                   timed=True):
+    """One cycle's resident staging: copies of the host arrays (the pack
+    a driver builds afresh every cycle; outside the timing, as the
+    rebuild mode's pack is), then ``sync_resident`` and
+    ``stage_mega_wire(resident=True)``.  Returns (staged, sync,
+    stage_ms host clock to the synchronize, sync_device_ms).  The sync's
+    device work is timed again afterwards with CUDA events around it
+    alone, so that no other host work falls between them: the scatter,
+    committed once more (it writes the same values), or the full
+    upload's two copies, made once more."""
+    from cook_tpu_torch.ops.delta import pack_diff, resident_buffer
+    from cook_tpu_torch.sched.fused import sync_resident
+    rows, flags = w.rows.copy(), w.flags.copy()
+    prev = packs.get(False)
+    prev = None if prev is None else (prev.rows_host, prev.flags_host)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sync = sync_resident(packs, False, RESIDENT_KEY + (w.T,), rows, flags,
+                         0, applier=applier)
+    staged = stage(w, res_dev, disk_dev, scales, rows=rows, flags=flags,
+                   rows_dev=sync.rows_dev, flags_dev=sync.flags_dev,
+                   resident=True)
+    torch.cuda.synchronize()
+    stage_ms = (time.perf_counter() - t0) * 1e3
+    if not timed or sync.reason == "empty":
+        return staged, sync, stage_ms, None
+    pack = packs[False]
+    if sync.reason == "delta":
+        idx = pack_diff(prev[0], rows, prev[1], flags)
+        st = applier.stage(rows.shape, idx, rows.reshape(-1)[idx],
+                           flags.reshape(-1)[idx], quantize=True)
+        work = lambda: applier.commit(pack.rows_buf, pack.flags_buf, st)
+    else:
+        def work():
+            resident_buffer(rows, pack.rows_buf.device, out=pack.rows_buf)
+            resident_buffer(flags, pack.rows_buf.device, out=pack.flags_buf)
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    ev0.record()
+    work()
+    ev1.record()
+    torch.cuda.synchronize()
+    return staged, sync, stage_ms, ev0.elapsed_time(ev1)
+
+
+def rebuild_stage(w, res_dev, disk_dev, scales):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    staged = stage(w, res_dev, disk_dev, scales)
+    torch.cuda.synchronize()
+    return staged, (time.perf_counter() - t0) * 1e3
+
+
+def timed_cycle(staged):
+    from cook_tpu_torch.ops.pallas_cycle import megacycle
+    t0 = time.perf_counter()
+    res = megacycle(staged["wire"], **megacycle_args(staged))
+    torch.cuda.synchronize()
+    return res, (time.perf_counter() - t0) * 1e3
+
+
+def cycle_line(seq, mode, cyc, staged, stage_ms, cycle_ms, n, sync=None,
+               sync_ms=None) -> dict:
+    line = {"phase": "B", "sequence": seq, "mode": mode, "cycle": cyc,
+            "stage_ms": stage_ms, "cycle_ms": cycle_ms, "placed": n,
+            "staging_h2d_bytes": staged["h2d_bytes"],
+            "rows_codec": staged["rows_codec"]}
+    if sync is None:
+        line.update(h2d_bytes=staged["h2d_bytes"], path="rebuild")
+    else:
+        line.update(h2d_bytes=staged["h2d_bytes"] + sync.h2d_bytes,
+                    sync_h2d_bytes=sync.h2d_bytes, delta_k=sync.k,
+                    path=("scatter" if sync.reason == "delta" else
+                          "untouched" if sync.reason == "empty" else
+                          f"repack ({sync.reason})"),
+                    sync_device_ms=sync_ms)
+    return line
+
+
+def phase_b_resident(w, snap, scales0, rebuild_outs, rebuild_placed):
+    """The rebuild pass's cycles again, from the same world, through the
+    resident wire: a cold cycle, then deltas.  Every cycle's outputs
+    must equal the rebuild pass's on the same host arrays and the plain
+    cycle's on the resident wire.  Counted on its own."""
+    from cook_tpu_torch.ops import telemetry
+    from cook_tpu_torch.ops.delta import DeviceBaseMirror, PackDeltaApplier
+    from cook_tpu_torch.ops.pallas_cycle import megacycle_plain
+    w.flags[...] = snap["flags"]
+    w.avail[...] = snap["avail"]
+    scales = dict(scales0)
+    mirror, applier, packs = DeviceBaseMirror(), PackDeltaApplier(), {}
+    lines = []
+    telemetry.reset_all()
+    for cyc in range(CYCLES):
+        res_dev, disk_dev = mirror.sync(w.res, w.disk, 0)
+        staged, sync, stage_ms, sync_ms = resident_stage(
+            w, packs, applier, res_dev, disk_dev, scales)
+        res, cycle_ms = timed_cycle(staged)
+        same_outputs(res, rebuild_outs[cyc], f"resident cycle {cyc} vs "
+                     f"rebuild")
+        ref = megacycle_plain(staged["wire"], **megacycle_args(staged))
+        same_outputs(res, outputs_of(ref), f"resident cycle {cyc} vs plain")
+        n = apply(w, res)
+        if n != rebuild_placed[cyc]:
+            raise AssertionError(f"resident cycle {cyc} placed {n}")
+        lines.append(cycle_line("placement", "resident", cyc, staged,
+                                stage_ms, cycle_ms, n, sync, sync_ms))
+        print(json.dumps(lines[-1]))
+    counts, events = telemetry.snapshot(), telemetry.events()
+    missing = [k for k in SOURCES if counts.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"resident cycles did not launch {missing}")
+    return counts, events, lines, (mirror, applier, packs, scales)
+
+
+def churn(w, rng) -> None:
+    """``CHURN`` running rows of each pool finish and leave, and as many
+    pending jobs arrive across its users (the world's Zipf weights), each
+    at the end of its user's rows, as ``build_world`` lays them out; their
+    base rows are appended to the base table.  The exception rows and the
+    gang members keep their base rows (they never finish) and move with
+    them."""
+    from cook_tpu_torch.ops.delta import (FLAG_ENQUEUE_OK, FLAG_LAUNCH_OK,
+                                          FLAG_PENDING, FLAG_USER_FIRST,
+                                          FLAG_VALID)
+    from cook_tpu_torch.ops.gang import build_gang_wire
+    n = CHURN
+    keep_ids = set(int(x) for x in w.exc_ids.ravel())
+    keep_ids.update(int(x) for ids in w.gang_ids.values() for x in ids)
+    live = w.live
+    for p in range(P):
+        ids, user = w.rows[p, :live], w.task_user[p, :live]
+        fl = w.flags[p, :live]
+        running = np.flatnonzero(
+            ((fl & FLAG_PENDING) == 0)
+            & ~np.isin(ids, np.fromiter(keep_ids, np.int32)))
+        gone = rng.choice(running, n, replace=False)
+        kept = np.ones(live, bool)
+        kept[gone] = False
+        N = w.res.shape[0]
+        new_res = np.zeros((n, 4), np.float32)
+        new_res[:, 0] = np.round(rng.uniform(0.1, 4.0, n), 1)
+        new_res[:, 1] = rng.integers(128, 8192, n)
+        new_res[:, 2] = rng.random(n) < 0.05
+        new_res[:, 3] = 1.0
+        w.res = np.concatenate([w.res, new_res])
+        w.disk = np.concatenate(
+            [w.disk, rng.integers(0, 2048, n).astype(np.float32)])
+        new_user = rng.choice(len(w.weights), n, p=w.weights)
+        new_fl = (FLAG_PENDING + FLAG_VALID
+                  + (rng.random(n) < 0.99) * FLAG_ENQUEUE_OK
+                  + (rng.random(n) < 0.98) * FLAG_LAUNCH_OK).astype(np.uint8)
+        u = np.concatenate([user[kept], new_user])
+        order = np.argsort(u, kind="stable")
+        u = u[order]
+        ids = np.concatenate([ids[kept], np.arange(N, N + n)])[order]
+        fl = np.concatenate([fl[kept] & ~np.uint8(FLAG_USER_FIRST),
+                             new_fl])[order]
+        first = np.ones(live, bool)
+        first[1:] = u[1:] != u[:-1]
+        w.rows[p, :live] = ids
+        w.task_user[p, :live] = u
+        w.flags[p, :live] = fl | (first * FLAG_USER_FIRST).astype(np.uint8)
+    pos = [dict(zip(w.rows[p, :live].tolist(), range(live)))
+           for p in range(P)]
+    w.exc_rows = np.array([[pos[p][int(x)] for x in w.exc_ids[p]]
+                           for p in range(P)], np.int32)
+    by_gang = {g: [(pos[0][int(x)], None) for x in ids]
+               for g, ids in w.gang_ids.items()}
+    w.gangs[0] = build_gang_wire(w.T, by_gang, w.gang_groups, w.gang_offers)
+
+
+def phase_b_churn(w, state, rng):
+    """``CHURN_CYCLES`` cycles of churn, each staged both ways from the
+    same host arrays (the order of the two modes alternates); kernels on
+    both wires and the plain cycle on the resident wire must agree.
+    The rebuild pass's placements are applied."""
+    from cook_tpu_torch.ops import telemetry
+    from cook_tpu_torch.ops.pallas_cycle import megacycle_plain
+    mirror, applier, packs, scales = state
+    lines = []
+    telemetry.reset_all()
+    for cyc in range(CHURN_CYCLES):
+        churn(w, rng)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res_dev, disk_dev = mirror.sync(w.res, w.disk, 0)
+        torch.cuda.synchronize()
+        mirror_ms = (time.perf_counter() - t0) * 1e3
+        for mode in (("rebuild", "resident") if cyc % 2 == 0
+                     else ("resident", "rebuild")):
+            if mode == "rebuild":
+                sb, b_stage_ms = rebuild_stage(w, res_dev, disk_dev, scales)
+                rb, b_cycle_ms = timed_cycle(sb)
+            else:
+                sr, sync, r_stage_ms, sync_ms = resident_stage(
+                    w, packs, applier, res_dev, disk_dev, scales)
+                rr, r_cycle_ms = timed_cycle(sr)
+        same_outputs(rr, outputs_of(rb), f"churn cycle {cyc}: resident vs "
+                     f"rebuild")
+        ref = megacycle_plain(sr["wire"], **megacycle_args(sr))
+        same_outputs(rr, outputs_of(ref), f"churn cycle {cyc} vs plain")
+        n = apply(w, rb)
+        for line in (cycle_line("churn", "rebuild", cyc, sb, b_stage_ms,
+                                b_cycle_ms, n),
+                     cycle_line("churn", "resident", cyc, sr, r_stage_ms,
+                                r_cycle_ms, n, sync, sync_ms)):
+            line.update(mirror_ms=mirror_ms, mirror_sync=mirror.last_sync)
+            lines.append(line)
+            print(json.dumps(line))
+    counts, events = telemetry.snapshot(), telemetry.events()
+    missing = [k for k in SOURCES if counts.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"churn cycles did not launch {missing}")
+    return counts, events, lines
+
+
+def staging_profile(w, state, rng, reps=3) -> dict:
+    """Host time of staging by part, for both modes (cProfile's
+    cumulative time a cycle), over ``reps`` cycles of each kind:
+    "placement", where 1,000 pending rows a pool start running before
+    each cycle, as a placement cycle changes them (the resident mode's
+    scatter path), and "churn" (``churn``: its repack path)."""
+    from cook_tpu_torch.ops.delta import FLAG_PENDING
+    mirror, applier, packs, scales = state
+    out = {}
+    for kind in ("placement", "churn"):
+        for mode in ("rebuild", "resident"):
+            prof = cProfile.Profile()
+            paths = []
+            for _ in range(reps):
+                if kind == "churn":
+                    churn(w, rng)
+                for p in range(P):
+                    pend = np.flatnonzero(w.flags[p] & FLAG_PENDING)
+                    hit = rng.choice(pend, min(1_000, pend.size),
+                                     replace=False)
+                    w.flags[p, hit] &= ~np.uint8(FLAG_PENDING)
+                res_dev, disk_dev = mirror.sync(w.res, w.disk, 0)
+                torch.cuda.synchronize()
+                prof.enable()
+                if mode == "rebuild":
+                    rebuild_stage(w, res_dev, disk_dev, scales)
+                else:
+                    paths.append(resident_stage(
+                        w, packs, applier, res_dev, disk_dev, scales,
+                        timed=False)[1].reason)
+                prof.disable()
+            stats = pstats.Stats(prof).stats
+            parts = {}
+            for part, (fname, fn) in STAGE_PARTS.items():
+                ct = sum(v[3] for (f, _, name), v in stats.items()
+                         if name == fn and f.endswith(fname))
+                if ct:
+                    parts[part] = ct * 1e3 / reps
+            out[f"{kind}/{mode}"] = {"ms_per_cycle_profiled": parts,
+                                     "paths": paths}
+    return {"phase": "B", "staging_profile": out, "reps": reps,
+            "note": "cumulative times under cProfile, which slows the "
+                    "host: shares, not the unprofiled stage_ms"}
+
+
+# ------------------------------------------- base mirror: sync checks
+MIRROR_STEPS = (
+    # (rows, compaction epoch, expected sync)
+    (300_000, 0, "full"), (303_000, 0, "append"), (303_000, 0, None),
+    (307_500, 0, "append"), (450_000, 0, "full"),   # the chunk overflows
+    (400_000, 1, "full"), (401_000, 1, "append"),
+    (600_000, 1, "full"))                            # past the capacity
+
+
+def phase_mirror(rng) -> dict:
+    """``DeviceBaseMirror.sync`` through cold, append, a no-op, overflow,
+    compaction and growth; each sync's device arrays against numpy."""
+    from cook_tpu_torch.ops.delta import DeviceBaseMirror
+    n_max = max(n for n, _, _ in MIRROR_STEPS)
+    res = rng.uniform(0.1, 9000.0, (n_max, 4)).astype(np.float32)
+    disk = rng.uniform(0.0, 2048.0, n_max).astype(np.float32)
+    m = DeviceBaseMirror()
+    steps = []
+    for n, epoch, want in MIRROR_STEPS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r, d = m.sync(res[:n], disk[:n], epoch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        if m.last_sync != want:
+            raise AssertionError(f"mirror at {n} rows, epoch {epoch}: "
+                                 f"{m.last_sync}, want {want}")
+        rh, dh = r.cpu().numpy(), d.cpu().numpy()
+        if rh.shape != (m.capacity, 4) or not (
+                np.array_equal(rh[:n], res[:n]) and not rh[n:].any()
+                and np.array_equal(dh[:n], disk[:n]) and not dh[n:].any()):
+            raise AssertionError(f"mirror at {n} rows differs from numpy")
+        steps.append({"rows": n, "epoch": epoch, "sync": m.last_sync,
+                      "capacity": m.capacity, "ms": ms})
+    return {"phase": "M", "mirror_steps": steps, "equal_to_numpy": True}
+
+
+# ------------------------------------------------- phase R: split rank
+def rank_world(w, p, res_dev):
+    """Pool ``p``'s compact rank inputs on the card: its rows and flags,
+    the base table, the per-user tables padded to a bucket of 256 users
+    with +inf (as the fused staging pads them)."""
+    from cook_tpu_torch.ops import dru
+    from cook_tpu_torch.ops.padding import bucket
+    U = bucket(w.shares.shape[1], minimum=8)
+    shares = np.full((U, 3), np.inf, np.float32)
+    quota = np.full((U, 4), np.inf, np.float32)
+    shares[:w.shares.shape[1]] = w.shares[p]
+    quota[:w.quota.shape[1]] = w.quota[p]
+    return dru.CompactRankInputs(
+        rows=torch.from_numpy(w.rows[p]).cuda(),
+        flags=torch.from_numpy(w.flags[p]).cuda(), res_base=res_dev,
+        shares_u=torch.from_numpy(shares).cuda(),
+        quota_u=torch.from_numpy(quota).cuda())
+
+
+def quota_queues(w, p, order, num_ranked, usage):
+    """The masks' inputs over pool ``p``'s ranked queue: the pool mask's
+    (job usage in rank order, the pool's running usage and quota, the
+    ranked prefix valid) and the user mask's (the ranked jobs regrouped
+    user-contiguous, stable in rank order, each user's running usage and
+    quota; padding rows carry the last user)."""
+    from cook_tpu_torch.ops.delta import FLAG_PENDING, FLAG_VALID
+    T = w.T
+    order = order.cpu().numpy()
+    k = int(num_ranked)
+    u_all = w.task_user[p]
+    fl = w.flags[p]
+    usage_h = usage.cpu().numpy()
+    job_usage = usage_h[order]
+    valid = np.arange(T) < k
+    pool = (job_usage, w.run_total[p], w.scalars["pool_quota"][p], valid)
+    users = u_all[order[:k]]
+    by_user = order[:k][np.argsort(users, kind="stable")]
+    ju = np.zeros((T, 4), np.float32)
+    ju[:k] = usage_h[by_user]
+    uid = np.zeros(T, np.int32)
+    uid[:k] = u_all[by_user]
+    uid[k:] = uid[k - 1] if k else 0
+    first = np.ones(T, bool)
+    first[1:] = uid[1:] != uid[:-1]
+    first_idx = np.maximum.accumulate(
+        np.where(first, np.arange(T), 0)).astype(np.int32)
+    running = ((fl & FLAG_VALID) != 0) & ((fl & FLAG_PENDING) == 0)
+    base_u = np.zeros((w.shares.shape[1], 4), np.float32)
+    np.add.at(base_u, u_all[running], usage_h[running])
+    user = (ju, uid, first_idx, base_u, w.quota[p][uid], valid)
+    to = lambda xs: tuple(torch.from_numpy(np.ascontiguousarray(x)).cuda()
+                          for x in xs)
+    return to(pool), to(user)
+
+
+def phase_r(w) -> tuple:
+    """The split ranker on each design-world pool, counted: through K2
+    and K3 (recorded, each launch replayed against its plain version),
+    held bit for bit against the plain versions on the card, timed."""
+    from cook_tpu_torch.ops import cuda_lib, dru, telemetry
+    res_dev = torch.from_numpy(w.res).cuda()
+    inputs = [rank_world(w, p, res_dev) for p in range(P)]
+    expanded = [dru.expand_compact_rank(c) for c in inputs]
+    telemetry.reset_all()
+    got = []
+    with cuda_lib.recording() as calls:
+        for c, e in zip(inputs, expanded):
+            rc = dru.rank_kernel_compact(c)
+            rk = dru.rank_kernel(e)
+            got.append((rc, rk))
+    torch.cuda.synchronize()
+    queues = [quota_queues(w, p, got[p][0].order, got[p][0].num_ranked,
+                           expanded[p].usage) for p in range(P)]
+    with cuda_lib.recording() as mask_calls:
+        masks = [(dru.pool_quota_mask(*pq), dru.user_quota_mask(*uq))
+                 for pq, uq in queues]
+    torch.cuda.synchronize()
+    counts = telemetry.snapshot()
+    for k in ("scan", "sort"):
+        if counts.get(k, 0) <= 0:
+            raise AssertionError(f"the split ranker did not launch {k}")
+    # the plain versions on the card
+    per_pool = []
+    for p in range(P):
+        e = expanded[p]
+        order, num, dru_v, keep, _ = dru.rank_body(*e, False, 100)
+        want = dru.RankResult(order=order,
+                              dru=torch.where(keep, dru_v, float("inf")),
+                              keep=keep, num_ranked=num)
+        for r in got[p]:
+            for name in want._fields:
+                max_err(getattr(r, name), getattr(want, name))
+        pq, uq = queues[p]
+        max_err(masks[p][0], dru.pool_quota_mask_plain(*pq))
+        max_err(masks[p][1], dru.user_quota_mask_plain(*uq))
+        c = inputs[p]
+        per_pool.append({
+            "pool": p, "num_ranked": int(num),
+            "pool_quota_kept": int(masks[p][0].sum()),
+            "user_quota_kept": int(masks[p][1].sum()),
+            "rank_kernel_compact_ms": cuda_ms(
+                lambda: dru.rank_kernel_compact(c), 10),
+            "rank_kernel_compact_device_ms": device_ms(
+                lambda: dru.rank_kernel_compact(c), 10),
+            "rank_kernel_ms": cuda_ms(lambda: dru.rank_kernel(e), 10),
+            "pool_quota_mask_ms": cuda_ms(
+                lambda: dru.pool_quota_mask(*pq), 10),
+            "user_quota_mask_ms": cuda_ms(
+                lambda: dru.user_quota_mask(*uq), 10),
+            "plain_rank_ms": cuda_ms(lambda: dru.rank_body(
+                *dru.expand_compact_rank(c), False, 100), 3),
+            "plain_pool_quota_mask_ms": cuda_ms(
+                lambda: dru.pool_quota_mask_plain(*pq), 3),
+            "plain_user_quota_mask_ms": cuda_ms(
+                lambda: dru.user_quota_mask_plain(*uq), 3)})
+    held = replay_all(calls + mask_calls, "split ranker")
+    print(json.dumps({"phase": "R", "T": w.T, "U_bucket": 256,
+                      "launches_per_kernel": {k: counts[k] for k in
+                                              ("scan", "sort")},
+                      "replayed_equal_to_plain": held,
+                      "pools": per_pool}))
+    return counts
+
+
+def replay_all(calls, what: str) -> dict:
+    """Replay recorded launches against their plain versions; returns
+    the count held by wrapper and shape."""
+    faults, held = [], {}
+    for i, (wrapper, wargs, kw, _) in enumerate(calls):
+        replay(i, wrapper, wargs, kw, faults)
+        key = f"{wrapper.__name__} {list(wargs[0].shape)}"
+        held[key] = held.get(key, 0) + 1
+    if faults:
+        raise AssertionError(f"{what}: kernel != plain version:\n"
+                             + "\n".join(faults))
+    return held
+
+
+# ------------------------------------------------- phase P: preemption
+PREEMPT_TASKS, PREEMPT_HOSTS, PREEMPT_DEMANDS = 100_000, 5_000, 64
+
+
+def preempt_world(rng, spare=True, nan_eligible=0):
+    """100,000 running tasks on 5,000 hosts, R = 4, sorted by (host,
+    -dru) and padded to 131,072 as the rebalancer pads them (host 0,
+    segment start, ineligible); 10% of the tasks ineligible, 10% of the
+    hosts failing the job's constraints; 0.5% +inf DRUs (eligible) and
+    0.5% NaN DRUs, ineligible as the rebalancer's DRU filters leave them
+    (a NaN fails their ``>`` tests) but for ``nan_eligible`` of them;
+    spare per host, or none at all."""
+    from cook_tpu_torch.ops.padding import bucket, pad_to
+    from cook_tpu_torch.ops.rebalance import RebalanceInputs
+    n, H = PREEMPT_TASKS, PREEMPT_HOSTS
+    host = rng.integers(0, H, n).astype(np.int32)
+    dru = (rng.random(n) * 4).astype(np.float32)
+    special = rng.random(n)
+    nan = special < 0.005
+    dru[nan] = np.nan
+    dru[(special >= 0.005) & (special < 0.01)] = np.inf
+    res = np.zeros((n, 4), np.float32)
+    res[:, 0] = np.round(rng.uniform(0.1, 4.0, n), 1)
+    res[:, 1] = rng.integers(128, 8192, n)
+    res[:, 2] = rng.random(n) < 0.05
+    eligible = (rng.random(n) >= 0.1) & ~nan
+    eligible[np.flatnonzero(nan)[:nan_eligible]] = True
+    order = np.lexsort((-dru, host))
+    dru, res, host, eligible = dru[order], res[order], host[order], \
+        eligible[order]
+    start = np.ones(n, bool)
+    start[1:] = host[1:] != host[:-1]
+    spare_h = np.zeros((H, 4), np.float32)
+    if spare:
+        spare_h[:, 0] = np.floor(rng.uniform(0, 6, H) * 2) / 2
+        spare_h[:, 1] = rng.integers(0, 16384, H)
+        spare_h[:, 2] = rng.random(H) < 0.1
+    host_ok = rng.random(H) >= 0.1
+    T = bucket(n)
+    to = lambda x: torch.from_numpy(np.ascontiguousarray(x)).cuda()
+    return RebalanceInputs(
+        task_dru=to(pad_to(dru, T)), task_res=to(pad_to(res, T)),
+        task_host=to(pad_to(host, T)),
+        host_start=to(pad_to(start, T, fill=True)),
+        eligible=to(pad_to(eligible, T, fill=False)), spare=to(spare_h),
+        host_ok=to(host_ok), demand=to(np.zeros(4, np.float32)))
+
+
+def demands(rng) -> np.ndarray:
+    """Pending jobs' demands: 1 to 16 cpus, 1 to 64 GiB, a gpu in 10%."""
+    k = PREEMPT_DEMANDS
+    d = np.zeros((k, 4), np.float32)
+    d[:, 0] = np.floor(rng.uniform(1, 16, k) * 2) / 2
+    d[:, 1] = rng.integers(1024, 65536, k)
+    d[:, 2] = rng.random(k) < 0.1
+    return d
+
+
+def phase_p(rng) -> dict:
+    """The preemption search for 64 demands (``max_preemption``'s
+    default) on the main world, on one with no spare anywhere (every
+    decision preempts) and on that one with eight eligible NaN DRUs, one
+    call a demand, counted and recorded; every decision held bit for bit
+    against the plain version on the card; each recorded K2 launch
+    replayed; calls timed."""
+    from cook_tpu_torch.ops import cuda_lib, telemetry
+    from cook_tpu_torch.ops import rebalance as reb
+    worlds = {"spare": preempt_world(rng),
+              "no_spare": preempt_world(rng, spare=False),
+              # eight eligible NaN DRUs: where one is feasible its NaN
+              # score wins, and NaN > -inf is false: no decision
+              "no_spare_nan": preempt_world(rng, spare=False,
+                                            nan_eligible=8)}
+    dem = torch.from_numpy(demands(rng)).cuda()
+    telemetry.reset_all()
+    got = {}
+    torch.cuda.synchronize()
+    with cuda_lib.recording() as calls:
+        for name, inp in worlds.items():
+            t0 = time.perf_counter()
+            got[name] = [reb.preemption_kernel(inp._replace(demand=d))
+                         for d in dem]
+            torch.cuda.synchronize()
+            got[name + "_ms"] = (time.perf_counter() - t0) * 1e3
+    counts = telemetry.snapshot()
+    if counts.get("scan", 0) != len(worlds) * PREEMPT_DEMANDS:
+        raise AssertionError(f"preemption: {counts.get('scan')} K2 launches "
+                             f"for {len(worlds) * PREEMPT_DEMANDS} calls")
+    out = {"phase": "P", "tasks": PREEMPT_TASKS, "T": 131_072,
+           "hosts": PREEMPT_HOSTS, "R": 4, "demands": PREEMPT_DEMANDS,
+           "launches_per_kernel": {"scan": counts["scan"]}}
+    for name, inp in worlds.items():
+        found = spare_only = victims = 0
+        for d, r in zip(dem, got[name]):
+            want = reb.preemption_plain(inp._replace(demand=d))
+            for f in want._fields:
+                max_err(getattr(r, f), getattr(want, f))
+            found += int(r.found)
+            spare_only += int(r.spare_only)
+            if bool(r.found) and not bool(r.spare_only):
+                victims += int(r.victim_mask.sum())
+        if name != "spare" and spare_only:
+            raise AssertionError("a spare-only decision with no spare")
+        one = inp._replace(demand=dem[0])
+        out[name] = {
+            "found": found, "spare_only": spare_only, "victims": victims,
+            "wall_ms_all_calls": got[name + "_ms"],
+            "ms": cuda_ms(lambda: reb.preemption_kernel(one), 20),
+            "device_ms": device_ms(lambda: reb.preemption_kernel(one), 20),
+            "plain_ms": cuda_ms(lambda: reb.preemption_plain(one), 5)}
+    out["replayed_equal_to_plain"] = replay_all(calls, "preemption")
+    print(json.dumps(out))
+    return counts
 
 
 # ---------------------------------------------------- phase D: top-K kernels
@@ -1953,6 +2585,8 @@ def main() -> int:
     phase_c()
 
     # phase B: the main path, counted
+    snap, scales0 = snapshot(w), dict(scales)
+    rebuild_outs, rebuild_lines = [], []
     telemetry.reset_all()
     cycle_ms, plain_ms, stage_ms, placed, codecs = [], [], [], [], []
     enqueue_ms, span_ms = [], []
@@ -1975,6 +2609,7 @@ def main() -> int:
         t3 = time.perf_counter()
         for name in res._fields:
             max_err(getattr(res, name), getattr(ref, name))
+        rebuild_outs.append(outputs_of(res))
         n = apply(w, res)
         stage_ms.append((t1 - t0) * 1e3)
         cycle_ms.append((t2 - t1) * 1e3)
@@ -1984,13 +2619,15 @@ def main() -> int:
         placed.append(n)
         codecs.append([staged["rows_codec"], str(staged["avail_scale"]),
                        str(staged["cap_scale"])])
-        print(json.dumps({
-            "phase": "B", "cycle": cyc, "stage_ms": stage_ms[-1],
+        rebuild_lines.append({
+            "phase": "B", "sequence": "placement", "mode": "rebuild",
+            "path": "rebuild", "cycle": cyc, "stage_ms": stage_ms[-1],
             "cycle_ms": cycle_ms[-1], "enqueue_ms": enqueue_ms[-1],
             "device_span_ms": span_ms[-1], "plain_cycle_ms": plain_ms[-1],
             "placed": n, "dropped": int(res.cand_dropped.sum()),
             "n_queue": res.n_queue.tolist(), "h2d_bytes": staged["h2d_bytes"],
-            "codecs": codecs[-1], "launches_so_far": launches}))
+            "codecs": codecs[-1], "launches_so_far": launches})
+        print(json.dumps(rebuild_lines[-1]))
     counts = telemetry.snapshot()
     prof = profile_cycles(staged["wire"], megacycle_args(staged))
     busy = prof.pop("busy")
@@ -2014,6 +2651,36 @@ def main() -> int:
         "placed": placed, "launches_per_kernel": counts,
         "shape": {"P": P, "T": w.T, "H": w.H, "C": 1024, "E": E,
                   "live_rows": LIVE, "users": USERS, "hosts": HOSTS}}))
+
+    # phase B, resident: the same cycles through the resident wire, then
+    # churn in both modes, then the staging profile of both modes
+    res_counts, res_events, res_lines, state = phase_b_resident(
+        w, snap, scales0, rebuild_outs, placed)
+    churn_counts, churn_events, churn_lines = phase_b_churn(
+        w, state, np.random.default_rng(SEED + 7))
+    print(json.dumps(staging_profile(w, state,
+                                     np.random.default_rng(SEED + 8))))
+    by_mode = {}
+    for seq, lines in (("placement", rebuild_lines + res_lines),
+                       ("churn", churn_lines)):
+        for mode in ("rebuild", "resident"):
+            ls = [x for x in lines if x["mode"] == mode]
+            by_mode[f"{seq}/{mode}"] = {
+                "stage_ms_median_after_first": statistics.median(
+                    x["stage_ms"] for x in ls[1:]),
+                "h2d_bytes_median_after_first": statistics.median(
+                    x["h2d_bytes"] for x in ls[1:]),
+                "stage_ms": [x["stage_ms"] for x in ls],
+                "h2d_bytes": [x["h2d_bytes"] for x in ls],
+                "paths": [x["path"] for x in ls]}
+    print(json.dumps({"phase": "B", "modes": by_mode,
+                      "resident_events": res_events,
+                      "churn_events": churn_events,
+                      "resident_launches_per_kernel": res_counts,
+                      "churn_launches_per_kernel": churn_counts}))
+    print(json.dumps(phase_mirror(np.random.default_rng(SEED + 9))))
+    rank_counts = phase_r(build_world(np.random.default_rng(SEED)))
+    preempt_counts = phase_p(np.random.default_rng(SEED + 10))
     topk_rows = phase_d()
     split_counts = phase_e()
     print(json.dumps({"phase": "E", "launches_per_kernel": split_counts}))
@@ -2026,6 +2693,11 @@ def main() -> int:
             "source": f"cook_tpu_torch/ops/csrc/{SOURCES[k]}",
             "replaces": "cook_tpu/ops/pallas_cycle.py:137",
             "stage": STAGES[k], "launches": counts[k],
+            "launches_by_path": {
+                "cycle_rebuild": counts[k], "cycle_resident": res_counts[k],
+                "churn_both_modes": churn_counts[k],
+                "split_rank": rank_counts.get(k, 0),
+                "preemption": preempt_counts.get(k, 0)},
             **({"inside": "greedy"} if k == "gang" else {}),
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,

@@ -1,7 +1,9 @@
 """Sequential numpy goldens with the reference scheduler's semantics
 (copied from ``cook_tpu/ops/reference_impl.py``): DRU ranking through
-per-user streams merged by a heap, one-job-at-a-time greedy bin packing,
-and the gang all-or-nothing reduction.  They are structured like the
+per-user streams merged by a heap, the pool-quota filter, one-job-at-a-
+time greedy bin packing, the gang all-or-nothing reduction, the
+preemption decision host by host, and the resident pack's delta
+scatter.  They are structured like the
 reference scheduler rather than like the tensor code, which makes them an
 independent golden for the port's parity tests.  All arithmetic is
 float32.
@@ -10,7 +12,7 @@ float32.
 from __future__ import annotations
 
 import heapq
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -83,6 +85,21 @@ def rank_by_dru(users: List[UserTasks],
         streams.append(stream)
     merged = heapq.merge(*streams)
     return [(task_id, dru) for dru, _ur, _pos, task_id in merged]
+
+
+def filter_pool_quota(job_usage: np.ndarray, base_usage: np.ndarray,
+                      quota: Optional[np.ndarray]) -> np.ndarray:
+    """Pool-quota keep mask over a ranked queue (tools.clj:917-933): the
+    accumulator includes filtered jobs."""
+    n = job_usage.shape[0]
+    keep = np.ones(n, dtype=bool)
+    if quota is None:
+        return keep
+    total = np.asarray(base_usage, dtype=F32).copy()
+    for i in range(n):
+        total = total + job_usage[i]
+        keep[i] = bool(np.all(total <= quota))
+    return keep
 
 
 # --------------------------------------------------------------------------
@@ -166,3 +183,71 @@ def gang_reduce(assign: np.ndarray, gang_id: np.ndarray,
     dropped = matched & ~complete[np.where(member, gang_id, 0)]
     out = np.where(dropped, np.int32(-1), assign)
     return out, dropped
+
+
+# --------------------------------------------------------------------------
+# Preemption decision (reference: rebalancer.clj compute-preemption-decision
+# :320-407)
+# --------------------------------------------------------------------------
+
+def preemption_decision(task_dru: np.ndarray, task_res: np.ndarray,
+                        task_host: np.ndarray, eligible: np.ndarray,
+                        spare: np.ndarray, host_ok: np.ndarray,
+                        demand: np.ndarray
+                        ) -> Optional[Tuple[int, List[int], float]]:
+    """Pick (host, victim task indices, decision dru) maximizing the
+    minimum DRU among preempted tasks; spare-only solutions score +inf.
+    Tasks are scanned per host in descending-DRU order; ties go to the
+    lowest host index."""
+    task_dru = np.asarray(task_dru, dtype=F32)
+    task_res = np.asarray(task_res, dtype=F32)
+    spare = np.asarray(spare, dtype=F32)
+    demand = np.asarray(demand, dtype=F32)
+    H = spare.shape[0]
+    best: Optional[Tuple[float, int, List[int]]] = None
+
+    def consider(score: float, host: int, victims: List[int]):
+        nonlocal best
+        if best is None or score > best[0] or (score == best[0]
+                                               and host < best[1]):
+            best = (score, host, victims)
+
+    for h in range(H):
+        if not host_ok[h]:
+            continue
+        if np.all(spare[h] >= demand):
+            consider(np.inf, h, [])
+            continue
+        idx = [t for t in np.nonzero((task_host == h) & eligible)[0]]
+        idx.sort(key=lambda t: (-task_dru[t], t))
+        freed = spare[h].copy()
+        for k, t in enumerate(idx):
+            freed = freed + task_res[t]
+            if np.all(freed >= demand):
+                consider(float(task_dru[t]), h,
+                         [int(x) for x in idx[:k + 1]])
+                break
+    if best is None:
+        return None
+    score, host, victims = best
+    return host, victims, score
+
+
+# --------------------------------------------------------------------------
+# Resident pack delta scatter (the host golden for ops/delta)
+# --------------------------------------------------------------------------
+
+def apply_pack_delta(rows_buf: np.ndarray, flags_buf: np.ndarray,
+                     idx: np.ndarray, rows_vals: np.ndarray,
+                     flags_vals: np.ndarray):
+    """Scatter the delta batch (flat positions; entries >= the buffer
+    size are padding and dropped) into copies of the resident rows/flags
+    buffers."""
+    n_flat = rows_buf.size
+    keep = np.asarray(idx) < n_flat
+    idx = np.asarray(idx)[keep]
+    rows = np.array(rows_buf, copy=True)
+    flags = np.array(flags_buf, copy=True)
+    rows.reshape(-1)[idx] = np.asarray(rows_vals)[keep]
+    flags.reshape(-1)[idx] = np.asarray(flags_vals)[keep]
+    return rows, flags

@@ -342,6 +342,13 @@ def seg_scan(x, start, mflags=None, mon=0, moff=0):
     return out
 
 
+def seg_scan_columns(x: torch.Tensor, start: torch.Tensor) -> torch.Tensor:
+    """:func:`seg_scan` of one f32 [T, C] series of any C, four columns
+    a launch; ``start`` u8 [1, T]."""
+    return torch.cat([seg_scan(x[None, :, c:c + 4].contiguous(), start)[0]
+                      for c in range(0, x.shape[1], 4)], dim=1)
+
+
 @cuda_lib.stage(KERNEL, _seg_count_plain, (_U8, None, _U8))
 def seg_count(x, bit, start):
     """Segmented inclusive count (i32 [S, T]) of rows with ``x & bit``."""

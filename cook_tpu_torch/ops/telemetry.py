@@ -1,4 +1,4 @@
-"""Per-kernel launch counters.
+"""Per-kernel launch counters, and event counts.
 
 Each CUDA stage wrapper owns one :class:`LaunchCounter` and adds one to
 it where it launches its kernel, and nowhere else: a plain PyTorch run
@@ -22,6 +22,9 @@ class LaunchCounter:
 
 
 COUNTERS: Dict[str, LaunchCounter] = {}
+# Event counts beside the launch counters: resident repacks by reason,
+# delta rows, host-to-device bytes.
+EVENTS: Dict[str, int] = {}
 
 
 def counter(name: str) -> LaunchCounter:
@@ -34,7 +37,16 @@ def counter(name: str) -> LaunchCounter:
 def reset_all() -> None:
     for c in COUNTERS.values():
         c.count = 0
+    EVENTS.clear()
 
 
 def snapshot() -> Dict[str, int]:
     return {name: c.count for name, c in COUNTERS.items()}
+
+
+def count(name: str, n: int = 1) -> None:
+    EVENTS[name] = EVENTS.get(name, 0) + int(n)
+
+
+def events() -> Dict[str, int]:
+    return dict(EVENTS)
