@@ -22,6 +22,12 @@ split ranker (``ops/dru``) and the preemption search
 (``ops/rebalance``), PyTorch code over kernels K2 and K3, at the design
 point.
 
+The production cycle driver (``sched/fused.FusedCycleDriver``) from a
+``Store`` of submitted jobs to launched tasks on a ``FakeCluster``, at
+the JAX package's production-loop world (``bench.py::
+bench_driver_cycle``): one pool, 100,000 jobs from 200 users, 5,000
+hosts, ``Config()`` defaults (resident and quantized wire).
+
   1. prints the card's name and power limit (nvidia-smi);
   2. builds the kernels from ``cook_tpu_torch/ops/csrc`` (nvcc);
   3. phase F: K1, K2, K3, K5 and K5+K6 against their plain versions,
@@ -103,6 +109,28 @@ point.
      NaN DRUs, one call a demand, counted, recorded and replayed, every
      decision bit for bit against the plain version on the card,
      timed;
+  6e. phase S: the driver at ``bench_driver_cycle``'s world, nothing
+     cut (100,000 jobs, seed 5, priority U[0, 100), submit time U[0,
+     10^6), cpus U{1..7}, mem U{64..2047}, users round robin; 5,000
+     hosts of 64 cpus and 65,536 MB; ``Config()``): one warm cycle, one
+     settle cycle, then 5 timed cycles, each topped up with as many
+     fresh jobs as the last launched; each cycle through ``stage``,
+     ``dispatch_group``, ``fetch_group`` and ``apply_group``, and
+     between fetch and apply the same staged wire through
+     ``megacycle_plain`` on the card, all seven outputs equal; after
+     each apply no host oversubscribed (by the store's live
+     instances), every launched job pending at the pack, placements >
+     0; per cycle ``step_ms`` (the four phases, host clock, without the
+     plain check), ``pack_ms``, ``stage_ms``, ``enqueue_ms``,
+     ``fetch_ms``, ``apply_ms``, ``h2d_bytes``, the resident path and
+     its k, placements, and ``status_ms`` (the queued status updates
+     applied after the step, as the bench's status shards take them off
+     the cycle); the launches counted over these cycles; one step under
+     torch.profiler (the card's busy time and idle share); then the
+     split cycle (``Ranker.rank_pool``, ``Matcher.match_pool``) on the
+     same store, counted on its own, each of its launches recorded and
+     replayed against its plain version, and its rank held against
+     ``rank_kernel_compact``'s plain version on the same inputs;
   7. phase D: the two top-K kernels (structured at 100,000 x 50,000,
      E = 256; dense at 10,000 x 50,000), counted, then held against
      their plain versions (fit bit for bit, host where fit > -inf) and
@@ -1836,6 +1864,386 @@ def phase_d():
     return rows
 
 
+# ------------------------------------------------- phase S: the driver
+# bench.py::bench_driver_cycle's world (:805-934, jobs from _driver_jobs
+# :1237-1247), nothing cut: one pool, 100,000 jobs from 200 users, 5,000
+# hosts of 64 cpus and 65,536 MB, Config() defaults
+S_JOBS, S_USERS, S_HOSTS, S_SEED, S_TIMED = 100_000, 200, 5_000, 5, 5
+
+
+class DriverScheduler:
+    """What ``FusedCycleDriver.step`` reads off a scheduler
+    (``cook_tpu/sched/scheduler.py:214-235``, ``:639-651``; the port has
+    no ``Scheduler`` yet): the clusters, the reserved hosts, the
+    breaker-filtered launchable clusters and the offensive-job stifler.
+    Status updates are queued in arrival order and applied to the store
+    by ``flush_status_updates``, after the step: the bench's scheduler
+    takes them off the cycle thread too (``status_queue_shards=4``,
+    ``bench.py:836-837``, flushed after every step)."""
+
+    def __init__(self, store, clusters):
+        self.store = store
+        self.clusters = {}
+        self.reserved_hosts = {}
+        self._status = []
+        for c in clusters:
+            c.initialize(self._on_status)
+            self.clusters[c.name] = c
+
+    def _on_status(self, task_id, status, reason_code, exit_code=None,
+                   preempted=False, hostname=None):
+        self._status.append((task_id, status, reason_code, exit_code,
+                             preempted, hostname))
+
+    def flush_status_updates(self) -> int:
+        """Apply the queued updates in order; returns their count."""
+        queued, self._status = self._status, []
+        for task_id, status, reason, exit_code, preempted, host in queued:
+            self.store.update_instance_status(
+                task_id, status, reason_code=reason, exit_code=exit_code,
+                preempted=preempted, hostname=host)
+        return len(queued)
+
+    def launchable_clusters(self, pool_name):
+        from cook_tpu_torch.utils.retry import breakers
+        return [c for c in self.clusters.values()
+                if c.accepts_pool(pool_name)
+                and breakers.get(c.name).allow()]
+
+    def _stifle_offensive(self, offensive):
+        for job in offensive:
+            self.store.kill_job(job.uuid)
+
+
+def driver_jobs(rng, n, n_users):
+    """``bench.py::_driver_jobs`` with the port's classes: priority from
+    U[0, 100), submit time from U[0, 10^6), cpus from U{1..7}, mem from
+    U{64..2047}, users round robin."""
+    from cook_tpu_torch.state import Job, Resources, new_uuid
+    return [Job(uuid=new_uuid(), user=f"user{i % n_users:04d}", command="x",
+                priority=int(rng.integers(0, 100)),
+                submit_time_ms=int(rng.integers(0, 10**6)),
+                resources=Resources(cpus=float(rng.integers(1, 8)),
+                                    mem=float(rng.integers(64, 2048))))
+            for i in range(n)]
+
+
+def driver_world(device="cuda", n_jobs=S_JOBS, n_users=S_USERS,
+                 hosts=S_HOSTS, seed=S_SEED):
+    from cook_tpu_torch.cluster import FakeCluster, FakeHost
+    from cook_tpu_torch.config import Config
+    from cook_tpu_torch.policy import PluginRegistry, RateLimits
+    from cook_tpu_torch.sched.fused import FusedCycleDriver
+    from cook_tpu_torch.sched.matcher import Matcher
+    from cook_tpu_torch.state import Pool, Resources, Store
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    store = Store()
+    cluster = FakeCluster("fake-1", [
+        FakeHost(f"h{i}", Resources(cpus=64.0, mem=65536.0))
+        for i in range(hosts)])
+    cfg = Config()
+    cfg.pipeline.depth = 0
+    store.put_pool(Pool(name=cfg.default_pool))
+    plugins, limits = PluginRegistry(), RateLimits()
+    sched = DriverScheduler(store, [cluster])
+    matcher = Matcher(store, cfg, plugins=plugins, rate_limits=limits,
+                      device=device)
+    driver = FusedCycleDriver(store, cfg, matcher, plugins, limits,
+                              device=device)
+    jobs = driver_jobs(rng, n_jobs, n_users)
+    for i in range(0, n_jobs, 10_000):
+        store.create_jobs(jobs[i:i + 10_000])
+    store.ensure_index()
+    return SimpleNamespace(store=store, cluster=cluster, cfg=cfg,
+                           sched=sched, matcher=matcher, driver=driver,
+                           rng=rng, n_users=n_users, hosts=hosts,
+                           build_s=time.perf_counter() - t0, counts={})
+
+
+def top_up(s, n):
+    """As the bench does: the jobs the last cycle launched come back as
+    fresh pending jobs, so every cycle schedules at scale."""
+    fresh = driver_jobs(s.rng, n, s.n_users)
+    for i in range(0, n, 10_000):
+        s.store.create_jobs(fresh[i:i + 10_000])
+
+
+def pending_at_pack(sg) -> set:
+    from cook_tpu_torch.ops.delta import FLAG_PENDING
+    out = set()
+    for pp in sg.group:
+        pend = (pp.flags & FLAG_PENDING) != 0
+        out.update(str(u) for u in pp.uuid_base[pp.rows_s[pend]])
+    return out
+
+
+def check_hosts(s) -> int:
+    """No host holds more than its capacity, by the store's live
+    instances; returns the live instance count."""
+    cap = np.array([64.0, 65536.0])
+    used = {}
+    n = 0
+    for job, inst in s.store.running_instances():
+        u = used.setdefault(inst.hostname, np.zeros(2))
+        u += (job.resources.cpus, job.resources.mem)
+        n += 1
+    over = [h for h, u in used.items() if (u > cap).any()]
+    if over:
+        raise AssertionError(f"phase S: hosts oversubscribed: {over[:5]}")
+    return n
+
+
+def driver_cycle(s, kind: str, i: int, check: bool = True) -> dict:
+    """One ``FusedCycleDriver`` step through its four public phases
+    (``stage``, ``dispatch_group``, ``fetch_group``, ``apply_group``),
+    timed on the host clock.  Between fetch and apply the same staged
+    wire runs through ``megacycle_plain`` on the card and all seven
+    outputs must equal the kernels'.  Launch counts are read around
+    dispatch and fetch only.  After the step the queued status updates
+    are applied (``status_ms``, not in ``step_ms``); then: no host
+    oversubscribed, every launched job was pending at the pack,
+    placements > 0."""
+    import gc
+    from cook_tpu_torch.ops import telemetry
+    from cook_tpu_torch.ops.pallas_cycle import megacycle_plain
+    drv = s.driver
+    h2d0 = telemetry.events().get("transfer.h2d", 0)
+    # the scheduler's GC discipline (cook_tpu/sched/scheduler.py:716-754,
+    # maintain_gc :347): no automatic collection inside a cycle; a full
+    # collect and freeze after the first cycle and every 10th, outside
+    # the step
+    gc.disable()
+    t0 = time.perf_counter()
+    staged = drv.stage(s.sched)
+    t1 = time.perf_counter()
+    queues = {p.name: [] for p in staged.pools}
+    results = {}
+    enq = fetch = apply_ms = plain = 0.0
+    paths, ks, group_stage_ms, pend = [], [], 0.0, set()
+    for sg in staged.groups:
+        before = telemetry.snapshot()
+        ta = time.perf_counter()
+        gd = drv.dispatch_group(sg)
+        tb = time.perf_counter()
+        drv.fetch_group(gd)
+        tc = time.perf_counter()
+        after = telemetry.snapshot()
+        for k, v in after.items():
+            s.counts[k] = s.counts.get(k, 0) + v - before.get(k, 0)
+        if check:
+            m = sg.mega
+            ref = megacycle_plain(
+                m["wire"], gpu_mode=sg.gpu_mode,
+                max_over_quota_jobs=s.cfg.max_over_quota_jobs,
+                considerable_cap=min(sg.cap, sg.T),
+                rows_codec=m["rows_codec"], avail_scale=m["avail_scale"],
+                cap_scale=m["cap_scale"])
+            for name in ref._fields:
+                max_err(getattr(gd.res, name), getattr(ref, name))
+        pend |= pending_at_pack(sg)
+        td = time.perf_counter()
+        drv.apply_group(s.sched, gd, queues, results)
+        te = time.perf_counter()
+        enq += (tb - ta) * 1e3
+        fetch += (tc - tb) * 1e3
+        plain += (td - tc) * 1e3
+        apply_ms += (te - td) * 1e3
+        group_stage_ms += sg.stage_ms
+        if sg.sync is not None:
+            paths.append(sg.sync.reason)
+            ks.append(sg.sync.k)
+    gc.enable()
+    if i == 0 or i % 10 == 0:
+        gc.collect()
+        gc.freeze()
+    tf = time.perf_counter()
+    n_status = s.sched.flush_status_updates()
+    status_ms = (time.perf_counter() - tf) * 1e3
+    h2d = telemetry.events().get("transfer.h2d", 0) - h2d0
+    launched = [u for r in results.values() for u in r.launched_job_uuids]
+    if not launched:
+        raise AssertionError(f"phase S {kind} cycle {i}: no placement")
+    stray = [u for u in launched if u not in pend]
+    if stray:
+        raise AssertionError(f"phase S: launched jobs that were not "
+                             f"pending: {stray[:5]}")
+    live = check_hosts(s)
+    step_ms = (t1 - t0) * 1e3 + enq + fetch + apply_ms
+    return {"phase": "S", "kind": kind, "cycle": i, "step_ms": step_ms,
+            "pack_ms": drv.last_pack_ms, "stage_ms": group_stage_ms,
+            "stage_phase_ms": (t1 - t0) * 1e3, "enqueue_ms": enq,
+            "fetch_ms": fetch, "apply_ms": apply_ms,
+            "status_ms": status_ms, "status_updates": n_status,
+            "plain_check_ms": plain if check else None,
+            "outputs_equal_to_plain": check, "h2d_bytes": h2d,
+            "resident_path": paths, "delta_k": ks,
+            "placements": len(launched),
+            "considered": sum(r.considered for r in results.values()),
+            "pending_at_pack": len(pend), "live_instances": live}
+
+
+def profile_step(s, tries: int = 3) -> dict:
+    """The card's busy time in one driver step (torch.profiler's CUDA
+    activity; a trace holding fewer kernels than the stage counters
+    counted is taken again, each try a fresh step), and its share of the
+    step's host wall time."""
+    import gc
+    from torch.profiler import ProfilerActivity, profile
+    from torch.autograd import DeviceType
+    from cook_tpu_torch.ops import telemetry
+    for t in range(tries):
+        top_up(s, 1_000)
+        torch.cuda.synchronize()
+        entries = -sum(v for k, v in telemetry.snapshot().items()
+                       if k != "gang")
+        gc.collect()
+        gc.disable()   # as in driver_cycle
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            _q, results = s.driver.step(s.sched)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        gc.enable()
+        s.sched.flush_status_updates()
+        entries += sum(v for k, v in telemetry.snapshot().items()
+                       if k != "gang")
+        acts = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)]
+        if sum(1 for e in acts if "Memset" not in e.name) >= entries:
+            busy = sum(device_us(e) for e in prof.key_averages()) / 1e3
+            by = {}
+            for e in prof.key_averages():
+                us = device_us(e)
+                if us > 0:
+                    stage = next((k for k, pats in KERNEL_NAMES
+                                  if any(p in e.key for p in pats)), "other")
+                    by[stage] = by.get(stage, 0.0) + us / 1e3
+            return {"busy_ms": busy, "profiled_step_ms": wall,
+                    "idle_share_of_profiled_step": 1.0 - busy / wall,
+                    "device_ms_by_stage": by, "tries": t + 1,
+                    "placements": sum(len(r.launched_task_ids)
+                                      for r in results.values())}
+    return {"busy_ms": "not measured", "tries": tries}
+
+
+def phase_s(device="cuda", **size) -> dict:
+    """The driver at bench_driver_cycle's world: one warm cycle, one
+    settle cycle, then S_TIMED timed cycles, each topped up with as many
+    fresh jobs as the last one launched; launches counted over these
+    cycles (the counts zeroed just before).  Then one profiled step, and
+    the split cycle (``Ranker.rank_pool``, ``Matcher.match_pool``) on
+    the same store, counted on its own; each of its launches is replayed
+    against its plain version, and the rank against
+    ``rank_kernel_compact``'s plain version on the same inputs."""
+    from cook_tpu_torch.ops import cuda_lib, telemetry
+    from cook_tpu_torch.sched import ranker as ranker_mod
+    from cook_tpu_torch.sched.ranker import Ranker
+    s = driver_world(device, **size)
+    print(json.dumps({"phase": "S", "world": {
+        "jobs": len(s.store.pending_jobs("default")), "users": s.n_users,
+        "hosts": s.hosts, "build_s": s.build_s}}))
+    telemetry.reset_all()
+    lines = []
+    line = driver_cycle(s, "warm", 0)
+    lines.append(line)
+    print(json.dumps(line))
+    top_up(s, line["placements"])
+    line = driver_cycle(s, "settle", 1)
+    lines.append(line)
+    print(json.dumps(line))
+    for i in range(S_TIMED):
+        top_up(s, line["placements"])
+        line = driver_cycle(s, "timed", 2 + i)
+        lines.append(line)
+        print(json.dumps(line))
+    counts = dict(s.counts)
+    missing = [k for k in SOURCES if counts.get(k, 0) <= 0]
+    if missing and device == "cuda":
+        raise AssertionError(f"phase S: kernels not launched: {missing}")
+    timed = [x for x in lines if x["kind"] == "timed"]
+    med = {k: statistics.median(x[k] for x in timed)
+           for k in ("step_ms", "pack_ms", "stage_ms", "stage_phase_ms",
+                     "enqueue_ms", "fetch_ms", "apply_ms", "status_ms",
+                     "h2d_bytes")}
+    # the status updates' share of a cycle's host time, had they been
+    # applied on the cycle thread as the launches arrive
+    med["status_share"] = statistics.median(
+        x["status_ms"] / (x["step_ms"] + x["status_ms"]) for x in timed)
+    prof = profile_step(s) if device == "cuda" else {}
+    if isinstance(prof.get("busy_ms"), float):
+        prof["idle_share_of_median_step"] = \
+            1.0 - prof["busy_ms"] / med["step_ms"]
+    telemetry.reset_all()
+    ranker = Ranker(s.store, s.cfg, device=device)
+    real, ranked = ranker_mod.rank_kernel_compact, []
+
+    def rank_spy(inp, **kw):
+        # the ranker's CompactRankInputs and result, for the plain check
+        got = real(inp, **kw)
+        ranked.append((inp, kw, got))
+        return got
+
+    ranker_mod.rank_kernel_compact = rank_spy
+    try:
+        with cuda_lib.recording() as calls:
+            t0 = time.perf_counter()
+            queue = ranker.rank_pool("default")
+            t1 = time.perf_counter()
+            offers = s.cluster.pending_offers("default")
+            split = s.matcher.match_pool("default", queue, offers,
+                                         s.sched.clusters,
+                                         s.sched.reserved_hosts)
+            t2 = time.perf_counter()
+    finally:
+        ranker_mod.rank_kernel_compact = real
+    split_counts = telemetry.snapshot()
+    s.sched.flush_status_updates()
+    if not split.launched_job_uuids:
+        raise AssertionError("phase S: the split cycle placed nothing")
+    check_hosts(s)
+    held, rank_err = {}, None
+    if device == "cuda":
+        held = replay_all(calls, "phase S split cycle")
+        rank_err = split_rank_check(ranked)
+    out = {"phase": "S", "timed_cycles": len(timed),
+           "median_timed": med,
+           "placements": [x["placements"] for x in lines],
+           "resident_paths": [x["resident_path"] for x in lines],
+           "launches_per_kernel": counts, "profile": prof,
+           "split_cycle": {"rank_ms": (t1 - t0) * 1e3,
+                           "match_ms": (t2 - t1) * 1e3,
+                           "queue": len(queue),
+                           "considered": split.considered,
+                           "placements": len(split.launched_job_uuids),
+                           "launches_per_kernel": split_counts,
+                           "replayed_equal_to_plain": held,
+                           "rank_max_abs_err_against_plain": rank_err}}
+    print(json.dumps(out))
+    return {"driver": counts, "split": split_counts}
+
+
+def split_rank_check(ranked) -> float:
+    """The split cycle's rank against ``rank_kernel_compact``'s plain
+    version on the same ``CompactRankInputs``: the wire expanded on the
+    CPU (the wrappers' plain versions), then ``rank_body`` on the card;
+    every output equal.  Returns the max abs err."""
+    from cook_tpu_torch.ops import dru
+    if len(ranked) != 1:
+        raise AssertionError(f"phase S: {len(ranked)} compact ranks, not 1")
+    inp, kw, got = ranked[0]
+    wide = dru.expand_compact_rank(dru.CompactRankInputs(
+        *(t.cpu() for t in inp)))
+    order, num, dru_v, keep, _ = dru.rank_body(
+        *(t.cuda() for t in wide), kw["gpu_mode"],
+        kw["max_over_quota_jobs"])
+    want = dru.RankResult(order=order,
+                          dru=torch.where(keep, dru_v, float("inf")),
+                          keep=keep, num_ranked=num)
+    return max(max_err(getattr(got, name), getattr(want, name))
+               for name in want._fields)
+
+
 # ---------------------------------------------- phase E: the split matcher
 FULL_WORLDS = (
     # (name, J, H, seed, packing): bench_match, bench_match_large,
@@ -2679,6 +3087,7 @@ def main() -> int:
                       "resident_launches_per_kernel": res_counts,
                       "churn_launches_per_kernel": churn_counts}))
     print(json.dumps(phase_mirror(np.random.default_rng(SEED + 9))))
+    driver_counts = phase_s()
     rank_counts = phase_r(build_world(np.random.default_rng(SEED)))
     preempt_counts = phase_p(np.random.default_rng(SEED + 10))
     topk_rows = phase_d()
@@ -2697,7 +3106,9 @@ def main() -> int:
                 "cycle_rebuild": counts[k], "cycle_resident": res_counts[k],
                 "churn_both_modes": churn_counts[k],
                 "split_rank": rank_counts.get(k, 0),
-                "preemption": preempt_counts.get(k, 0)},
+                "preemption": preempt_counts.get(k, 0),
+                "driver": driver_counts["driver"][k],
+                "driver_split_cycle": driver_counts["split"].get(k, 0)},
             **({"inside": "greedy"} if k == "gang" else {}),
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,

@@ -77,6 +77,40 @@ def pack_diff(rows_old: np.ndarray, rows_new: np.ndarray,
     return np.flatnonzero((ro != rn) | (fo != fn)).astype(np.int32)
 
 
+
+def order_merge(kb: np.ndarray, st: np.ndarray, uid: np.ndarray,
+                rows: np.ndarray, del_pos: np.ndarray, ins_pos: np.ndarray,
+                akb: Optional[np.ndarray], ast: Optional[np.ndarray],
+                auid: Optional[np.ndarray], arows: Optional[np.ndarray],
+                ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """The columnar index's order-cache repair (``cook_tpu/native/
+    pack.py:97-115``, its numpy branch): sorted deletes (positions into
+    the original arrays), then inserts with ``np.insert`` semantics
+    against the post-delete arrays, over the four parallel arrays."""
+    if len(del_pos):
+        kb = np.delete(kb, del_pos)
+        st = np.delete(st, del_pos)
+        uid = np.delete(uid, del_pos)
+        rows = np.delete(rows, del_pos)
+    if akb is not None and len(ins_pos):
+        kb = np.insert(kb, ins_pos, akb)
+        st = np.insert(st, ins_pos, ast)
+        uid = np.insert(uid, ins_pos, auid)
+        rows = np.insert(rows, ins_pos, arows)
+    return kb, st, uid, rows
+
+
+def prune_rows(rows: np.ndarray, drop_pos: np.ndarray) -> np.ndarray:
+    """``rows`` (i32) minus the entries at ``drop_pos`` (sorted unique
+    positions): the published queue's prune of launched candidates
+    (``cook_tpu/native/pack.py:153``, its numpy branch)."""
+    rows = np.ascontiguousarray(rows, dtype=np.int32)
+    if not len(drop_pos):
+        return rows
+    keep = np.ones(len(rows), dtype=bool)
+    keep[np.asarray(drop_pos, dtype=np.int64)] = False
+    return rows[keep]
+
 def _host(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     """``a`` as a host tensor a copy to ``dev`` may read: a fresh pinned
     buffer for the card, ``a`` itself for the CPU."""
@@ -170,7 +204,7 @@ class PackDeltaApplier:
         blob[:4 * kb].view(np.int32)[:] = idx_p
         blob[4 * kb:(4 + vb) * kb].view(dt)[:k] = vals.astype(dt)
         blob[(4 + vb) * kb:][:k] = flags_vals
-        telemetry.count("transfer.h2d", blob.nbytes)
+        telemetry.count_transfer("h2d", blob.nbytes)
         on = upload(blob, self.device)
         return StagedDelta(tuple(shape), kb, codec,
                            on[:4 * kb].view(torch.int32),
@@ -251,7 +285,7 @@ class DeviceBaseMirror:
                 chunk[:k] = res_base[self._n:n]
                 dchunk = np.zeros(kb, dtype=np.float32)
                 dchunk[:k] = disk_base[self._n:n]
-                telemetry.count("transfer.h2d", chunk.nbytes + dchunk.nbytes)
+                telemetry.count_transfer("h2d", chunk.nbytes + dchunk.nbytes)
                 self._res.narrow(0, self._n, kb).copy_(
                     _host(chunk, self.device), non_blocking=True)
                 self._disk.narrow(0, self._n, kb).copy_(
@@ -264,7 +298,7 @@ class DeviceBaseMirror:
             res_p[:n] = res_base
             disk_p = np.zeros(cap, dtype=np.float32)
             disk_p[:n] = disk_base
-            telemetry.count("transfer.h2d", res_p.nbytes + disk_p.nbytes)
+            telemetry.count_transfer("h2d", res_p.nbytes + disk_p.nbytes)
             self._res = upload(res_p, self.device)
             self._disk = upload(disk_p, self.device)
             self._key, self._n, self._cap = compactions, n, cap

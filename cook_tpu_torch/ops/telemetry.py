@@ -1,13 +1,28 @@
-"""Per-kernel launch counters, and event counts.
+"""Per-kernel launch counters, event counts, and the dispatch paths'
+transfer and sync-wait accounting.
 
 Each CUDA stage wrapper owns one :class:`LaunchCounter` and adds one to
 it where it launches its kernel, and nowhere else: a plain PyTorch run
 on the CPU counts nothing.  ``chip_smoke.py`` zeroes every counter, runs
-the cycle, and reads them to show the cycle went through the kernels."""
+the cycle, and reads them to show the cycle went through the kernels.
+
+:func:`count_transfer`, :func:`sync_wait` and :func:`profile_upload` are
+the port of ``cook_tpu/ops/telemetry.py``'s (:94-133): they feed the
+metrics registry and the active cycle's flight record, and the first
+also counts ``transfer.<direction>`` here.  The reference's
+``instrument_jit`` counts JIT recompiles; the port compiles nothing per
+shape, so it has no counterpart."""
 
 from __future__ import annotations
 
+import os
+import sys
+import time
+from contextlib import contextmanager
 from typing import Dict
+
+from ..utils.flight import recorder
+from ..utils.metrics import registry
 
 
 class LaunchCounter:
@@ -50,3 +65,43 @@ def count(name: str, n: int = 1) -> None:
 
 def events() -> Dict[str, int]:
     return dict(EVENTS)
+
+
+def count_transfer(direction: str, nbytes: int) -> None:
+    """Record ``nbytes`` crossing the host<->device boundary (direction
+    ``h2d`` or ``d2h``)."""
+    if nbytes:
+        registry.counter_inc("cook_device_transfer_bytes", float(nbytes),
+                             {"direction": direction})
+        recorder.note_transfer(direction, nbytes)
+        count(f"transfer.{direction}", nbytes)
+
+
+@contextmanager
+def sync_wait(kind: str = "fetch"):
+    """Time a block that waits on the device: observed on
+    ``cook_sync_wait_seconds{kind=}`` and summed into the cycle record's
+    sync_wait_ms."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        dt = time.perf_counter() - t0
+        registry.observe("cook_sync_wait_seconds", dt, {"kind": kind})
+        recorder.note_sync_wait(dt)
+
+
+def profile_upload(stage_ms: float, tensors) -> None:
+    """``COOK_PROFILE_UPLOAD=1`` debug probe of the dispatch path: wait
+    for the staged inputs to land on the device and print the stage and
+    upload times."""
+    if not os.environ.get("COOK_PROFILE_UPLOAD"):
+        return
+    import torch
+    t0 = time.perf_counter()
+    if any(t.is_cuda for t in tensors):
+        torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    print(f"[profile] stage={stage_ms}ms upload="
+          f"{(time.perf_counter() - t0) * 1e3:.0f}ms "
+          f"({nbytes / 1e6:.1f}MB)", file=sys.stderr)
