@@ -28,6 +28,11 @@ the JAX package's production-loop world (``bench.py::
 bench_driver_cycle``): one pool, 100,000 jobs from 200 users, 5,000
 hosts, ``Config()`` defaults (resident and quantized wire).
 
+The scheduler (``sched/scheduler.Scheduler``): ``step_cycle`` through
+the synchronous and the pipelined driver (``sched/pipeline``, depth 2,
+the default) at ``bench.py::bench_pipeline_driver``'s world, and
+``step_rebalance`` (``sched/rebalancer``) on a full cluster.
+
   1. prints the card's name and power limit (nvidia-smi);
   2. builds the kernels from ``cook_tpu_torch/ops/csrc`` (nvcc);
   3. phase F: K1, K2, K3, K5 and K5+K6 against their plain versions,
@@ -131,6 +136,40 @@ hosts, ``Config()`` defaults (resident and quantized wire).
      same store, counted on its own, each of its launches recorded and
      replayed against its plain version, and its rank held against
      ``rank_kernel_compact``'s plain version on the same inputs;
+  6f. phase Q: ``Scheduler.step_cycle`` at ``bench_pipeline_driver``'s
+     world, nothing cut (100,000 jobs from ``_driver_jobs``, seed 13;
+     5,000 hosts of 64 cpus and 65,536 MB; ``Config()``;
+     ``status_queue_shards=4``): a depth-0 leg and a depth-2 leg, each
+     from a fresh store, one warm step, one settle step, then 8 timed
+     steps, each topped up with as many jobs as the last launched, the
+     status updates flushed and the published queue touched after each
+     (its ``queue.rows`` wait read); p50 and p99, launches, conflicts,
+     sync waits by site, the pack / stage / apply split, the launch
+     counts of each leg, and one more step under cProfile (the main
+     thread's largest own times); both legs again without status
+     shards, in turns; after every step no host oversubscribed and no
+     job with two live instances; on each shard leg's store three steps
+     whose every dispatched wire is cloned and run through
+     ``megacycle_plain`` on the card after its fetch (all seven outputs
+     equal); then on the depth-2 store the lazy queue fetch behind a 50 ms sleep kernel on the current stream
+     (its wait against a current-stream copy's), one profiled depth-2
+     step (busy time, idle share, the next cycle's kernels against the
+     host apply's window); and a reduced world (10,000 jobs, 500 hosts)
+     4 steps at depth 0 and 4 at depth 2 on the card and with
+     ``device="cpu"``, the same (job uuid, hostname) pairs every step;
+  6g. phase V: ``step_rebalance`` on a full cluster (5,000 hosts, 200
+     users of 100 jobs of 16 cpus and 16,384 MB filled by
+     ``step_cycle`` until a step launches nothing; then 1,000 jobs of a
+     new user, one ``step_rank`` and one ``step_match``, counted, every
+     launch replayed against its plain version and the rank held
+     against ``rank_kernel_compact``'s plain version),
+     ``RebalancerConfig`` defaults: the ``backend="cpu"`` rebalancer's decisions first (its ``_execute`` a
+     no-op), the host's ms by part of a dry device run (cProfile), then
+     the timed ``step_rebalance`` with every K2 launch recorded and
+     replayed and every search's inputs held against
+     ``preemption_plain`` on the card; the decisions equal to the cpu
+     backend's, the victims FAILED and preempted, every beneficiary
+     launched by the next ``step_cycle``;
   7. phase D: the two top-K kernels (structured at 100,000 x 50,000,
      E = 256; dense at 10,000 x 50,000), counted, then held against
      their plain versions (fit bit for bit, host where fit > -inf) and
@@ -150,7 +189,10 @@ hosts, ``Config()`` defaults (resident and quantized wire).
      reduced split world, on the card and on the CPU, equal bit for
      bit;
   9. prints the card line again, the ``{"kernels": [...]}`` line (each
-     stage kernel's launches on every path in ``launches_by_path``)
+     stage kernel's launches on every path in ``launches_by_path``,
+     phase Q's legs as ``scheduler_sync`` and ``scheduler_pipelined``,
+     phase V's ``step_rank`` and ``step_match`` as ``scheduler_split``
+     and its ``step_rebalance`` as ``rebalancer``)
      and last ``{"ok": true, "device": {...}}``.
 
 Usage: ``python3 chip_smoke.py`` from the root of a checkout (needs one
@@ -1873,8 +1915,9 @@ S_JOBS, S_USERS, S_HOSTS, S_SEED, S_TIMED = 100_000, 200, 5_000, 5, 5
 
 class DriverScheduler:
     """What ``FusedCycleDriver.step`` reads off a scheduler
-    (``cook_tpu/sched/scheduler.py:214-235``, ``:639-651``; the port has
-    no ``Scheduler`` yet): the clusters, the reserved hosts, the
+    (``cook_tpu/sched/scheduler.py:214-235``, ``:639-651``; phase S
+    drives the driver's four phases alone, phase Q the port's
+    ``Scheduler``): the clusters, the reserved hosts, the
     breaker-filtered launchable clusters and the offensive-job stifler.
     Status updates are queued in arrival order and applied to the store
     by ``flush_status_updates``, after the step: the bench's scheduler
@@ -2223,14 +2266,14 @@ def phase_s(device="cuda", **size) -> dict:
     return {"driver": counts, "split": split_counts}
 
 
-def split_rank_check(ranked) -> float:
+def split_rank_check(ranked, what: str = "phase S") -> float:
     """The split cycle's rank against ``rank_kernel_compact``'s plain
     version on the same ``CompactRankInputs``: the wire expanded on the
     CPU (the wrappers' plain versions), then ``rank_body`` on the card;
     every output equal.  Returns the max abs err."""
     from cook_tpu_torch.ops import dru
     if len(ranked) != 1:
-        raise AssertionError(f"phase S: {len(ranked)} compact ranks, not 1")
+        raise AssertionError(f"{what}: {len(ranked)} compact ranks, not 1")
     inp, kw, got = ranked[0]
     wide = dru.expand_compact_rank(dru.CompactRankInputs(
         *(t.cpu() for t in inp)))
@@ -2242,6 +2285,685 @@ def split_rank_check(ranked) -> float:
                           keep=keep, num_ranked=num)
     return max(max_err(getattr(got, name), getattr(want, name))
                for name in want._fields)
+
+
+# ------------------------------------------------ phase Q: the Scheduler
+# bench.py::bench_pipeline_driver's world (:1250-1352), nothing cut: one
+# pool, 100,000 jobs from 200 users (_driver_jobs, seed 13), 5,000 hosts
+# of 64 cpus and 65,536 MB, Config() defaults, status_queue_shards=4; a
+# depth-0 leg and a depth-2 leg, each from a fresh store
+Q_JOBS, Q_USERS, Q_HOSTS, Q_SEED, Q_TIMED, Q_CHECKED = \
+    100_000, 200, 5_000, 13, 8, 3
+Q_SMALL = {"n_jobs": 10_000, "hosts": 500}   # the card-against-CPU world
+Q_SMALL_STEPS = 4
+
+
+def counted_uuids(seed):
+    """Canonical lowercase uuids from a counter: equal on every run, so
+    two runs of one world rank and tie-break alike."""
+    n = [0]
+
+    def make():
+        n[0] += 1
+        return f"{seed:08x}-0000-4000-8000-{n[0]:012x}"
+    return make
+
+
+def sched_world(device="cuda", depth=2, n_jobs=Q_JOBS, n_users=Q_USERS,
+                hosts=Q_HOSTS, seed=Q_SEED, counted=False, shards=4):
+    """The port's ``Scheduler`` over a fresh store, built as the bench
+    builds it (the scheduler first, then the jobs in chunks)."""
+    from cook_tpu_torch.cluster import FakeCluster, FakeHost
+    from cook_tpu_torch.config import Config
+    from cook_tpu_torch.sched import Scheduler
+    from cook_tpu_torch.state import Resources, Store
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    store = Store()
+    cluster = FakeCluster(f"fake-d{depth}", [
+        FakeHost(f"h{i}", Resources(cpus=64.0, mem=65536.0))
+        for i in range(hosts)])
+    cfg = Config()
+    cfg.pipeline.depth = depth
+    sched = Scheduler(store, cfg, [cluster], rank_backend="tpu",
+                      status_queue_shards=shards, device=device)
+    s = SimpleNamespace(store=store, cluster=cluster, cfg=cfg, sched=sched,
+                        rng=rng, n_users=n_users, hosts=hosts,
+                        uuid=counted_uuids(seed) if counted else None)
+    q_top_up(s, n_jobs)
+    store.ensure_index()
+    s.build_s = time.perf_counter() - t0
+    return s
+
+
+def q_top_up(s, n):
+    fresh = driver_jobs(s.rng, n, s.n_users)
+    if s.uuid is not None:
+        for j in fresh:
+            j.uuid = s.uuid()
+    for i in range(0, n, 10_000):
+        s.store.create_jobs(fresh[i:i + 10_000])
+
+
+def check_live(s, what: str) -> int:
+    """No host over capacity and no job with two live instances, by the
+    store's live instances; returns their count."""
+    cap = np.array([64.0, 65536.0])
+    used, per_job = {}, {}
+    live = s.store.running_instances()
+    for job, inst in live:
+        u = used.setdefault(inst.hostname, np.zeros(2))
+        u += (job.resources.cpus, job.resources.mem)
+        per_job[job.uuid] = per_job.get(job.uuid, 0) + 1
+    over = [h for h, u in used.items() if (u > cap).any()]
+    if over:
+        raise AssertionError(f"{what}: hosts oversubscribed: {over[:5]}")
+    twice = [u for u, n in per_job.items() if n > 1]
+    if twice:
+        raise AssertionError(f"{what}: jobs with two live instances: "
+                             f"{twice[:5]}")
+    return len(live)
+
+
+def sync_waits() -> dict:
+    """Seconds waited on the card so far, by site
+    (``cook_sync_wait_seconds{kind}``)."""
+    from cook_tpu_torch.utils.metrics import registry
+    out = {}
+    for (name, labels), h in list(registry._histograms.items()):
+        if name == "cook_sync_wait_seconds":
+            out[dict(labels).get("kind", "")] = h["sum"]
+    return out
+
+
+def waits_since(before: dict) -> dict:
+    now = sync_waits()
+    return {k: (v - before.get(k, 0.0)) * 1e3 for k, v in now.items()
+            if v - before.get(k, 0.0) > 0}
+
+
+def launched_pairs(s, results) -> list:
+    out = []
+    for r in results.values():
+        for tid in r.launched_task_ids:
+            inst = s.store.instance(tid)
+            out.append((inst.job_uuid, inst.hostname))
+    return sorted(out)
+
+
+def touch_queue(s) -> int:
+    """A queue consumer (the rebalancer, a /queue page): the published
+    queue's uuids, which fetch its rows from the card."""
+    q = s.sched.pending_queues.get("default")
+    return 0 if q is None else len(q.uuids)
+
+
+def q_step(s, what, i):
+    """One timed ``step_cycle``; then the status updates flushed, the
+    queue touched and the store checked (outside the timed step)."""
+    from cook_tpu_torch.utils.flight import recorder
+    t0 = time.perf_counter()
+    results = s.sched.step_cycle()
+    ms = (time.perf_counter() - t0) * 1e3
+    rec = recorder.recent(1)[0]
+    w0 = sync_waits()
+    t1 = time.perf_counter()
+    s.sched.flush_status_updates()
+    t2 = time.perf_counter()
+    queued = touch_queue(s)
+    touch_ms = (time.perf_counter() - t2) * 1e3
+    waits = waits_since(w0)
+    live = check_live(s, f"phase Q {what} step {i}")
+    n = sum(len(r.launched_task_ids) for r in results.values())
+    return {"step": i, "step_ms": ms, "launched": n,
+            "detail_ms": rec["detail_ms"], "phases_ms": rec["phases_ms"],
+            "status_ms": (t2 - t1) * 1e3, "queue_touch_ms": touch_ms,
+            "queue_rows_wait_ms": waits.get("queue.rows", 0.0),
+            "queued": queued, "live": live}
+
+
+def own_time_step(s, top: int = 12) -> dict:
+    """One more step under cProfile: its wall ms and the main thread's
+    ``top`` largest own times (ms, file:line:function), which show where
+    the step waits while the status shards' threads apply updates."""
+    q_top_up(s, 1_000)
+    prof = cProfile.Profile()
+    prof.enable()
+    t0 = time.perf_counter()
+    s.sched.step_cycle()
+    ms = (time.perf_counter() - t0) * 1e3
+    prof.disable()
+    s.sched.flush_status_updates()
+    own = sorted(((v[2] * 1e3, f"{Path(k[0]).name}:{k[1]}:{k[2]}")
+                  for k, v in pstats.Stats(prof).stats.items()),
+                 reverse=True)[:top]
+    return {"step_ms": ms, "top_own_ms": own}
+
+
+def q_leg(depth, device="cuda", timed=Q_TIMED, shards=4, **size) -> dict:
+    """One leg of bench_pipeline_driver: a warm step, a settle step, then
+    ``timed`` steps, each topped up with as many jobs as the last one
+    launched; the launch counts zeroed before the warm step and read
+    after the last.  Then one step under cProfile (``own_time_step``)."""
+    from cook_tpu_torch.ops import telemetry
+    from cook_tpu_torch.utils.flight import recorder
+    s = sched_world(device, depth, shards=shards, **size)
+    telemetry.reset_all()
+    waits0 = sync_waits()
+    seq0 = recorder.last_seq()
+    lines = [q_step(s, f"d{depth} warm", 0)]
+    top_up_n = lines[-1]["launched"]
+    q_top_up(s, top_up_n)
+    lines.append(q_step(s, f"d{depth} settle", 1))
+    for i in range(timed):
+        q_top_up(s, lines[-1]["launched"])
+        lines.append(q_step(s, f"d{depth}", 2 + i))
+    counts = telemetry.snapshot()
+    flight = recorder.summary(since_seq=seq0)
+    steps = [x["step_ms"] for x in lines[2:]]
+    drv = s.sched._pipeline
+    launched = sum(x["launched"] for x in lines)
+    leg = {"phase": "Q", "depth": depth, "status_queue_shards": shards,
+           "world": {
+               "jobs": size.get("n_jobs", Q_JOBS), "hosts": s.hosts,
+               "users": s.n_users, "build_s": s.build_s},
+           "p50_ms": float(np.percentile(steps, 50)),
+           "p99_ms": float(np.percentile(steps, 99)),
+           "step_ms": steps, "launched": launched,
+           "launched_per_step": [x["launched"] for x in lines],
+           "status_ms_median": statistics.median(
+               x["status_ms"] for x in lines[2:]),
+           "detail_ms_median": {k: statistics.median(
+               x["detail_ms"].get(k, 0.0) for x in lines[2:])
+               for k in ("pack", "stage", "apply")},
+           "phases_ms_median": {k: statistics.median(
+               x["phases_ms"].get(k, 0.0) for x in lines[2:])
+               for k in lines[-1]["phases_ms"]},
+           "sync_wait_ms_by_site": waits_since(waits0),
+           "flight_sync_wait_ms": flight.get("sync_wait_ms"),
+           "queue_rows_wait_ms": [x["queue_rows_wait_ms"] for x in lines],
+           "queue_touch_ms": [x["queue_touch_ms"] for x in lines],
+           "launches_per_kernel": counts}
+    if drv is not None:
+        conflicts = drv.conflicts_state + drv.conflicts_resources
+        leg.update({"conflicts_state": drv.conflicts_state,
+                    "conflicts_resources": drv.conflicts_resources,
+                    "conflict_rate": conflicts / max(launched, 1)})
+    missing = [k for k in SOURCES if counts.get(k, 0) <= 0]
+    if missing and device == "cuda":
+        raise AssertionError(f"phase Q depth {depth}: kernels not "
+                             f"launched: {missing}")
+    leg["profiled_step"] = own_time_step(s)
+    s.leg = leg
+    return s
+
+
+def q_checked_steps(s, steps=Q_CHECKED) -> dict:
+    """Steps whose every dispatched wire is cloned at dispatch (at depth
+    2 the next stage scatters into the resident buffers) and, after that
+    group's fetch, run through ``megacycle_plain`` on the card: all
+    seven outputs must equal the kernels'."""
+    from cook_tpu_torch.ops.pallas_cycle import MegaCycleWire, \
+        megacycle_plain
+    drv = s.sched._fused
+    real_dispatch, real_fetch = drv.dispatch_group, drv.fetch_group
+    clones, held = {}, []
+
+    def dispatch(sg):
+        wire = MegaCycleWire(*(t.clone() for t in sg.mega["wire"]))
+        gd = real_dispatch(sg)
+        clones[id(gd)] = wire
+        return gd
+
+    def fetch(gd):
+        out = real_fetch(gd)
+        wire = clones.pop(id(gd), None)
+        if wire is not None:
+            sg, m = gd.sg, gd.sg.mega
+            ref = megacycle_plain(
+                wire, gpu_mode=sg.gpu_mode,
+                max_over_quota_jobs=s.cfg.max_over_quota_jobs,
+                considerable_cap=min(sg.cap, sg.T),
+                rows_codec=m["rows_codec"], avail_scale=m["avail_scale"],
+                cap_scale=m["cap_scale"])
+            for name in ref._fields:
+                max_err(getattr(gd.res, name), getattr(ref, name))
+            held.append(len(ref._fields))
+        return out
+
+    drv.dispatch_group, drv.fetch_group = dispatch, fetch
+    try:
+        n = 0
+        for i in range(steps):
+            q_top_up(s, 1_000)
+            n += sum(len(r.launched_task_ids)
+                     for r in s.sched.step_cycle().values())
+            s.sched.flush_status_updates()
+            check_live(s, f"phase Q checked step {i}")
+        # at depth 2 the last step's dispatch is still in flight: fetch
+        # it now (the pipeline's own fetch; the next step finds it
+        # fetched)
+        pipe = s.sched._pipeline
+        for entry in list(pipe._inflight if pipe is not None else ()):
+            pipe._fetch(entry)
+    finally:
+        drv.dispatch_group, drv.fetch_group = real_dispatch, real_fetch
+    if len(held) < steps:
+        raise AssertionError(f"phase Q: {len(held)} dispatches checked "
+                             f"in {steps} steps")
+    return {"dispatches_equal_to_plain": len(held),
+            "outputs_each": held[0], "launched": n}
+
+
+def q_queue_fetch_check(s) -> dict:
+    """The lazy queue fetch waits on its own cycle only: with a long
+    sleep kernel enqueued on the current stream behind the cycle, the
+    published queue's rows still arrive at once, where a copy on the
+    current stream waits the sleep out."""
+    from cook_tpu_torch.ops import telemetry
+    q_top_up(s, 1_000)
+    s.sched.step_cycle()
+    s.sched.flush_status_updates()
+    q = s.sched.pending_queues["default"]
+    torch.cuda.synchronize()
+    cycles = 100_000_000   # about 50 ms of the card's clock
+    torch.cuda._sleep(cycles)
+    w0 = sync_waits()
+    t0 = time.perf_counter()
+    n = len(q.uuids)
+    touch_ms = (time.perf_counter() - t0) * 1e3
+    side_ms = waits_since(w0).get("queue.rows", 0.0)
+    torch.cuda.synchronize()
+    probe = torch.zeros(n, dtype=torch.int32, device="cuda")
+    torch.cuda._sleep(cycles)
+    t1 = time.perf_counter()
+    probe.cpu()
+    same_ms = (time.perf_counter() - t1) * 1e3
+    torch.cuda.synchronize()
+    if not side_ms < same_ms / 2:
+        raise AssertionError(f"phase Q: the queue fetch waited "
+                             f"{side_ms} ms behind a {same_ms} ms sleep")
+    telemetry.count("queue.fetch_checked")
+    return {"queue_rows": n, "rows_wait_ms_behind_sleep": side_ms,
+            "touch_ms_behind_sleep": touch_ms,
+            "current_stream_copy_ms_behind_sleep": same_ms}
+
+
+def profile_pipelined_step(s, tries: int = 3) -> dict:
+    """One depth-2 step under torch.profiler (CPU and CUDA activity):
+    the card's busy time and idle share of the step, and whether the
+    next cycle's kernels ran inside the host apply's window (device
+    timestamps against the ``pipeline.apply`` range)."""
+    import gc
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    drv = s.sched._pipeline
+    real_apply = drv._apply
+
+    def apply(scheduler, entry):
+        with record_function("pipeline.apply"):
+            return real_apply(scheduler, entry)
+
+    drv._apply = apply
+    try:
+        for t in range(tries):
+            q_top_up(s, 1_000)
+            torch.cuda.synchronize()
+            gc.collect()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                s.sched.step_cycle()
+                wall = (time.perf_counter() - t0) * 1e3
+                torch.cuda.synchronize()
+            s.sched.flush_status_updates()
+            evs = prof.events()
+            kern = [e for e in evs if e.device_type == DeviceType.CUDA
+                    and not getattr(e, "is_user_annotation", False)]
+            applies = [e for e in evs if e.name == "pipeline.apply"
+                       and e.device_type == DeviceType.CPU]
+            if not kern or not applies:
+                continue
+            a0 = min(e.time_range.start for e in applies)
+            a1 = max(e.time_range.end for e in applies)
+            inside = [e for e in kern if a0 <= e.time_range.start <= a1]
+            before = [e for e in kern if e.time_range.start < a0]
+            busy = sum(device_us(e) for e in prof.key_averages()) / 1e3
+            return {"profiled_step_ms": wall, "busy_ms": busy,
+                    "idle_share_of_profiled_step": 1.0 - busy / wall,
+                    "device_activities": len(kern),
+                    "apply_window_ms": (a1 - a0) / 1e3,
+                    "activities_before_apply": len(before),
+                    "activities_inside_apply": len(inside),
+                    "device_ms_inside_apply": sum(
+                        (e.time_range.end - e.time_range.start)
+                        for e in inside) / 1e3,
+                    "last_activity_end_after_apply_start_ms": (max(
+                        e.time_range.end for e in kern) - a0) / 1e3,
+                    "tries": t + 1}
+    finally:
+        drv._apply = real_apply
+    return {"busy_ms": "not measured", "tries": tries}
+
+
+def q_card_against_cpu() -> dict:
+    """The reduced world (10,000 jobs, 500 hosts, seed 13, uuids from a
+    counter) 4 steps at depth 0 and 4 at depth 2, on the card and with
+    ``device="cpu"``: every step launches the same pairs on both."""
+    out = {}
+    for depth in (0, 2):
+        runs = {}
+        for device in ("cuda", "cpu"):
+            s = sched_world(device, depth, counted=True, **Q_SMALL)
+            steps = []
+            for i in range(Q_SMALL_STEPS):
+                res = s.sched.step_cycle()
+                s.sched.flush_status_updates()
+                check_live(s, f"phase Q small d{depth} {device}")
+                steps.append(launched_pairs(s, res))
+                q_top_up(s, len(steps[-1]))
+            runs[device] = steps
+        for i, (a, b) in enumerate(zip(runs["cuda"], runs["cpu"])):
+            if a != b:
+                raise AssertionError(f"phase Q small world depth {depth} "
+                                     f"step {i}: card and CPU launched "
+                                     f"different pairs")
+        out[f"depth{depth}"] = [len(x) for x in runs["cuda"]]
+    return out
+
+
+def phase_q() -> dict:
+    """The Scheduler's production loop at bench_pipeline_driver's world:
+    the depth-0 leg, then the depth-2 leg (the default), each counted
+    on its own; on the depth-2 leg's store the checked steps, the
+    queue-fetch check and a profiled step; then four legs without
+    status shards (the updates applied on the cycle thread as they
+    arrive), in turns (depth 0, 2, 2, 0), to read the depths apart from
+    the shards' cost; then the reduced world on card and CPU.  Each
+    leg's world is dropped before the next is built."""
+    import gc
+    counts, checks = {}, {"phase": "Q"}
+    for depth in (0, 2):
+        s = q_leg(depth)
+        print(json.dumps(s.leg))
+        counts[depth] = s.leg["launches_per_kernel"]
+        checks[f"checked_depth{depth}"] = q_checked_steps(s)
+        if depth == 2:
+            checks["queue_fetch"] = q_queue_fetch_check(s)
+            checks["profile_depth2"] = profile_pipelined_step(s)
+        s.sched.shutdown()
+        del s
+        gc.collect()
+    turns = {0: [], 2: []}
+    for depth in (0, 2, 2, 0):
+        s = q_leg(depth, shards=None)
+        print(json.dumps(s.leg))
+        turns[depth].append(s.leg["p50_ms"])
+        s.sched.shutdown()
+        del s
+        gc.collect()
+    checks["no_shards_p50_ms_in_turns"] = turns
+    checks["card_against_cpu_launched"] = q_card_against_cpu()
+    print(json.dumps(checks))
+    return {"sync": counts[0], "pipelined": counts[2]}
+
+
+# --------------------------------------------- phase V: step_rebalance
+# tests/test_rebalance.py:155-176 ("alice fills the cluster; bob's job
+# waits") at deployment size on phase S's hosts, RebalancerConfig
+# defaults (safe_dru_threshold 1.0, min_dru_diff 0.5, max_preemption 64)
+V_USERS, V_JOBS_EACH, V_NEW = 200, 100, 1_000
+V_CPUS, V_MEM = 16.0, 16_384.0
+
+
+def v_world(device="cuda", hosts=S_HOSTS, users=V_USERS,
+            each=V_JOBS_EACH, new=V_NEW):
+    """The full cluster: ``users`` users (share 64 cpus, 65,536 MB) with
+    ``each`` jobs of 16 cpus and 16,384 MB, ``step_cycle`` until a step
+    launches nothing; then a new user's ``new`` such jobs and one
+    ``step_rank``."""
+    from cook_tpu_torch.state import Job, Resources
+    s = sched_world(device, 2, n_jobs=0, hosts=hosts, seed=S_SEED,
+                    counted=True)
+    s.users, s.each = users, each
+    store = s.store
+    jobs = []
+    for u in range(users):
+        user = f"user{u:04d}"
+        store.set_share(user, "default", {"cpus": 64.0, "mem": 65536.0})
+        jobs += [Job(uuid=s.uuid(), user=user, command="x",
+                     priority=50, submit_time_ms=1000 + len(jobs),
+                     resources=Resources(cpus=V_CPUS, mem=V_MEM))
+                 for _ in range(each)]
+    for i in range(0, len(jobs), 10_000):
+        store.create_jobs(jobs[i:i + 10_000])
+    t0 = time.perf_counter()
+    fill, steps = 0, 0
+    while True:
+        res = s.sched.step_cycle()
+        s.sched.flush_status_updates()
+        steps += 1
+        n = sum(len(r.launched_task_ids) for r in res.values())
+        fill += n
+        if n == 0 or steps > 4 * users:
+            break
+    s.fill = {"steps": steps, "launched": fill,
+              "running": check_live(s, "phase V fill"),
+              "fill_s": time.perf_counter() - t0}
+    store.set_share("newcomer", "default", {"cpus": 64.0, "mem": 65536.0})
+    s.newcomer = [Job(uuid=s.uuid(), user="newcomer", command="x",
+                      priority=50, submit_time_ms=10**6 + i,
+                      resources=Resources(cpus=V_CPUS, mem=V_MEM))
+                  for i in range(new)]
+    store.create_jobs(s.newcomer)
+    v_split(s, device)
+    return s
+
+
+def v_split(s, device) -> None:
+    """One ``step_rank`` and one ``step_match`` on the full cluster,
+    counted on their own.  On the card every launch is recorded and
+    replayed against its plain version, and the rank held against
+    ``rank_kernel_compact``'s plain version on the same inputs, before
+    anything else runs."""
+    from cook_tpu_torch.ops import cuda_lib, telemetry
+    from cook_tpu_torch.sched import ranker as ranker_mod
+    real, s.ranked = ranker_mod.rank_kernel_compact, []
+
+    def rank_spy(inp, **kw):
+        got = real(inp, **kw)
+        s.ranked.append((inp, kw, got))
+        return got
+
+    ranker_mod.rank_kernel_compact = rank_spy
+    telemetry.reset_all()
+    try:
+        with cuda_lib.recording() as s.split_calls:
+            t0 = time.perf_counter()
+            s.sched.step_rank()
+            t1 = time.perf_counter()
+            match = s.sched.step_match("default")["default"]
+            t2 = time.perf_counter()
+    finally:
+        ranker_mod.rank_kernel_compact = real
+    s.split_counts = telemetry.snapshot()
+    s.sched.flush_status_updates()
+    s.rank_ms, s.match_ms = (t1 - t0) * 1e3, (t2 - t1) * 1e3
+    s.match = {"considered": match.considered,
+               "placements": len(match.launched_job_uuids),
+               "running": check_live(s, "phase V step_match")}
+    s.split_checks = {}
+    if device == "cuda":
+        s.split_checks = {
+            "replayed_equal_to_plain": replay_all(
+                s.split_calls, "phase V step_rank/step_match"),
+            "rank_max_abs_err_against_plain": split_rank_check(
+                s.ranked, "phase V")}
+
+
+def decision_key(store, d) -> tuple:
+    return (d.job_uuid, d.hostname,
+            tuple(store.instance(t).job_uuid for t in d.victim_task_ids),
+            d.dru)
+
+
+def v_host_parts(s) -> dict:
+    """The host's ms by part of one dry ``rebalance_pool`` (cProfile;
+    ``_execute`` a no-op): the state build, ``_decide``'s array builds,
+    the kernel calls."""
+    from cook_tpu_torch.sched.rebalancer import Rebalancer
+    rb = Rebalancer(s.store, s.cfg, backend="tpu", device="cuda")
+    rb.elastic = s.sched.rebalancer.elastic
+    rb._execute = lambda decisions, clusters: None
+    pool = s.store.pools()[0]
+    prof = cProfile.Profile()
+    prof.enable()
+    rb.rebalance_pool(pool.name, pool.dru_mode,
+                      s.sched.pending_queues[pool.name], s.sched.clusters)
+    prof.disable()
+    st = pstats.Stats(prof)
+    parts = {}
+    for (path, _line, fn), (_cc, _nc, tt, ct, _callers) in st.stats.items():
+        if fn in ("__init__",) and path.endswith("rebalancer.py"):
+            parts["_State"] = parts.get("_State", 0.0) + ct * 1e3
+        elif fn in ("_decide", "preemption_kernel", "read_decision",
+                    "build_constraint_mask", "pending_job_dru",
+                    "job_below_quota", "all_tasks", "apply_decision",
+                    "rebalance_pool"):
+            parts[fn] = parts.get(fn, 0.0) + ct * 1e3
+    if "_decide" in parts:
+        parts["decide_host_arrays"] = parts["_decide"] - sum(
+            parts.get(k, 0.0) for k in ("preemption_kernel",
+                                        "read_decision",
+                                        "build_constraint_mask"))
+    return parts
+
+
+def phase_v(device="cuda", **size) -> dict:
+    """``step_rebalance`` at full cluster: the ``backend="cpu"``
+    rebalancer first (its ``_execute`` a no-op here), then the host
+    parts of a dry device run, then the timed ``step_rebalance`` with
+    every preemption call's inputs and result recorded; each call held
+    against ``preemption_plain`` on the card bit for bit, each K2 launch
+    replayed; the decisions equal to the cpu backend's; the victims
+    FAILED and preempted; after one more ``step_cycle`` every
+    beneficiary launched (a multi-victim one on its reserved host)."""
+    from cook_tpu_torch.ops import cuda_lib, telemetry
+    from cook_tpu_torch.ops import rebalance as reb
+    from cook_tpu_torch.sched.rebalancer import Rebalancer
+    s = v_world(device, **size)
+    store, sched = s.store, s.sched
+    pool = store.pools()[0]
+    queue = sched.pending_queues[pool.name]
+    cpu = Rebalancer(store, s.cfg, backend="cpu", device=device)
+    cpu.elastic = sched.rebalancer.elastic
+    cpu._execute = lambda decisions, clusters: None
+    t0 = time.perf_counter()
+    want = cpu.rebalance_pool(pool.name, pool.dru_mode, queue,
+                              sched.clusters)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    want = [decision_key(store, d) for d in want]
+    parts = v_host_parts(s) if device == "cuda" else {}
+    real = reb.preemption_kernel
+    searched = []
+
+    def spy(inp, device="cuda"):
+        out = real(inp, device=device)
+        searched.append((inp, out))
+        return out
+
+    real_execute = sched.rebalancer._execute
+    execute_ms = []
+
+    def execute(decisions, clusters):
+        t = time.perf_counter()
+        real_execute(decisions, clusters)
+        execute_ms.append((time.perf_counter() - t) * 1e3)
+
+    reb.preemption_kernel = spy
+    sched.rebalancer._execute = execute
+    telemetry.reset_all()
+    try:
+        with cuda_lib.recording() as calls:
+            t0 = time.perf_counter()
+            decisions = sched.step_rebalance()
+            ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        reb.preemption_kernel = real
+        sched.rebalancer._execute = real_execute
+    counts = telemetry.snapshot()
+    got = decisions.get(pool.name, [])
+    keys = [decision_key(store, d) for d in got]
+    if keys != want:
+        raise AssertionError(f"phase V: {len(keys)} decisions differ from "
+                             f"the cpu backend's {len(want)}")
+    if not got:
+        raise AssertionError("phase V: no preemption decided")
+    if device == "cuda":
+        missing = [k for k in ("scan", "sort", "greedy")
+                   if s.split_counts.get(k, 0) <= 0]
+        if missing:
+            raise AssertionError(f"phase V: step_rank/step_match launched "
+                                 f"no {missing}")
+        if counts.get("scan", 0) != len(searched):
+            raise AssertionError(f"phase V: {counts.get('scan')} K2 "
+                                 f"launches for {len(searched)} searches")
+        for inp, out in searched:
+            plain = reb.preemption_plain(inp)
+            for f in plain._fields:
+                max_err(getattr(out, f), getattr(plain, f))
+    victims = [t for d in got for t in d.victim_task_ids]
+    for t in victims:
+        inst = store.instance(t)
+        if inst.status.value != "failed" or not inst.preempted:
+            raise AssertionError(f"phase V: victim {t} is {inst.status} "
+                                 f"preempted={inst.preempted}")
+    sched.flush_status_updates()
+    res = sched.step_cycle()
+    sched.flush_status_updates()
+    check_live(s, "phase V after")
+    placed = {}
+    for r in res.values():
+        for tid in r.launched_task_ids:
+            inst = store.instance(tid)
+            placed[inst.job_uuid] = inst.hostname
+    missing = [d.job_uuid for d in got if d.job_uuid not in placed]
+    if missing:
+        raise AssertionError(f"phase V: {len(missing)} beneficiaries did "
+                             f"not launch")
+    moved = [d.job_uuid for d in got if len(d.victim_task_ids) > 1
+             and placed[d.job_uuid] != d.hostname]
+    if moved:
+        raise AssertionError(f"phase V: reserved beneficiaries launched "
+                             f"elsewhere: {moved[:5]}")
+    out = {"phase": "V", "world": {"hosts": s.hosts, "users": s.users,
+                                   "jobs_each": s.each,
+                                   "newcomer_jobs": len(s.newcomer),
+                                   "build_s": s.build_s, **s.fill},
+           "step_rank_ms": s.rank_ms, "step_match_ms": s.match_ms,
+           "step_match": s.match, "split_checks": s.split_checks,
+           "split_launches_per_kernel": s.split_counts,
+           "step_rebalance_ms": ms, "cpu_backend_ms": cpu_ms,
+           "decisions": len(got), "victims": len(victims),
+           "victims_per_decision": sorted(
+               {len(d.victim_task_ids) for d in got}),
+           "decisions_equal_to_cpu_backend": len(want),
+           "preemption_calls": len(searched),
+           "execute_ms": execute_ms, "host_ms_by_part": parts,
+           "beneficiaries_launched": len(got),
+           "launches_per_kernel": counts}
+    if device == "cuda" and searched:
+        one = searched[0][0]
+        out["T"], out["H"] = int(one.task_dru.shape[0]), \
+            int(one.spare.shape[0])
+        out["kernel_ms_a_call"] = cuda_ms(lambda: real(one), 20)
+        out["kernel_device_ms_a_call"] = device_ms(lambda: real(one), 20)
+        out["plain_ms_a_call"] = cuda_ms(
+            lambda: reb.preemption_plain(one), 5)
+        out["replayed_equal_to_plain"] = replay_all(calls, "phase V")
+    print(json.dumps(out))
+    sched.shutdown()
+    return {"rebalancer": counts, "split": s.split_counts}
 
 
 # ---------------------------------------------- phase E: the split matcher
@@ -3088,6 +3810,8 @@ def main() -> int:
                       "churn_launches_per_kernel": churn_counts}))
     print(json.dumps(phase_mirror(np.random.default_rng(SEED + 9))))
     driver_counts = phase_s()
+    sched_counts = phase_q()
+    rebalance_counts = phase_v()
     rank_counts = phase_r(build_world(np.random.default_rng(SEED)))
     preempt_counts = phase_p(np.random.default_rng(SEED + 10))
     topk_rows = phase_d()
@@ -3108,7 +3832,11 @@ def main() -> int:
                 "split_rank": rank_counts.get(k, 0),
                 "preemption": preempt_counts.get(k, 0),
                 "driver": driver_counts["driver"][k],
-                "driver_split_cycle": driver_counts["split"].get(k, 0)},
+                "driver_split_cycle": driver_counts["split"].get(k, 0),
+                "scheduler_sync": sched_counts["sync"].get(k, 0),
+                "scheduler_pipelined": sched_counts["pipelined"].get(k, 0),
+                "scheduler_split": rebalance_counts["split"].get(k, 0),
+                "rebalancer": rebalance_counts["rebalancer"].get(k, 0)},
             **({"inside": "greedy"} if k == "gang" else {}),
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,

@@ -242,6 +242,7 @@ def apply_gang_cycle(jobs, assign: np.ndarray, offers,
                      avail: Optional[np.ndarray] = None,
                      capacity: Optional[np.ndarray] = None,
                      device=False,
+                     refill_ok: Optional[np.ndarray] = None,
                      audit_trail=None,
                      audit_pool: Optional[str] = None,
                      satisfied=None,
@@ -258,7 +259,9 @@ def apply_gang_cycle(jobs, assign: np.ndarray, offers,
     (``reference_impl.gang_reduce``); otherwise the device
     :func:`gang_reduce_kernel` runs on (a failure there raises: there is
     no host fallback).  ``precomputed``: the fused cycle's (out, dropped)
-    from K6, aligned with ``jobs``, used in place of the reduction."""
+    from K6, aligned with ``jobs``, used in place of the reduction.
+    ``refill_ok``: a veto over the refill pass's rows (the pipelined
+    driver's resource conflicts)."""
     pack = build_gang_pack(jobs, groups, offers, satisfied=satisfied)
     if pack is None:
         return assign, None
@@ -362,6 +365,11 @@ def apply_gang_cycle(jobs, assign: np.ndarray, offers,
                                     or bool(satisfied
                                             and j.group in satisfied)
                                     for j in jobs], dtype=bool))
+            if refill_ok is not None:
+                # the caller vetoes rows whose unmatched state is not a
+                # plain capacity miss (the pipeline's resource conflicts,
+                # whose staged availability is known to be stale)
+                eligible &= np.asarray(refill_ok, dtype=bool)
             idx = np.flatnonzero(eligible)
             if idx.size:
                 if cmask is None:

@@ -34,10 +34,19 @@ The wire staging as functions:
 * host_gpu / host_blocked: bitpacked, 8 hosts a byte;
 * gang arrays padded across the group (no-op rows for gang-free pools).
 
-Every codec is lossless or wide.  Not ported: the driver's ``warmup``,
-the entity pack of ``columnar_index=False`` (it raises), the mesh, the
-pipelined driver, and every fallback: a failed launch, scatter or mirror
-sync raises, and no fault repacks the resident wire.
+Every codec is lossless or wide.  ``stage``'s ``exclude`` /
+``avail_delta`` / ``token_delta`` and ``apply_group``'s ``reconciler``
+are the pipelined driver's hooks (``sched/pipeline.py``).  Not ported:
+the driver's ``warmup``, the entity pack of ``columnar_index=False`` (it
+raises), the mesh, and every fallback: a failed launch, scatter or
+mirror sync raises, and no fault repacks the resident wire.
+
+Streams: every upload, resident scatter, dispatch and output copy is
+enqueued on the current stream, in program order, so the next cycle's
+``stage`` scattering into the resident rows/flags can never overtake a
+dispatched cycle still reading them.  The only other stream is the lazy
+queue fetch's (:meth:`FusedCycleDriver._apply_pool`), which waits on its
+own cycle's event and reads only that cycle's outputs.
 """
 
 from __future__ import annotations
@@ -52,8 +61,8 @@ from .. import resolve_device
 from ..cluster.base import Offer
 from ..config import Config
 from ..ops import pallas_cycle, quant, telemetry
-from ..ops.delta import (DeviceBaseMirror, PackDeltaApplier, pack_diff,
-                         resident_buffer)
+from ..ops.delta import (FLAG_LAUNCH_OK, DeviceBaseMirror,
+                         PackDeltaApplier, pack_diff, resident_buffer)
 from ..ops.gang import GangWire
 from ..ops.padding import bucket
 from ..ops.pallas_cycle import megacycle
@@ -340,6 +349,11 @@ class _PackedPool:
         self.ctx = None
         self.arrays: Dict[str, np.ndarray] = {}
         self.avail = None
+        # overdraft-adjusted availability (pipelined driver only): set by
+        # the reconciler when an overlapped cycle consumed capacity this
+        # pack's staged avail never saw; the gang rescue/refill places
+        # against it instead of avail
+        self.avail_headroom: Optional[np.ndarray] = None  # f32[H, 4]
         self.capacity = None
         self.enqueue_ok = None
         self.launch_ok = None
@@ -422,6 +436,29 @@ _FETCHED = ("cand_row", "cand_assign", "cand_qpos", "n_queue", "cand_gang",
             "cand_dropped")
 
 
+def fetch_rows(dev_rows: torch.Tensor, n: int, done,
+               stream: Optional["torch.cuda.Stream"]) -> np.ndarray:
+    """The first ``n`` rows of a cycle's queue output on the host.  On a
+    card the copy runs on ``stream``, a side stream that waits on
+    ``done`` (the event recorded after that cycle's outputs), into
+    pinned memory: it never waits for a later cycle the pipelined driver
+    has enqueued on the current stream behind this one.  ``dev_rows``
+    stays referenced by the caller until the copy has ended."""
+    if not dev_rows.is_cuda:
+        return dev_rows[:n].numpy()
+    if done is None:
+        raise RuntimeError("queue rows on the card without their cycle's "
+                           "event: the copy would not wait for them")
+    host = torch.empty(n, dtype=dev_rows.dtype, pin_memory=True)
+    with torch.cuda.stream(stream):
+        stream.wait_event(done)
+        host.copy_(dev_rows[:n], non_blocking=True)
+        copied = torch.cuda.Event()
+        copied.record(stream)
+    copied.synchronize()
+    return host.numpy()
+
+
 class FusedCycleDriver:
     """The production cycle over every active non-direct pool: pack off
     the store's columnar index, stage the compact wire (resident and
@@ -465,8 +502,20 @@ class FusedCycleDriver:
         self._mega_scales: Dict[str, tuple] = {}
         # host ms of the last stage's pack (the "pack" phase detail)
         self.last_pack_ms = 0.0
+        # the side stream the lazy queue fetches copy on (a card only)
+        self._queue_stream = None
 
     # ------------------------------------------------------- resident pack
+    def reset_resident(self) -> None:
+        """Drop all device-resident state — the rows/flags pack, the
+        quiet-pool cache and the res/disk base mirror — so the next stage
+        rebuilds from scratch (a failed cycle, leader handoff, tests).
+        Safe at any time: residency mirrors what the next full pack
+        builds."""
+        self._resident.clear()
+        self._pack_cache.clear()
+        self._mirror = DeviceBaseMirror(self.device)
+
     def _sync_resident(self, gpu_mode: bool, key: Tuple, rows_p: np.ndarray,
                        flags_p: np.ndarray, epoch: int) -> ResidentSync:
         """Bring the resident [P, T] rows/flags buffers up to the staged
@@ -489,8 +538,8 @@ class FusedCycleDriver:
         return rs
 
     # ------------------------------------------------------------------ pack
-    def _pack_pool_columnar(self, scheduler, pool: Pool
-                            ) -> Optional[_PackedPool]:
+    def _pack_pool_columnar(self, scheduler, pool: Pool, exclude=None,
+                            token_delta=None) -> Optional[_PackedPool]:
         """Pack one pool's cycle inputs straight off the columnar index
         (state/index.py): no entity materialization for the plain-job
         majority — entities are fetched only for rows the vectorized path
@@ -519,7 +568,9 @@ class FusedCycleDriver:
                 and delta.version == cached["version"]
                 and not self.plugins.launch_filters
                 and not self._resv_owner_in_pack(idx, resv, cached)):
-            return self._pack_pool_cached(scheduler, pool, cached, resv)
+            return self._pack_pool_cached(scheduler, pool, cached, resv,
+                                          exclude=exclude,
+                                          token_delta=token_delta)
         self._pack_cache.pop(pool.name, None)
         snap = idx.fused_arrays(pool.name, owner_uuids=list(resv),
                                 compact=True)
@@ -646,11 +697,29 @@ class FusedCycleDriver:
                     store.audit,
                     {"launch-filtered": list(uuid_at(filtered))},
                     pool=pool.name)
+        # pipelined-driver speculation mask (sched/pipeline.py): rows the
+        # in-flight overlapped cycle is about to launch are withheld from
+        # THIS cycle's launch candidates (they'd conflict at reconcile).
+        # Row ids are only valid within one index compaction epoch; on a
+        # mismatch the mask is skipped and reconciliation catches the
+        # conflicts instead (rare: compaction between two packs).
+        spec_masked = None
+        if exclude is not None:
+            epoch, rows = exclude
+            if epoch == snap.compactions and len(rows):
+                masked = pend & np.isin(rows_s, rows)
+                if masked.any():
+                    launch_ok = launch_ok & ~masked
+                    spec_masked = masked
+                    _audit.note_skips(
+                        store.audit,
+                        {"pipeline-speculative": list(uuid_at(masked))},
+                        pool=pool.name)
         pp.launch_ok = launch_ok
 
         # launch-rate token budgets per USER (device gathers via user_rank)
         launch_rl = self.rate_limits.job_launch
-        pp.tokens_u = self._tokens_u(pool, users)
+        pp.tokens_u = self._tokens_u(pool, users, token_delta)
 
         # gang-cohort admission: every gang member is a complex row, so
         # the materialized exception jobs carry the full cohorts
@@ -666,7 +735,8 @@ class FusedCycleDriver:
             pool, pp.ctx.groups if pp.ctx is not None else {},
             gang_members, launch_ok,
             (lambda u: tok_by_user.get(u, 0.0))
-            if launch_rl.enforce else None)
+            if launch_rl.enforce else None,
+            spec_masked=spec_masked)
         if gang_members:
             # the gang wire: the same membership the host pass would
             # derive from the candidates, staged before the dispatch so
@@ -698,9 +768,15 @@ class FusedCycleDriver:
         # pending set is re-checked against the live map on every reuse
         if (not self.plugins.launch_filters and not pp.offensive
                 and not (pend & complex_rows).any()):
+            flags0 = pp.flags
+            if spec_masked is not None and spec_masked.any():
+                # cache the PRE-speculation flags: the in-flight footprint
+                # changes every cycle and is re-patched by the fast path
+                flags0 = flags0.copy()
+                flags0[spec_masked] |= np.uint8(FLAG_LAUNCH_OK)
             self._pack_cache[pool.name] = {
                 "epoch": snap.compactions, "version": delta.version,
-                "rows_s": rows_s, "pend": pend, "flags0": pp.flags,
+                "rows_s": rows_s, "pend": pend, "flags0": flags0,
                 "users": users, "uuid_base": uuid_base,
                 "user_base": snap.user_base, "res_base": snap.res_base,
                 "disk_base": snap.disk_base}
@@ -759,16 +835,23 @@ class FusedCycleDriver:
         from .ranker import build_user_tables
         return build_user_tables(self.store, pool.name, users)
 
-    def _tokens_u(self, pool: Pool, users: List[str]) -> np.ndarray:
-        """Per-user launch-rate token budgets (shared by both pack
-        paths)."""
+    def _tokens_u(self, pool: Pool, users: List[str],
+                  token_delta=None) -> np.ndarray:
+        """Per-user launch-rate token budgets, net of the pipelined
+        driver's in-flight spends (shared by both pack paths)."""
         launch_rl = self.rate_limits.job_launch
         if not launch_rl.enforce:
             return np.full(max(len(users), 1), INF, dtype=F32)
         from ..policy import pool_user_key
-        return np.array(
+        tokens = np.array(
             [launch_rl.get_token_count(pool_user_key(pool.name, u))
              for u in users], dtype=F32)
+        if token_delta:
+            # tokens an overlapped in-flight cycle will spend at its
+            # apply (the limiter hasn't seen the spends yet)
+            tokens = np.maximum(tokens - np.array(
+                [token_delta.get(u, 0.0) for u in users], dtype=F32), 0.0)
+        return tokens
 
     def _resv_owner_in_pack(self, idx, resv: Dict, c: Dict) -> bool:
         """True when a reservation OWNER is one of the cached pack's
@@ -784,13 +867,16 @@ class FusedCycleDriver:
         return bool(np.isin(owner_rows, c["rows_s"][c["pend"]]).any())
 
     def _pack_pool_cached(self, scheduler, pool: Pool, c: Dict,
-                          resv: Dict) -> _PackedPool:
+                          resv: Dict, exclude=None,
+                          token_delta=None) -> _PackedPool:
         """Quiet-pool fast path: the index's delta feed reported zero
         churn since this pool's last pack, so the [T]-sized pack products
         (sorted rows, admission flags) are reused WHOLESALE — no index
         snapshot, no order repair, no flags rebuild, no O(T) host work.
-        Only the per-user tables, offers, reserved-host blocks and caps
-        are rebuilt per cycle.
+        Only the per-user tables, offers, reserved-host blocks, caps,
+        and the pipelined driver's speculative mask are rebuilt per
+        cycle; the mask is a bit-patch over the cached flags, which the
+        resident pack then ships as a scatter delta.
 
         Eligibility was checked by the caller + at cache time: no
         reservation OWNERS pending in this pool, no launch filters, and
@@ -828,18 +914,34 @@ class FusedCycleDriver:
             pp.ctx = ctx
 
         pp.enqueue_ok = np.ones(T, dtype=bool)
-        pp.launch_ok = np.ones(T, dtype=bool)
-        pp.tokens_u = self._tokens_u(pool, users)
+        launch_ok = np.ones(T, dtype=bool)
+        flags = c["flags0"]
+        if exclude is not None:
+            epoch, rows = exclude
+            if epoch == c["epoch"] and len(rows):
+                masked = pend & np.isin(rows_s, rows)
+                if masked.any():
+                    launch_ok = launch_ok & ~masked
+                    flags = flags.copy()
+                    flags[masked] &= np.uint8(~np.uint8(FLAG_LAUNCH_OK))
+                    _audit.note_skips(
+                        self.store.audit,
+                        {"pipeline-speculative":
+                             list(pp.uuid_base[rows_s[masked]])},
+                        pool=pool.name)
+        pp.launch_ok = launch_ok
+        pp.tokens_u = self._tokens_u(pool, users, token_delta)
         # no gang members by eligibility, but a gang that admitted last
         # cycle must still shed its stale deferral reason
         self.matcher.last_admission_deferred[pool.name] = {}
-        pp.flags = c["flags0"]
+        pp.flags = flags
         self._pack_caps(pp, pool)
         return pp
 
     def _gang_cohort_admission(self, pool: Pool, groups_ctx: Dict,
                                members_by_gang: Dict,
-                               launch_ok: np.ndarray, net_tokens) -> set:
+                               launch_ok: np.ndarray, net_tokens,
+                               spec_masked=None) -> set:
         """Host-side gang-cohort admission for the fused pack paths
         (mirrors Matcher.considerable_jobs, docs/GANG.md): a gang that
         cannot clear this cycle's throttles WHOLE is withheld whole by
@@ -855,7 +957,9 @@ class FusedCycleDriver:
 
         ``members_by_gang``: group uuid -> [(task_row, job)] for the
         pack's pending gang members; ``net_tokens``: user -> launch
-        tokens, or None when the limiter is off.  Returns the pack-time SATISFIED elastic-gang
+        tokens net of the pipeline's token_delta, or None when the
+        limiter is off; ``spec_masked``: the pipeline's speculative
+        in-flight rows.  Returns the pack-time SATISFIED elastic-gang
         set (the megakernel gang wire excludes those gangs exactly like
         the host reduction does)."""
         deferred_why: Dict[str, Dict] = {}
@@ -940,6 +1044,26 @@ class FusedCycleDriver:
                     reason = "considerable-cap"
                 elif sum(1 for row, _j in members
                          if launch_ok[row]) < size:
+                    if spec_masked is not None and all(
+                            launch_ok[row] or spec_masked[row]
+                            for row, _j in members):
+                        # every withheld member is the pipeline's
+                        # speculative in-flight footprint: the gang is
+                        # mid-launch in the overlapped cycle, not
+                        # filter/quota-denied — withhold the rest whole
+                        # with no deferral reason (reconcile re-surfaces
+                        # the gang if the overlapped launch conflicts)
+                        extra = []
+                        for row, j in members:
+                            if launch_ok[row]:
+                                launch_ok[row] = False
+                                extra.append(j.uuid)
+                        if extra:
+                            _audit.note_skips(
+                                self.store.audit,
+                                {"pipeline-speculative": extra},
+                                pool=pool.name)
+                        continue
                     reason = "member-denied"
                 elif net_tokens is not None \
                         and net_tokens(members[0][1].user) < size:
@@ -975,18 +1099,39 @@ class FusedCycleDriver:
         if gq is not None:
             pp.group_quota = _pool_quota_vec(gq)
 
-    def _pack_pool(self, scheduler, pool: Pool) -> Optional[_PackedPool]:
+    def _pack_pool(self, scheduler, pool: Pool, exclude=None,
+                   token_delta=None) -> Optional[_PackedPool]:
         if not self.config.columnar_index:
             raise NotImplementedError(
                 "the entity pack (columnar_index=False) is not ported: "
                 "see ROADMAP.md, queue 1, 'the entity pack'")
-        return self._pack_pool_columnar(scheduler, pool)
+        return self._pack_pool_columnar(scheduler, pool, exclude=exclude,
+                                        token_delta=token_delta)
 
     # ------------------------------------------------------------------ step
-    def stage(self, scheduler) -> "_StagedCycle":
+    def stage(self, scheduler, exclude=None, avail_delta=None,
+              token_delta=None) -> "_StagedCycle":
         """Phase 1 of a cycle: host-side staging.  Packs every active
         non-direct pool off the store and stages each DRU-mode group's
-        wire (resident rows/flags synced, the rest uploaded)."""
+        wire (resident rows/flags synced, the rest uploaded).
+
+        The optional arguments are the pipelined driver's optimistic-
+        concurrency hooks (sched/pipeline.py, Omega-style):
+
+        - ``exclude``: pool name -> (index compaction epoch, task rows) —
+          launch candidates a fetched-but-not-yet-applied overlapped cycle is
+          about to consume; they are withheld from this cycle's
+          launch_ok so back-to-back cycles don't fight over the head of
+          the queue.
+        - ``avail_delta``: (cluster, hostname) -> f32[4] — the resources
+          those candidates will consume, subtracted from the staged offer
+          availability so this cycle's speculative placements stay
+          feasible even though the store doesn't show the launches yet.
+        - ``token_delta``: pool name -> user -> launch-rate tokens those
+          candidates will spend, subtracted from the staged per-user
+          token budgets.
+
+        All are None on the sync path."""
         from ..utils.faults import injector as _faults
         _faults.fire("fused.dispatch")
 
@@ -994,10 +1139,14 @@ class FusedCycleDriver:
                  if p.state == "active"
                  and p.scheduler is not SchedulerKind.DIRECT]
         packed: List[_PackedPool] = []
+        excl = exclude or {}
+        tokd = token_delta or {}
         pack_t0 = time.perf_counter()
         with tracing.span("cycle.rank"), tracing.span("fused.pack"):
             for pool in pools:
-                pp = self._pack_pool(scheduler, pool)
+                pp = self._pack_pool(scheduler, pool,
+                                     exclude=excl.get(pool.name),
+                                     token_delta=tokd.get(pool.name))
                 if pp is not None:
                     packed.append(pp)
             # the packs must share ONE index compaction epoch (the base
@@ -1009,13 +1158,22 @@ class FusedCycleDriver:
                 refreshed = []
                 for pp in packed:
                     if pp.base_compactions != latest:
-                        pp = self._pack_pool(scheduler, pp.pool)
+                        pp = self._pack_pool(
+                            scheduler, pp.pool,
+                            exclude=excl.get(pp.pool.name),
+                            token_delta=tokd.get(pp.pool.name))
                         if pp is None or pp.base_compactions != latest:
                             continue
                     refreshed.append(pp)
                 packed = refreshed
         self.last_pack_ms = (time.perf_counter() - pack_t0) * 1000.0
         _flight.note_phase_detail("pack", self.last_pack_ms)
+        if avail_delta:
+            for pp in packed:
+                for h, o in enumerate(pp.offers):
+                    d = avail_delta.get((o.cluster, o.hostname))
+                    if d is not None:
+                        pp.avail[h] = np.maximum(pp.avail[h] - d, 0.0)
         staged = _StagedCycle(pools)
         if not packed:
             return staged
@@ -1143,7 +1301,9 @@ class FusedCycleDriver:
         K1-K6 on a card) and start the copy of the six compact outputs
         into one pinned host buffer right behind it, so a later
         :meth:`fetch_group` overlaps the transfer with whatever the host
-        does in between.  A failed launch raises."""
+        does in between.  The event recorded after the copy marks this
+        cycle's outputs complete; both fetches wait on it alone, never on
+        a later cycle enqueued behind it.  A failed launch raises."""
         m = sg.mega
         telemetry.profile_upload(sg.stage_ms, list(m["wire"]))
         telemetry.count_transfer("h2d", m["h2d_bytes"])
@@ -1193,10 +1353,12 @@ class FusedCycleDriver:
         return gd.fetched
 
     def apply_group(self, scheduler, gd: "_GroupDispatch", queues,
-                    results) -> None:
+                    results, reconciler=None) -> None:
         """Phase 4: map one fetched group's outputs back to entities and
         run the transactional launch per pool, with K6's gang verdicts
-        (post-reduction assignment and drop mask a slot)."""
+        (post-reduction assignment and drop mask a slot).
+        ``reconciler`` is the pipelined driver's pre-launch re-validation
+        hook (see :meth:`_apply_pool`)."""
         cand_row, cand_assign, cand_qpos, n_queue, cand_gang, dropped = \
             self.fetch_group(gd)
         apply_t0 = time.perf_counter()
@@ -1205,7 +1367,9 @@ class FusedCycleDriver:
                 self._apply_pool(scheduler, pp, cand_row[i],
                                  cand_assign[i], cand_qpos[i],
                                  int(n_queue[i]), gd.res.queue_rows, i,
-                                 queues, results, gang_pre=(cand_gang[i], dropped[i]))
+                                 queues, results, reconciler=reconciler,
+                                 gang_pre=(cand_gang[i], dropped[i]),
+                                 done=gd.event)
         _flight.note_phase_detail(
             "apply", (time.perf_counter() - apply_t0) * 1000.0)
 
@@ -1228,7 +1392,8 @@ class FusedCycleDriver:
     # ----------------------------------------------------------------- apply
     def _apply_pool(self, scheduler, pp: _PackedPool, cand_row, cand_assign,
                     cand_qpos, n_queue: int, queue_rows_dev, pool_slot: int,
-                    queues, results, gang_pre=None) -> None:
+                    queues, results, reconciler=None, gang_pre=None,
+                    done=None) -> None:
         """Map one pool's COMPACT kernel outputs back to entities: queue
         refresh, within-batch group validation, backoff bookkeeping,
         transactional launch.
@@ -1236,7 +1401,18 @@ class FusedCycleDriver:
         ``cand_row``/``cand_assign``/``cand_qpos`` are the [C] admitted-slot
         arrays (-1 = empty slot); the rank-ordered queue rows stay on device
         in ``queue_rows_dev[pool_slot]`` and are fetched only when a queue
-        consumer materializes them."""
+        consumer materializes them, on a side stream that waits on
+        ``done`` (the dispatch's event) alone.
+
+        ``reconciler`` is the pipelined driver's Omega-style pre-launch
+        re-validation (sched/pipeline.py): called with (pp, cand_jobs,
+        cand_host), returns (state_drop, resource_drop) bool masks over
+        the candidates.  State conflicts (no longer WAITING — launched by
+        an overlapped cycle, or killed since the pack) are removed
+        outright and pruned from the published queue; resource conflicts
+        (the host's availability was consumed by an overlapped launch the
+        staged snapshot didn't see) fall back to unmatched and retry next
+        cycle.  Never passed on the sync path."""
         pool_name = pp.pool.name
         # this pool's row of the [P, T] output, a view: the published
         # queue's closure keeps that output's storage alive until the
@@ -1244,6 +1420,9 @@ class FusedCycleDriver:
         dev_rows = queue_rows_dev[pool_slot]
         rows_s = pp.rows_s
         fetched_rows: List[Optional[np.ndarray]] = [None]
+        if dev_rows.is_cuda and self._queue_stream is None:
+            self._queue_stream = torch.cuda.Stream(self.device)
+        stream = self._queue_stream
 
         def fetch_local_rows() -> np.ndarray:
             # one device->host transfer of exactly n_queue i32 rows, paid
@@ -1251,7 +1430,8 @@ class FusedCycleDriver:
             # logic) actually touches the published queue
             if fetched_rows[0] is None:
                 with telemetry.sync_wait("queue.rows"):
-                    fetched_rows[0] = dev_rows[:n_queue].cpu().numpy()
+                    fetched_rows[0] = fetch_rows(dev_rows, n_queue, done,
+                                                 stream)
                 telemetry.count_transfer("d2h", fetched_rows[0].nbytes)
             return fetched_rows[0]
 
@@ -1323,6 +1503,41 @@ class FusedCycleDriver:
         if clipped.any():
             cand_host[clipped] = -1
             gang_ok = False
+        conflict_qpos = None
+        res_conflict = None
+        dropped_head_matched = False
+        if reconciler is not None:
+            with tracing.span("fused.reconcile", pool=pool_name,
+                              candidates=len(slots)):
+                state_drop, res_drop = reconciler(pp, cand_jobs, cand_host)
+            # a dropped HEAD that held an assignment DID match (it
+            # launched one cycle earlier, or the overlap consumed its
+            # host): backoff must not shrink for a transient conflict
+            dropped_head_matched = bool(
+                (state_drop[0] or res_drop[0]) and cand_host[0] >= 0) \
+                if len(slots) else False
+            if state_drop.any() or res_drop.any():
+                gang_ok = False
+            if res_drop.any():
+                cand_host[res_drop] = -1
+            if state_drop.any():
+                qp = cand_qpos[slots[state_drop]]
+                conflict_qpos = qp[qp >= 0]
+                keep = ~state_drop
+                slots = slots[keep]
+                cand_jobs = [j for j, k in zip(cand_jobs, keep) if k]
+                cand_host = cand_host[keep]
+                res_drop = res_drop[keep]
+            res_conflict = res_drop if res_drop.any() else None
+            if len(slots) == 0:
+                # every candidate conflicted away: like the empty cycle,
+                # leave backoff untouched (the head DID match — it just
+                # launched one cycle earlier than this stale snapshot saw)
+                publish_queue(conflict_qpos)
+                result.queue_pruned = conflict_qpos is not None \
+                    and len(conflict_qpos) > 0
+                results[pool_name] = result
+                return
         pre_validate = cand_host.copy()
         cand_host = validate_group_placement(
             cand_jobs, cand_host, pp.offers, pp.ctx)
@@ -1333,7 +1548,9 @@ class FusedCycleDriver:
         # gang all-or-nothing over the fetched candidates (ops/gang.py,
         # docs/GANG.md): partial gangs reset to unmatched with their
         # capacity refilled to group-less candidates in the SAME cycle.
-        # Structural no-op when no candidate is a gang member.
+        # Under the pipelined driver a reconcile-dropped member already
+        # left its gang incomplete, so a conflicted gang drops atomically
+        # here.  Structural no-op when no candidate is a gang member.
         groups_ctx = pp.ctx.groups if pp.ctx is not None else {}
         if any(j.group is not None
                and getattr(groups_ctx.get(j.group), "gang", False)
@@ -1366,18 +1583,34 @@ class FusedCycleDriver:
                 job_res=cand_res,
                 cmask_fn=lambda: build_constraint_mask(
                     cand_jobs, pp.offers, pp.ctx),
-                avail=pp.avail[:H],
+                # reconcile-adjusted availability when an overlapped
+                # cycle overdrafted the staged snapshot: the rescue and
+                # refill passes must not re-place onto a host the
+                # reconciler just protected
+                avail=(pp.avail_headroom if pp.avail_headroom is not None
+                       else pp.avail[:H]),
                 capacity=pp.capacity[:H],
                 device=False,
+                refill_ok=(~res_conflict if res_conflict is not None
+                           else None),
                 audit_trail=self.store.audit, audit_pool=pool_name,
                 satisfied=satisfied,
                 precomputed=precomputed)
             if gstats is not None:
                 result.gang_partial = gstats.partial
-        self.matcher.record_placement_failures(
-            cand_jobs, cand_host, pp.offers, pp.ctx)
+        if res_conflict is not None:
+            # resource-conflicted candidates are a pipeline transient,
+            # not a placement failure: keep them out of the unscheduled
+            # explainer's persisted per-host summaries
+            rp_keep = ~res_conflict
+            self.matcher.record_placement_failures(
+                [j for j, k in zip(cand_jobs, rp_keep) if k],
+                cand_host[rp_keep], pp.offers, pp.ctx)
+        else:
+            self.matcher.record_placement_failures(
+                cand_jobs, cand_host, pp.offers, pp.ctx)
 
-        result.head_matched = bool(cand_host[0] >= 0)
+        result.head_matched = bool(cand_host[0] >= 0) or dropped_head_matched
         mc = self.config.matcher_for_pool(pool_name)
         self.matcher._backoff[pool_name].update(mc, result.head_matched)
 
@@ -1390,14 +1623,19 @@ class FusedCycleDriver:
         with tracing.span("fused.launch", pool=pool_name,
                           matched=len(result.matched)):
             self.matcher._launch(pool_name, result, scheduler.clusters)
-        # drop this cycle's launches from the queue by exact position
-        # (launched candidates are always queue members — match_valid
-        # implies queue_ok, so cand_qpos is valid for every launched slot)
+        # drop this cycle's launches — and any reconcile-conflicted
+        # candidates — from the queue by exact position (launched
+        # candidates are always queue members — match_valid implies
+        # queue_ok, so cand_qpos is valid for every launched slot)
+        drops = ([conflict_qpos] if conflict_qpos is not None
+                 and len(conflict_qpos) else [])
         if result.launched_job_uuids:
             cand_uuids = np.array([j.uuid for j in cand_jobs])
             launched_c = np.isin(cand_uuids,
                                  np.array(result.launched_job_uuids))
-            publish_queue(cand_qpos[slots[launched_c]])
+            drops.append(cand_qpos[slots[launched_c]])
+        if drops:
+            publish_queue(np.concatenate(drops))
             result.queue_pruned = True
         else:
             publish_queue()

@@ -216,6 +216,12 @@ class Ranker:
         # form (ops/delta.DeviceBaseMirror), created on first columnar rank
         self._mirror = None
 
+    def reset_device_state(self) -> None:
+        """Drop the rank path's device base mirror (a failed cycle): its
+        sync is keyed on the compaction epoch, so it would otherwise keep
+        handing out the same buffers until the next compaction."""
+        self._mirror = None
+
     def rank_pool(self, pool_name: str,
                   dru_mode: DruMode = DruMode.DEFAULT) -> List[Job]:
         if self.backend != "cpu" and self.config.columnar_index:
