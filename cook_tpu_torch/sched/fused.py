@@ -38,8 +38,10 @@ Every codec is lossless or wide.  ``stage``'s ``exclude`` /
 ``avail_delta`` / ``token_delta`` and ``apply_group``'s ``reconciler``
 are the pipelined driver's hooks (``sched/pipeline.py``).  Not ported:
 the driver's ``warmup``, the entity pack of ``columnar_index=False`` (it
-raises), the mesh, and every fallback: a failed launch, scatter or
-mirror sync raises, and no fault repacks the resident wire.
+raises) and the mesh.  A fault in the resident delta (its extraction or
+its scatter) repacks the resident wire, as the reference's does; a failed
+launch, full upload or mirror sync raises (``Scheduler.step_cycle`` then
+degrades that cycle to the split path).
 
 Streams: every upload, resident scatter, dispatch and output copy is
 enqueued on the current stream, in program order, so the next cycle's
@@ -266,7 +268,7 @@ class ResidentSync(NamedTuple):
     h2d_bytes: int
 
 
-REPACK_REASONS = ("cold", "shape", "compaction", "oversize")
+REPACK_REASONS = ("cold", "shape", "compaction", "oversize", "fault")
 
 
 def sync_resident(packs: Dict[bool, ResidentPack], gpu_mode: bool, key: Tuple,
@@ -281,11 +283,17 @@ def sync_resident(packs: Dict[bool, ResidentPack], gpu_mode: bool, key: Tuple,
     new compaction epoch (``compaction``) uploads it all.  Otherwise the
     diff against the shadow is scattered (``delta``); no change returns
     the buffers untouched (``empty``); a diff of more than half the
-    positions uploads it all (``oversize``).  A repack of an unchanged
-    [P, T] shape rewrites the buffers in place.  A failed diff, copy or
-    scatter raises: there is no repack on a fault.  Repacks are counted
-    by reason (``resident.repack.<reason>``) and delta rows
+    positions uploads it all (``oversize``).  A failure of the diff (fault
+    point ``delta.extract``) or of the scatter's stage or commit (fault
+    point ``delta.apply``) is counted
+    (``cook_kernel_fallback{kernel=}``, the flight record's
+    ``kernel.dispatch-fallback``) and uploads it all (``fault``) into
+    fresh buffers, since the old ones may be what failed.  Any other
+    repack of an unchanged [P, T] shape rewrites the buffers in place.  A
+    failed repack raises.  Repacks are counted by reason
+    (``resident.repack.<reason>``) and delta rows
     (``resident.delta_rows``) in ``ops.telemetry``."""
+    from ..utils.faults import injector as _faults
     st = packs.get(gpu_mode)
     reason, k = None, 0
     if st is None:
@@ -295,30 +303,44 @@ def sync_resident(packs: Dict[bool, ResidentPack], gpu_mode: bool, key: Tuple,
     elif st.epoch != epoch:
         reason = "compaction"
     if reason is None:
-        idx = pack_diff(st.rows_host, rows_p, st.flags_host, flags_p)
-        k = int(idx.size)
-        if k == 0:
-            return ResidentSync(st.rows_dev, st.flags_dev, "empty", 0, 0)
-        # a scatter row costs about 9 bytes against about 5 for the full
-        # upload: past half the table the repack is the cheaper transfer
-        if 2 * k > rows_p.size:
-            reason = "oversize"
+        try:
+            _faults.fire("delta.extract")
+            idx = pack_diff(st.rows_host, rows_p, st.flags_host, flags_p)
+        except Exception:
+            reason = _delta_fault("delta.extract")
         else:
-            staged = applier.stage(tuple(rows_p.shape), idx,
-                                   rows_p.reshape(-1)[idx],
-                                   flags_p.reshape(-1)[idx],
-                                   quantize=quantize)
-            applier.commit(st.rows_buf, st.flags_buf, staged)
-            telemetry.count("resident.delta_rows", k)
-            st.rows_host, st.flags_host = rows_p, flags_p
-            return ResidentSync(st.rows_dev, st.flags_dev, "delta", k,
-                                staged.nbytes)
+            k = int(idx.size)
+            if k == 0:
+                return ResidentSync(st.rows_dev, st.flags_dev, "empty", 0,
+                                    0)
+            # a scatter row costs about 9 bytes against about 5 for the
+            # full upload: past half the table the repack is the cheaper
+            # transfer
+            if 2 * k > rows_p.size:
+                reason = "oversize"
+            else:
+                try:
+                    _faults.fire("delta.apply")
+                    staged = applier.stage(tuple(rows_p.shape), idx,
+                                           rows_p.reshape(-1)[idx],
+                                           flags_p.reshape(-1)[idx],
+                                           quantize=quantize)
+                    applier.commit(st.rows_buf, st.flags_buf, staged)
+                except Exception:
+                    reason = _delta_fault("delta.apply")
+                else:
+                    telemetry.count("resident.delta_rows", k)
+                    st.rows_host, st.flags_host = rows_p, flags_p
+                    return ResidentSync(st.rows_dev, st.flags_dev, "delta",
+                                        k, staged.nbytes)
     telemetry.count(f"resident.repack.{reason}")
     nbytes = rows_p.nbytes + flags_p.nbytes
     telemetry.count_transfer("h2d", nbytes)
     dev = applier.device
-    # a repack of the same shape rewrites the buffers in place
-    same = st is not None and st.shape == tuple(rows_p.shape)
+    # a repack of the same shape rewrites the buffers in place, unless
+    # they are what failed
+    same = (reason != "fault" and st is not None
+            and st.shape == tuple(rows_p.shape))
     rows_buf = resident_buffer(rows_p.astype(np.int32, copy=False), dev,
                                out=st.rows_buf if same else None)
     flags_buf = resident_buffer(flags_p.astype(np.uint8, copy=False), dev,
@@ -326,6 +348,17 @@ def sync_resident(packs: Dict[bool, ResidentPack], gpu_mode: bool, key: Tuple,
     st = packs[gpu_mode] = ResidentPack(key, epoch, tuple(rows_p.shape),
                                         rows_buf, flags_buf, rows_p, flags_p)
     return ResidentSync(st.rows_dev, st.flags_dev, reason, k, nbytes)
+
+
+def _delta_fault(kernel: str) -> str:
+    """Count a failed resident delta (``delta.extract`` or
+    ``delta.apply``) as the reference does; the sync then repacks."""
+    import logging
+    logging.getLogger(__name__).exception(
+        "resident-pack %s failed; full repack", kernel)
+    registry.counter_inc("cook_kernel_fallback", labels={"kernel": kernel})
+    _flight.note_fault("kernel.dispatch-fallback")
+    return "fault"
 
 
 # --------------------------------------------------------------- the driver
@@ -520,8 +553,8 @@ class FusedCycleDriver:
                        flags_p: np.ndarray, epoch: int) -> ResidentSync:
         """Bring the resident [P, T] rows/flags buffers up to the staged
         host arrays (:func:`sync_resident`): a delta scatter in steady
-        state, a full upload on a cold start, a reshape, a compaction or
-        an oversize delta.  A failed diff or scatter raises."""
+        state, a full upload on a cold start, a reshape, a compaction, an
+        oversize delta or a failed diff or scatter (``fault``)."""
         with tracing.span("delta.apply", gpu=gpu_mode):
             rs = sync_resident(self._resident, gpu_mode, key, rows_p,
                                flags_p, epoch, applier=self._applier,

@@ -15,9 +15,11 @@ mesos.clj:89-110).  Cycles are explicit ``step_*`` methods:
  - ``step_rebalance``: the preemption cycle (``Rebalancer``).
 
 Every device entry point runs on ``device`` (default ``"cuda"``; without
-a card that default raises).  There is no fallback: a failed fused cycle
-resets the pipeline and the device-resident state and re-raises; no split
-cycle runs in its place.
+a card that default raises).  A failed fused cycle degrades as the
+reference's does: the pipeline and the device-resident state are dropped
+and that cycle runs the split path (``step_rank`` + ``step_match``) on the
+same device, so on a card kernels K2, K3 and K5 still place it.  A failure
+of the split path itself reaches the caller.
 
 Responsibilities wired here:
  - status updates: cluster backends -> store state machines, optionally
@@ -688,10 +690,11 @@ class Scheduler:
         next cycle's kernels are already computing on the card against an
         optimistically-stale snapshot, reconciled host-side before launch.
 
-        A failure inside the driver is not degraded to the split path:
-        the in-flight speculation and every device-resident buffer are
-        dropped (nothing was transacted, so the next cycle starts cold)
-        and the exception is re-raised.
+        A failure inside the driver degrades the cycle to the split path
+        (``step_rank`` + ``step_match``, on the scheduler's device): the
+        in-flight speculation and every device-resident buffer are dropped
+        first (nothing was transacted, so the next fused cycle starts
+        cold).
         """
         driver = self._ensure_fused()
         with flight_recorder.cycle(kind="fused") as rec:
@@ -699,19 +702,32 @@ class Scheduler:
             gc_paused = self.gc_discipline and gc.isenabled()
             if gc_paused:
                 gc.disable()
+            degraded = False
             try:
                 with tracing.span("fused.cycle"):
                     queues, results = driver.step(self)
             except Exception:
+                # device dispatch failed (a CUDA error, a lost card, an
+                # injected fault): degrade to the split path for this
+                # cycle instead of skipping scheduling entirely
+                import logging
+                logging.getLogger(__name__).exception(
+                    "fused cycle failed; degrading to the split path")
+                from ..utils.metrics import registry
+                registry.counter_inc("cook_kernel_fallback",
+                                     labels={"kernel": "fused.pool_cycle"})
+                flight_recorder.note_fault("fused.dispatch-fallback")
                 if self._pipeline is not None:
                     # in-flight speculation may reference the failed
-                    # device state; drop it
+                    # device state; drop it (nothing was transacted)
                     self._pipeline.reset()
                 # resident buffers may live on the failed device state
-                # too, and so may the split ranker's base mirror
+                # too: rebuild them from scratch next fused cycle — and
+                # the split-path Ranker this very degrade runs has its
+                # own device base mirror to shed
                 self._fused.reset_resident()
                 self.ranker.reset_device_state()
-                raise
+                degraded = True
             finally:
                 if gc_paused:
                     gc.enable()
@@ -720,6 +736,18 @@ class Scheduler:
                     # warm-up built) and then every 10th
                     if self._gc_cycles == 1 or self._gc_cycles % 10 == 0:
                         self._gc_collect_due = True
+            if degraded:
+                # split path: rank, then match (which owns direct pools,
+                # per-pool autoscaling, and last_match_results updates)
+                self.step_rank()
+                results = self.step_match()
+                if rec is not None:
+                    rec.pools = len(results)
+                    rec.jobs_considered = sum(r.considered
+                                              for r in results.values())
+                    rec.jobs_placed = sum(len(r.launched_task_ids)
+                                          for r in results.values())
+                return results
             # direct pools: host rank + backpressure submission
             for pool in self.store.pools():
                 if pool.state != "active" \
@@ -776,7 +804,8 @@ class Scheduler:
         pools = ([p for p in self.store.pools() if p.name == pool_name]
                  if pool_name else self.store.pools())
         with flight_recorder.cycle(kind="match") as rec:
-            # per-stage launches: the split path
+            # per-stage launches: the split path (also joined by a
+            # degraded fused cycle, which then reads "mixed")
             flight_recorder.note_path("split")
             for pool in pools:
                 if pool.state != "active":

@@ -8,7 +8,8 @@ arriving user-contiguous.  Every cycle the same host arrays go through
 ``stage_mega_wire(resident=True)``), ``megacycle_plain`` on the rebuilt
 quantized wire and the JAX fused cycle; all seven outputs must be equal
 (tolerance 0).  ``sync_resident`` must take, in order: cold, delta,
-empty, shape (the T bucket regrows), compaction, oversize.
+empty, shape (the T bucket regrows), compaction, oversize, and fault (a
+small change with the ``delta.apply`` fault point armed).
 """
 
 import numpy as np
@@ -24,6 +25,9 @@ from cook_tpu_torch.ops.delta import DeviceBaseMirror, PackDeltaApplier
 from cook_tpu_torch.ops.padding import bucket
 from cook_tpu_torch.sched.fused import (REPACK_REASONS, negotiate_rows,
                                         stage_mega_wire, sync_resident)
+from cook_tpu_torch.utils.faults import injector
+from cook_tpu_torch.utils.flight import recorder
+from cook_tpu_torch.utils.metrics import registry
 
 F32 = np.float32
 P = 2
@@ -170,7 +174,8 @@ def _no_gangs(T, H):
 
 # what happens between cycle i and i + 1, and the reason cycle i takes
 PLAN = (("cold", "place+churn"), ("delta", None), ("empty", "grow"),
-        ("shape", "compact"), ("compaction", "front"), ("oversize", None))
+        ("shape", "compact"), ("compaction", "front"),
+        ("oversize", "fault"), ("fault", None))
 
 
 @pytest.mark.parametrize("seed", [0, 3])
@@ -180,6 +185,7 @@ def test_resident_churn_matches_rebuild_and_jax(seed):
     applier = PackDeltaApplier(device="cpu")
     packs, reasons, ks = {}, [], []
     telemetry.reset_all()
+    injector.clear()
     for want_reason, then in PLAN:
         rows, flags = c.host_arrays()
         T, H = rows.shape[1], c.fields["avail"].shape[1]
@@ -216,6 +222,10 @@ def test_resident_churn_matches_rebuild_and_jax(seed):
             c.compact()
         elif then == "front":
             c.arrive(40, users=(0,))
+        elif then == "fault":          # a small delta whose scatter fails
+            c.finish(2, last_user=True)
+            injector.arm("delta.apply", schedule=[0])
+    injector.clear()
     assert 0 < ks[1] and ks[2] == 0
     ev = telemetry.events()
     assert ev["resident.delta_rows"] == ks[1]
@@ -271,19 +281,51 @@ def test_resident_staging_ships_no_rows_or_flags():
         _stage(c, rows, flags, mirror, resident=True)
 
 
-def test_sync_resident_raises_on_a_bad_delta():
-    """No fault repack: a scatter that cannot apply raises."""
+def _fallbacks(kernel):
+    return sum(v for lab, v in registry.series("cook_kernel_fallback")
+               if lab.get("kernel") == kernel)
+
+
+@pytest.mark.parametrize("fault", ["extract", "apply", "bad_buffer"])
+def test_sync_resident_fault_repacks(fault):
+    """A failed delta (its extraction, its scatter, or a scatter into a
+    buffer that cannot take it) repacks with reason ``fault`` into fresh
+    buffers equal to a cold repack's, counts the fallback, and the next
+    sync takes the delta path again."""
     c = Churn(4)
     applier = PackDeltaApplier(device="cpu")
     packs = {}
     rows, flags = c.host_arrays()
     sync_resident(packs, False, ("k",), rows, flags, 0, applier=applier)
-    packs[False].flags_buf = packs[False].flags_buf[:-1]   # no dump slot
     flags2 = flags.copy()
     flags2[0, 0] ^= 4
+    kernel = "delta.extract" if fault == "extract" else "delta.apply"
+    injector.clear()
+    if fault == "bad_buffer":
+        packs[False].flags_buf = packs[False].flags_buf[:-1]  # no dump slot
+    else:
+        injector.arm(kernel, schedule=[0])
+    before = _fallbacks(kernel)
     telemetry.reset_all()
-    with pytest.raises(ValueError, match="flags buffer"):
-        sync_resident(packs, False, ("k",), rows, flags2, 0,
-                      applier=applier)
-    assert not any(k.startswith("resident.repack")
-                   for k in telemetry.events())
+    try:
+        with recorder.cycle(kind="fused") as rec:
+            sync = sync_resident(packs, False, ("k",), rows, flags2, 0,
+                                 applier=applier)
+    finally:
+        injector.clear()
+    assert sync.reason == "fault"
+    assert _fallbacks(kernel) == before + 1
+    assert rec.faults.get("kernel.dispatch-fallback") == 1
+    assert telemetry.events()["resident.repack.fault"] == 1
+    cold = sync_resident({}, False, ("k",), rows, flags2, 0,
+                         applier=applier)
+    assert torch.equal(sync.rows_dev, cold.rows_dev)
+    assert torch.equal(sync.flags_dev, cold.flags_dev)
+    assert packs[False].flags_buf.numel() == flags.size + 1
+    assert int(packs[False].flags_buf[-1]) == 0
+    flags3 = flags2.copy()
+    flags3[1, 2] ^= 1
+    nxt = sync_resident(packs, False, ("k",), rows, flags3, 0,
+                        applier=applier)
+    assert nxt.reason == "delta" and nxt.k == 1
+    assert torch.equal(nxt.flags_dev, torch.from_numpy(flags3))

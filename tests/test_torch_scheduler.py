@@ -256,46 +256,66 @@ def test_unported_planes_raise(knob):
         cook_tpu_torch.sched.Scheduler(PORT.Store(), cfg, device="cpu")
 
 
+def _fallbacks(m, kernel):
+    from importlib import import_module
+    registry = import_module(f"{m.root}.utils.metrics").registry
+    return sum(v for lab, v in registry.series("cook_kernel_fallback")
+               if lab.get("kernel") == kernel)
+
+
 @pytest.mark.parametrize("depth", [0, 2])
-def test_failed_dispatch_raises_resets_and_recovers(depth):
-    """An injected ``fused.dispatch`` fault on the second step reaches
-    the caller; the pipeline and the device-resident state are dropped,
-    nothing falls back, and the next step launches what a scheduler that
-    never failed launches from the same store (a twin world whose
-    scheduler is built afresh over its store at that point)."""
-    from cook_tpu_torch.utils.faults import injector
-    from cook_tpu_torch.utils.metrics import registry
+def test_failed_dispatch_degrades_like_the_reference(depth):
+    """An injected ``fused.dispatch`` fault on the second step degrades
+    that cycle to the split path on both sides: the same launched pairs
+    and counts, one ``cook_kernel_fallback{kernel="fused.pool_cycle"}``
+    and the ``fused.dispatch-fallback`` note on the cycle's flight
+    record; the pipeline and the device-resident state are dropped, and
+    the following unarmed step matches the reference's too."""
+    from importlib import import_module
     spec = WORLDS["plain"]
-    failed = make_world(PORT, spec, depth=depth)
-    twin = make_world(PORT, spec, depth=depth)
-    for w in (failed, twin):
+    ref = make_world(REF, spec, depth=depth)
+    port = make_world(PORT, spec, depth=depth)
+    for w in (ref, port):
         step(w)
         w.churn(5)
         settle(w)
-    fallbacks = sum(v for _l, v in registry.series("cook_kernel_fallback"))
-    injector.clear()
-    injector.arm("fused.dispatch", schedule=[0])
+    injectors = [import_module(f"{m.root}.utils.faults").injector
+                 for m in (REF, PORT)]
+    recorders = [import_module(f"{m.root}.utils.flight").recorder
+                 for m in (REF, PORT)]
+    before = [_fallbacks(m, "fused.pool_cycle") for m in (REF, PORT)]
+    for inj in injectors:
+        inj.clear()
+        inj.arm("fused.dispatch", schedule=[0])
     try:
-        with pytest.raises(Exception, match="fused.dispatch"):
-            failed.sched.step_cycle()
+        ra, rb = step(ref), step(port)
     finally:
-        injector.clear()
-    sched = failed.sched
+        for inj in injectors:
+            inj.clear()
+    assert launched(ref, ra) == launched(port, rb)
+    assert counts(ra) == counts(rb)
+    assert sum(len(v) for v in launched(port, rb).values()) > 0
+    assert [_fallbacks(m, "fused.pool_cycle") - b
+            for m, b in zip((REF, PORT), before)] == [1, 1]
+    last = [rec.recent(limit=1)[0] for rec in recorders]
+    for r in last:
+        assert r["kind"] == "fused"
+        assert r["faults"].get("fused.dispatch-fallback") == 1
+    assert [(r["path"], r["pools"], r["jobs_considered"], r["jobs_placed"])
+            for r in last][0] == \
+        [(r["path"], r["pools"], r["jobs_considered"], r["jobs_placed"])
+         for r in last][1]
+    sched = port.sched
     assert not sched._fused._resident and not sched._fused._pack_cache
     assert sched._fused._mirror.capacity == 0
-    assert sched.ranker._mirror is None
     if depth:
         assert sched._pipeline.inflight() == 0
-    assert sum(v for _l, v in registry.series("cook_kernel_fallback")) \
-        == fallbacks
-    assert not failed.sched.last_match_results or \
-        states(failed) == states(twin)
-    twin.sched.shutdown()
-    twin.sched = cook_tpu_torch.sched.Scheduler(
-        twin.store, twin.cfg, [twin.cluster], rank_backend="tpu",
-        plugins=twin.plugins, rate_limits=twin.rate_limits, device="cpu")
-    assert states(failed) == states(twin)
-    ra, rb = step(twin), step(failed)
-    assert launched(twin, ra) == launched(failed, rb)
+    assert states(ref) == states(port)
+    for w in (ref, port):
+        w.churn(3)
+        settle(w)
+    ra, rb = step(ref), step(port)
+    assert launched(ref, ra) == launched(port, rb)
     assert counts(ra) == counts(rb)
-    assert sum(len(v) for v in launched(failed, rb).values()) > 0
+    assert queues(ref) == queues(port)
+    assert sum(len(v) for v in launched(port, rb).values()) > 0
