@@ -33,6 +33,12 @@ the synchronous and the pipelined driver (``sched/pipeline``, depth 2,
 the default) at ``bench.py::bench_pipeline_driver``'s world, and
 ``step_rebalance`` (``sched/rebalancer``) on a full cluster.
 
+The leader's other planes: the monitor sweep (``sched/monitor``) feeding
+the adaptive admission controller (``sched/admission``), whose level
+cuts the split cycle's considerable window, at the same world; a failed
+fused cycle degraded to the split path and resident-delta faults
+repacked; the reapers on the full cluster.
+
   1. prints the card's name and power limit (nvidia-smi);
   2. builds the kernels from ``cook_tpu_torch/ops/csrc`` (nvcc);
   3. phase F: K1, K2, K3, K5 and K5+K6 against their plain versions,
@@ -170,6 +176,33 @@ the default) at ``bench.py::bench_pipeline_driver``'s world, and
      ``preemption_plain`` on the card; the decisions equal to the cpu
      backend's, the victims FAILED and preempted, every beneficiary
      launched by the next ``step_cycle``;
+  6h. phase W: ``Config()`` with ``admission.enabled`` at phase Q's
+     world (depth 2, 4 status shards): 6 ``step_cycle``s topped up as
+     phase Q's, a ``monitor.sweep()`` after each (``sweep_ms`` on the
+     host clock, the ``cook_saturation`` gauges it published, the
+     controller's state), one sweep under cProfile (the 12 largest own
+     times); the controller driven with ``cycle_p99`` at 1.0 to level
+     0.5 or below, then ``step_rank`` + ``step_match`` counted and
+     recorded (``admission_split``), every launch replayed against its
+     plain version; each window ``int(limit * level)`` (the limit
+     ``max_jobs_considered`` or the backoff's), one
+     ``admission-throttled`` skip per job cut; the controller driven
+     back to stage 0; then the reduced world (10,000 jobs, 500 hosts)
+     through the same sequence on the card and with ``device="cpu"``,
+     the same pairs every step;
+  6i. phase X: the reduced world at depths 0 and 2, on the card and
+     with ``device="cpu"`` (the same pairs every step), nothing topped
+     up: a step on the delta path, one with ``delta.extract`` armed and
+     one with ``delta.apply`` armed (each repacks with reason ``fault``,
+     its fallback counted, the step after back on the delta path), one
+     with ``fused.dispatch`` armed (the cycle degrades to ``step_rank``
+     + ``step_match``: one more ``cook_kernel_fallback{kernel=
+     "fused.pool_cycle"}``, the note on its flight record, its launches
+     counted as ``scheduler_degraded``, recorded and replayed); on the
+     card every dispatched wire held against ``megacycle_plain``; then
+     one timed ``step_reapers`` on phase V's full cluster, where 1% of
+     the jobs carry a max runtime of 1 ms (``reapers_ms``, the number
+     killed, each ``max-runtime-exceeded``);
   7. phase D: the two top-K kernels (structured at 100,000 x 50,000,
      E = 256; dense at 10,000 x 50,000), counted, then held against
      their plain versions (fit bit for bit, host where fit > -inf) and
@@ -191,8 +224,10 @@ the default) at ``bench.py::bench_pipeline_driver``'s world, and
   9. prints the card line again, the ``{"kernels": [...]}`` line (each
      stage kernel's launches on every path in ``launches_by_path``,
      phase Q's legs as ``scheduler_sync`` and ``scheduler_pipelined``,
-     phase V's ``step_rank`` and ``step_match`` as ``scheduler_split``
-     and its ``step_rebalance`` as ``rebalancer``)
+     phase V's ``step_rank`` and ``step_match`` as ``scheduler_split``,
+     its ``step_rebalance`` as ``rebalancer``, phase W's split cycle as
+     ``admission_split`` and phase X's degraded cycles as
+     ``scheduler_degraded``)
      and last ``{"ok": true, "device": {...}}``.
 
 Usage: ``python3 chip_smoke.py`` from the root of a checkout (needs one
@@ -209,6 +244,7 @@ import statistics
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -2310,9 +2346,11 @@ def counted_uuids(seed):
 
 
 def sched_world(device="cuda", depth=2, n_jobs=Q_JOBS, n_users=Q_USERS,
-                hosts=Q_HOSTS, seed=Q_SEED, counted=False, shards=4):
+                hosts=Q_HOSTS, seed=Q_SEED, counted=False, shards=4,
+                admission=False):
     """The port's ``Scheduler`` over a fresh store, built as the bench
-    builds it (the scheduler first, then the jobs in chunks)."""
+    builds it (the scheduler first, then the jobs in chunks);
+    ``admission`` enables the adaptive admission controller."""
     from cook_tpu_torch.cluster import FakeCluster, FakeHost
     from cook_tpu_torch.config import Config
     from cook_tpu_torch.sched import Scheduler
@@ -2325,6 +2363,7 @@ def sched_world(device="cuda", depth=2, n_jobs=Q_JOBS, n_users=Q_USERS,
         for i in range(hosts)])
     cfg = Config()
     cfg.pipeline.depth = depth
+    cfg.admission.enabled = admission
     sched = Scheduler(store, cfg, [cluster], rank_backend="tpu",
                       status_queue_shards=shards, device=device)
     s = SimpleNamespace(store=store, cluster=cluster, cfg=cfg, sched=sched,
@@ -2427,17 +2466,24 @@ def own_time_step(s, top: int = 12) -> dict:
     ``top`` largest own times (ms, file:line:function), which show where
     the step waits while the status shards' threads apply updates."""
     q_top_up(s, 1_000)
+    ms, own = profiled_own(s.sched.step_cycle, top)
+    s.sched.flush_status_updates()
+    return {"step_ms": ms, "top_own_ms": own}
+
+
+def profiled_own(fn, top: int = 12) -> tuple:
+    """``fn()`` under cProfile: its wall ms and the ``top`` largest own
+    times (ms, file:line:function)."""
     prof = cProfile.Profile()
     prof.enable()
     t0 = time.perf_counter()
-    s.sched.step_cycle()
+    fn()
     ms = (time.perf_counter() - t0) * 1e3
     prof.disable()
-    s.sched.flush_status_updates()
     own = sorted(((v[2] * 1e3, f"{Path(k[0]).name}:{k[1]}:{k[2]}")
                   for k, v in pstats.Stats(prof).stats.items()),
                  reverse=True)[:top]
-    return {"step_ms": ms, "top_own_ms": own}
+    return ms, own
 
 
 def q_leg(depth, device="cuda", timed=Q_TIMED, shards=4, **size) -> dict:
@@ -2498,26 +2544,36 @@ def q_leg(depth, device="cuda", timed=Q_TIMED, shards=4, **size) -> dict:
     return s
 
 
-def q_checked_steps(s, steps=Q_CHECKED) -> dict:
-    """Steps whose every dispatched wire is cloned at dispatch (at depth
-    2 the next stage scatters into the resident buffers) and, after that
-    group's fetch, run through ``megacycle_plain`` on the card: all
-    seven outputs must equal the kernels'."""
+@contextmanager
+def checking_dispatches(s, plain=True):
+    """Within the block, every dispatch of ``s``'s driver is recorded:
+    ``dispatches`` gets its resident sync's path (``None`` without the
+    resident wire); with ``plain``, its wire is cloned at dispatch (at
+    depth 2 the next stage scatters into the resident buffers) and, after
+    its fetch, run through ``megacycle_plain`` on the card: all seven
+    outputs must equal the kernels' (``held`` gets the dispatch's index
+    and the outputs held).  At the end the dispatch still in flight at
+    depth 2 is fetched (the pipeline's own fetch; the next step finds it
+    fetched)."""
     from cook_tpu_torch.ops.pallas_cycle import MegaCycleWire, \
         megacycle_plain
+    s.sched._ensure_fused()
     drv = s.sched._fused
     real_dispatch, real_fetch = drv.dispatch_group, drv.fetch_group
-    clones, held = {}, []
+    clones = {}
+    seen = SimpleNamespace(dispatches=[], held=[])
 
     def dispatch(sg):
-        wire = MegaCycleWire(*(t.clone() for t in sg.mega["wire"]))
+        seen.dispatches.append(sg.sync.reason if sg.sync else None)
+        wire = (MegaCycleWire(*(t.clone() for t in sg.mega["wire"]))
+                if plain else None)
         gd = real_dispatch(sg)
-        clones[id(gd)] = wire
+        clones[id(gd)] = (len(seen.dispatches) - 1, wire)
         return gd
 
     def fetch(gd):
         out = real_fetch(gd)
-        wire = clones.pop(id(gd), None)
+        i, wire = clones.pop(id(gd), (None, None))
         if wire is not None:
             sg, m = gd.sg, gd.sg.mega
             ref = megacycle_plain(
@@ -2528,11 +2584,23 @@ def q_checked_steps(s, steps=Q_CHECKED) -> dict:
                 cap_scale=m["cap_scale"])
             for name in ref._fields:
                 max_err(getattr(gd.res, name), getattr(ref, name))
-            held.append(len(ref._fields))
+            seen.held.append((i, len(ref._fields)))
         return out
 
     drv.dispatch_group, drv.fetch_group = dispatch, fetch
     try:
+        yield seen
+        pipe = s.sched._pipeline
+        for entry in list(pipe._inflight if pipe is not None else ()):
+            pipe._fetch(entry)
+    finally:
+        drv.dispatch_group, drv.fetch_group = real_dispatch, real_fetch
+
+
+def q_checked_steps(s, steps=Q_CHECKED) -> dict:
+    """Steps whose every dispatched wire is run through
+    ``megacycle_plain`` on the card (``checking_dispatches``)."""
+    with checking_dispatches(s) as seen:
         n = 0
         for i in range(steps):
             q_top_up(s, 1_000)
@@ -2540,19 +2608,12 @@ def q_checked_steps(s, steps=Q_CHECKED) -> dict:
                      for r in s.sched.step_cycle().values())
             s.sched.flush_status_updates()
             check_live(s, f"phase Q checked step {i}")
-        # at depth 2 the last step's dispatch is still in flight: fetch
-        # it now (the pipeline's own fetch; the next step finds it
-        # fetched)
-        pipe = s.sched._pipeline
-        for entry in list(pipe._inflight if pipe is not None else ()):
-            pipe._fetch(entry)
-    finally:
-        drv.dispatch_group, drv.fetch_group = real_dispatch, real_fetch
+    held = seen.held
     if len(held) < steps:
         raise AssertionError(f"phase Q: {len(held)} dispatches checked "
                              f"in {steps} steps")
     return {"dispatches_equal_to_plain": len(held),
-            "outputs_each": held[0], "launched": n}
+            "outputs_each": held[0][1], "launched": n}
 
 
 def q_queue_fetch_check(s) -> dict:
@@ -2714,12 +2775,16 @@ def phase_q() -> dict:
 # defaults (safe_dru_threshold 1.0, min_dru_diff 0.5, max_preemption 64)
 V_USERS, V_JOBS_EACH, V_NEW = 200, 100, 1_000
 V_CPUS, V_MEM = 16.0, 16_384.0
+# every 100th job of the full cluster carries a max runtime of 1 ms:
+# phase X's reapers find 1% of the running tasks past it
+V_REAP_EVERY, V_REAP_MS = 100, 1
 
 
 def v_world(device="cuda", hosts=S_HOSTS, users=V_USERS,
             each=V_JOBS_EACH, new=V_NEW):
     """The full cluster: ``users`` users (share 64 cpus, 65,536 MB) with
-    ``each`` jobs of 16 cpus and 16,384 MB, ``step_cycle`` until a step
+    ``each`` jobs of 16 cpus and 16,384 MB (every ``V_REAP_EVERY``-th
+    with a max runtime of ``V_REAP_MS``), ``step_cycle`` until a step
     launches nothing; then a new user's ``new`` such jobs and one
     ``step_rank``."""
     from cook_tpu_torch.state import Job, Resources
@@ -2733,8 +2798,10 @@ def v_world(device="cuda", hosts=S_HOSTS, users=V_USERS,
         store.set_share(user, "default", {"cpus": 64.0, "mem": 65536.0})
         jobs += [Job(uuid=s.uuid(), user=user, command="x",
                      priority=50, submit_time_ms=1000 + len(jobs),
-                     resources=Resources(cpus=V_CPUS, mem=V_MEM))
-                 for _ in range(each)]
+                     resources=Resources(cpus=V_CPUS, mem=V_MEM),
+                     **({"max_runtime_ms": V_REAP_MS}
+                        if (len(jobs) + k) % V_REAP_EVERY == 0 else {}))
+                 for k in range(each)]
     for i in range(0, len(jobs), 10_000):
         store.create_jobs(jobs[i:i + 10_000])
     t0 = time.perf_counter()
@@ -2839,7 +2906,7 @@ def v_host_parts(s) -> dict:
     return parts
 
 
-def phase_v(device="cuda", **size) -> dict:
+def phase_v(device="cuda", keep=False, **size):
     """``step_rebalance`` at full cluster: the ``backend="cpu"``
     rebalancer first (its ``_execute`` a no-op here), then the host
     parts of a dry device run, then the timed ``step_rebalance`` with
@@ -2847,7 +2914,9 @@ def phase_v(device="cuda", **size) -> dict:
     against ``preemption_plain`` on the card bit for bit, each K2 launch
     replayed; the decisions equal to the cpu backend's; the victims
     FAILED and preempted; after one more ``step_cycle`` every
-    beneficiary launched (a multi-victim one on its reserved host)."""
+    beneficiary launched (a multi-victim one on its reserved host).
+    With ``keep`` the world is returned beside the counts, its
+    scheduler running (phase X's reapers)."""
     from cook_tpu_torch.ops import cuda_lib, telemetry
     from cook_tpu_torch.ops import rebalance as reb
     from cook_tpu_torch.sched.rebalancer import Rebalancer
@@ -2962,8 +3031,366 @@ def phase_v(device="cuda", **size) -> dict:
             lambda: reb.preemption_plain(one), 5)
         out["replayed_equal_to_plain"] = replay_all(calls, "phase V")
     print(json.dumps(out))
+    counts = {"rebalancer": counts, "split": s.split_counts}
+    if keep:
+        return counts, s
     sched.shutdown()
-    return {"rebalancer": counts, "split": s.split_counts}
+    return counts
+
+
+# ------------------------------------- phase W: admission at deployment size
+W_STEPS = 6
+W_TARGET_LEVEL = 0.5
+SATURATION_KEYS = ("group_commit_queue", "follower_staleness", "cycle_p99",
+                   "audit_queue", "launch_tokens", "journal_head")
+
+
+def saturation_gauges() -> dict:
+    """The ``cook_saturation`` gauges the last sweep published."""
+    from cook_tpu_torch.utils.metrics import registry
+    return {labels["resource"]: v
+            for labels, v in registry.series("cook_saturation")}
+
+
+def w_sweep(s) -> dict:
+    """One ``monitor.sweep()`` on the host clock, with the saturation it
+    published and the controller's state after it (the sweep feeds the
+    controller one ``decide``)."""
+    t0 = time.perf_counter()
+    counts = s.sched.monitor.sweep()
+    ms = (time.perf_counter() - t0) * 1e3
+    return {"sweep_ms": ms, "counts": counts,
+            "saturation": saturation_gauges(),
+            "admission": s.sched.admission.state()}
+
+
+def w_throttle(s, gauges: dict, target=W_TARGET_LEVEL) -> list:
+    """``decide`` with ``cycle_p99`` at 1.0 (the objective's whole
+    budget; the other gauges as given) until the level is at most
+    ``target``; each decide's level and stage."""
+    ctrl = s.sched.admission
+    forced = dict(gauges, cycle_p99=1.0)
+    steps = []
+    while ctrl.level > target:
+        ctrl.decide(forced)
+        steps.append({"level": ctrl.level, "stage": ctrl.stage})
+        if len(steps) > 50:
+            raise AssertionError(f"admission level {ctrl.level} after "
+                                 f"50 decides at cycle_p99 1.0")
+    return steps
+
+
+def w_recover(s) -> list:
+    """``decide`` with every gauge at 0 until the controller is back at
+    stage 0 and level 1.0.  The ladder steps down one stage per
+    ``stage_hold_seconds`` of recovery on the store's clock, so the
+    clock is moved on by the hold before each decide and put back
+    after."""
+    ctrl, store = s.sched.admission, s.store
+    hold_ms = int(ctrl.ac.stage_hold_seconds * 1000) + 1
+    real_clock, offset = store.clock, [0]
+    store.clock = lambda: real_clock() + offset[0]
+    steps = []
+    try:
+        while ctrl.stage > 0 or ctrl.level < 1.0:
+            offset[0] += hold_ms
+            ctrl.decide({k: 0.0 for k in SATURATION_KEYS})
+            steps.append({"level": ctrl.level, "stage": ctrl.stage})
+            if len(steps) > 100:
+                raise AssertionError("admission: no recovery in 100 "
+                                     "decides")
+    finally:
+        store.clock = real_clock
+    return steps
+
+
+def w_split(s, device) -> dict:
+    """``step_rank`` + ``step_match`` at the controller's level, counted
+    and recorded: each ``admission_limit`` call's limit must be
+    ``max_jobs_considered`` (or the head-of-queue backoff's smaller
+    window), its window ``int(limit * level)``, and the match's cycle
+    record must hold one ``admission-throttled`` skip per job cut from
+    the window; on the card every launch is replayed against its plain
+    version."""
+    from cook_tpu_torch.ops import cuda_lib, telemetry
+    from cook_tpu_torch.utils.flight import recorder
+    m, ctrl = s.sched.matcher, s.sched.admission
+    max_considered = s.cfg.matcher_for_pool("default").max_jobs_considered
+    backoff = {p: b.num_considerable for p, b in m._backoff.items()}
+    windows = []
+    real = m.admission_limit
+
+    def spy(pool, ranked, limit):
+        scaled = real(pool, ranked, limit)
+        windows.append({"pool": pool, "limit": limit, "scaled": scaled,
+                        "queue": len(ranked)})
+        return scaled
+
+    m.admission_limit = spy
+    telemetry.reset_all()
+    try:
+        with cuda_lib.recording() as calls:
+            t0 = time.perf_counter()
+            s.sched.step_rank()
+            t1 = time.perf_counter()
+            res = s.sched.step_match()
+            t2 = time.perf_counter()
+    finally:
+        del m.admission_limit
+    counts = telemetry.snapshot()
+    skips = recorder.recent(1)[0]["skip_reasons"].get(
+        "admission-throttled", 0)
+    s.sched.flush_status_updates()
+    live = check_live(s, "admission split")
+    for w in windows:
+        limit = min(backoff.get(w["pool"], max_considered), max_considered)
+        want = (w["limit"] if ctrl.level >= 1.0 or w["limit"] <= 1
+                else max(1, int(w["limit"] * ctrl.level)))
+        if w["limit"] != limit or w["scaled"] != want:
+            raise AssertionError(f"admission window {w} at level "
+                                 f"{ctrl.level}: want {want}")
+    cut = sum(max(0, min(w["limit"], w["queue"]) - w["scaled"])
+              for w in windows)
+    if skips != cut:
+        raise AssertionError(f"{skips} admission-throttled skips for a "
+                             f"cut of {cut}")
+    considered = {p: r.considered for p, r in res.items()}
+    out = {"level": ctrl.level, "stage": ctrl.stage, "windows": windows,
+           "max_jobs_considered": max_considered,
+           "backoff_windows": backoff, "considered": considered, "throttled_skips": skips,
+           "launched": sum(len(r.launched_task_ids) for r in res.values()),
+           "live": live, "step_rank_ms": (t1 - t0) * 1e3,
+           "step_match_ms": (t2 - t1) * 1e3, "launches_per_kernel": counts,
+           "pairs": launched_pairs(s, res)}
+    if any(c > w["scaled"] for c, w in zip(considered.values(), windows)):
+        raise AssertionError(f"considered {considered} past the windows "
+                             f"{windows}")
+    if device == "cuda":
+        missing = [k for k in ("scan", "sort", "greedy")
+                   if counts.get(k, 0) <= 0]
+        if missing:
+            raise AssertionError(f"admission split: no {missing} launched")
+        out["replayed_equal_to_plain"] = replay_all(calls,
+                                                    "admission split")
+    return out
+
+
+def w_card_against_cpu() -> dict:
+    """Phase Q's reduced world (10,000 jobs, 500 hosts, uuids from a
+    counter) with admission enabled, on the card and with
+    ``device="cpu"``: two ``step_cycle``s, the controller driven to
+    level 0.5 or below, then ``step_rank`` + ``step_match``; every step
+    launches the same pairs on both."""
+    runs = {}
+    for device in ("cuda", "cpu"):
+        s = sched_world(device, 2, counted=True, admission=True, **Q_SMALL)
+        steps = []
+        for i in range(2):
+            res = s.sched.step_cycle()
+            s.sched.flush_status_updates()
+            check_live(s, f"phase W small {device} step {i}")
+            steps.append(launched_pairs(s, res))
+            q_top_up(s, len(steps[-1]))
+        w_throttle(s, {"cycle_p99": 1.0})
+        split = w_split(s, device)
+        steps.append(split.pop("pairs"))
+        runs[device] = (steps, split["level"], split["windows"])
+        s.sched.shutdown()
+    if runs["cuda"] != runs["cpu"]:
+        raise AssertionError("phase W small world: card and CPU differ")
+    return {"launched": [len(x) for x in runs["cuda"][0]],
+            "level": runs["cuda"][1], "windows": runs["cuda"][2]}
+
+
+def phase_w(device="cuda", **size) -> dict:
+    """Adaptive admission at phase Q's world (100,000 jobs from
+    ``_driver_jobs``, seed 13, 5,000 hosts, ``Config()`` with
+    ``admission.enabled``, depth 2, 4 status shards): ``W_STEPS``
+    ``step_cycle``s topped up as phase Q's, a timed ``monitor.sweep()``
+    after each (the saturation it published, the controller's state),
+    one sweep under cProfile; then the controller driven to level 0.5
+    or below, ``step_rank`` + ``step_match`` counted, recorded and
+    replayed (``w_split``), the controller driven back to stage 0; then
+    the reduced world on card and CPU (the card only)."""
+    t0 = time.perf_counter()
+    s = sched_world(device, 2, admission=True, **size)
+    sweeps = []
+    for i in range(W_STEPS):
+        res = s.sched.step_cycle()
+        s.sched.flush_status_updates()
+        n = sum(len(r.launched_task_ids) for r in res.values())
+        check_live(s, f"phase W step {i}")
+        q_top_up(s, n)
+        sweeps.append({"step": i, "launched": n, **w_sweep(s)})
+        print(json.dumps({"phase": "W", **sweeps[-1]}))
+    prof_ms, prof_own = profiled_own(s.sched.monitor.sweep)
+    throttle = w_throttle(s, saturation_gauges())
+    split = w_split(s, device)
+    split.pop("pairs")
+    recover = w_recover(s)
+    s.sched.shutdown()
+    world_s = time.perf_counter() - t0
+    small = w_card_against_cpu() if device == "cuda" else None
+    sweep_ms = [x["sweep_ms"] for x in sweeps]
+    print(json.dumps({
+        "phase": "W", "world": {"jobs": size.get("n_jobs", Q_JOBS),
+                                "hosts": s.hosts,
+                                "users": s.n_users, "build_s": s.build_s},
+        "sweep_ms": sweep_ms, "sweep_ms_median": statistics.median(sweep_ms),
+        "profiled_sweep": {"sweep_ms": prof_ms, "top_own_ms": prof_own},
+        "throttle": throttle, "split": split, "recover": recover,
+        "card_against_cpu": small, "world_s": world_s,
+        "wall_s": time.perf_counter() - t0}))
+    return split["launches_per_kernel"]
+
+
+# ------------------------------------------ phase X: faults and reapers
+def fallbacks(kernel: str) -> float:
+    from cook_tpu_torch.utils.metrics import registry
+    return sum(v for labels, v in registry.series("cook_kernel_fallback")
+               if labels.get("kernel") == kernel)
+
+
+def x_leg(depth: int, device: str):
+    """The reduced world (10,000 jobs, 500 hosts, uuids from a counter)
+    at ``depth`` on ``device``, nothing topped up (each step's change is
+    the previous step's launches: status changes only): a cold step, a
+    step that must take the delta path, one with ``delta.extract``
+    armed, one more, one with ``delta.apply`` armed, one more (each
+    armed step must repack with reason ``fault`` and each following one
+    take the delta path again), then one with ``fused.dispatch`` armed
+    (the cycle degrades to the split path: one more
+    ``cook_kernel_fallback{kernel="fused.pool_cycle"}``, the note on its
+    flight record; on the card its launches counted, recorded and
+    replayed) and one more.  On the card every dispatched wire is held
+    against ``megacycle_plain`` (``checking_dispatches``)."""
+    from cook_tpu_torch.ops import cuda_lib, telemetry
+    from cook_tpu_torch.utils.faults import injector
+    from cook_tpu_torch.utils.flight import recorder
+    s = sched_world(device, depth, counted=True, **Q_SMALL)
+    card = device == "cuda"
+    leg = SimpleNamespace(pairs=[], paths=[])
+
+    def step(armed=None):
+        injector.clear()
+        if armed:
+            injector.arm(armed, schedule=[0])
+        n0 = len(seen.dispatches)
+        try:
+            res = s.sched.step_cycle()
+        finally:
+            injector.clear()
+        s.sched.flush_status_updates()
+        check_live(s, f"phase X d{depth} {device}")
+        leg.pairs.append(launched_pairs(s, res))
+        leg.paths.append(seen.dispatches[n0:])
+
+    def expect(path, what):
+        if path not in leg.paths[-1]:
+            raise AssertionError(f"phase X d{depth} {device} {what}: "
+                                 f"paths {leg.paths}")
+
+    t0 = time.perf_counter()
+    with checking_dispatches(s, plain=card) as seen:
+        step()
+        step()
+        expect("delta", "status-only step")
+        for point in ("delta.extract", "delta.apply"):
+            before = fallbacks(point)
+            step(point)
+            expect("fault", point)
+            if fallbacks(point) != before + 1:
+                raise AssertionError(f"phase X: {point} fallback not "
+                                     f"counted")
+            step()
+            expect("delta", f"after {point}")
+        before = fallbacks("fused.pool_cycle")
+        telemetry.reset_all()
+        with cuda_lib.recording() as calls:
+            step("fused.dispatch")
+        leg.counts = telemetry.snapshot()
+        rec = recorder.recent(1)[0]
+        if fallbacks("fused.pool_cycle") != before + 1 or \
+                rec["faults"].get("fused.dispatch-fallback") != 1:
+            raise AssertionError(f"phase X d{depth}: degraded cycle not "
+                                 f"counted: {rec['faults']}")
+        if not leg.pairs[-1]:
+            raise AssertionError(f"phase X d{depth}: the degraded cycle "
+                                 f"launched nothing")
+        step()
+    leg.wall_s = time.perf_counter() - t0
+    s.sched.shutdown()
+    if card:
+        faulted = [i for i, p in enumerate(seen.dispatches) if p == "fault"]
+        held = {i for i, _n in seen.held}
+        if len(faulted) != 2 or not set(faulted) <= held:
+            raise AssertionError(f"phase X d{depth}: fault repacks "
+                                 f"{faulted}, held {sorted(held)}")
+        missing = [k for k in ("scan", "sort", "greedy")
+                   if leg.counts.get(k, 0) <= 0]
+        if missing:
+            raise AssertionError(f"phase X d{depth}: the degraded cycle "
+                                 f"launched no {missing}")
+        leg.replayed = replay_all(calls, f"phase X d{depth} degraded")
+        leg.dispatches_equal_to_plain = len(seen.held)
+    return leg
+
+
+def x_reapers(v) -> dict:
+    """One timed ``step_reapers`` on phase V's full cluster: every
+    running task of a job with ``V_REAP_MS`` of max runtime is killed
+    (``max-runtime-exceeded``), nothing else."""
+    from cook_tpu_torch.state import Reasons
+    sched, store = v.sched, v.store
+    sched.flush_status_updates()
+    running = store.running_instances()
+    due = sorted(inst.task_id for job, inst in running
+                 if job.max_runtime_ms == V_REAP_MS)
+    t0 = time.perf_counter()
+    killed = sched.step_reapers()
+    ms = (time.perf_counter() - t0) * 1e3
+    sched.flush_status_updates()
+    if sorted(killed) != due or not due:
+        raise AssertionError(f"phase X reapers: killed {len(killed)}, "
+                             f"due {len(due)}")
+    for t in killed:
+        inst = store.instance(t)
+        if inst.status.value != "failed" or \
+                inst.reason_code != Reasons.MAX_RUNTIME_EXCEEDED.code:
+            raise AssertionError(f"phase X reapers: {t} is {inst.status} "
+                                 f"reason {inst.reason_code}")
+    sched.shutdown()
+    return {"reapers_ms": ms, "running": len(running),
+            "killed": len(killed)}
+
+
+def phase_x(v) -> dict:
+    """Faults on the reduced world at depths 0 and 2, on the card and
+    with ``device="cpu"`` (the same pairs every step), then the reapers
+    on phase V's full cluster ``v``."""
+    t0 = time.perf_counter()
+    out, counts = {"phase": "X"}, {}
+    for depth in (0, 2):
+        card, cpu = x_leg(depth, "cuda"), x_leg(depth, "cpu")
+        for i, (a, b) in enumerate(zip(card.pairs, cpu.pairs,
+                                       strict=True)):
+            if a != b:
+                raise AssertionError(f"phase X depth {depth} step {i}: "
+                                     f"card and CPU launched different "
+                                     f"pairs")
+        counts[depth] = card.counts
+        out[f"depth{depth}"] = {
+            "launched": [len(x) for x in card.pairs],
+            "paths": card.paths, "cpu_paths": cpu.paths,
+            "dispatches_equal_to_plain": card.dispatches_equal_to_plain,
+            "degraded_launches_per_kernel": card.counts,
+            "degraded_replayed_equal_to_plain": card.replayed,
+            "card_wall_s": card.wall_s, "cpu_wall_s": cpu.wall_s}
+    out["reapers"] = x_reapers(v)
+    out["wall_s"] = time.perf_counter() - t0
+    print(json.dumps(out))
+    return {k: counts[0].get(k, 0) + counts[2].get(k, 0)
+            for k in set(counts[0]) | set(counts[2])}
 
 
 # ---------------------------------------------- phase E: the split matcher
@@ -3811,7 +4238,10 @@ def main() -> int:
     print(json.dumps(phase_mirror(np.random.default_rng(SEED + 9))))
     driver_counts = phase_s()
     sched_counts = phase_q()
-    rebalance_counts = phase_v()
+    rebalance_counts, v = phase_v(keep=True)
+    admission_counts = phase_w()
+    degraded_counts = phase_x(v)
+    del v
     rank_counts = phase_r(build_world(np.random.default_rng(SEED)))
     preempt_counts = phase_p(np.random.default_rng(SEED + 10))
     topk_rows = phase_d()
@@ -3836,7 +4266,9 @@ def main() -> int:
                 "scheduler_sync": sched_counts["sync"].get(k, 0),
                 "scheduler_pipelined": sched_counts["pipelined"].get(k, 0),
                 "scheduler_split": rebalance_counts["split"].get(k, 0),
-                "rebalancer": rebalance_counts["rebalancer"].get(k, 0)},
+                "rebalancer": rebalance_counts["rebalancer"].get(k, 0),
+                "admission_split": admission_counts.get(k, 0),
+                "scheduler_degraded": degraded_counts.get(k, 0)},
             **({"inside": "greedy"} if k == "gang" else {}),
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,

@@ -504,8 +504,9 @@ class FusedCycleDriver:
     ``_stifle_offensive(jobs)`` from it.  Every columnar group goes
     through ``megacycle`` (the reference picks between it and the fused
     XLA cycle, which decide identically).  Not ported: ``warmup``, the
-    entity pack of ``columnar_index=False``, the mesh, and every fallback
-    (a failed launch, scatter or mirror sync raises)."""
+    entity pack of ``columnar_index=False`` and the mesh.  A failed
+    resident delta repacks (:func:`sync_resident`); a failed launch, full
+    upload or mirror sync raises."""
 
     def __init__(self, store: Store, config: Config, matcher: Matcher,
                  plugins, rate_limits, device="cuda", shard_id=None):

@@ -21,6 +21,13 @@ and that cycle runs the split path (``step_rank`` + ``step_match``) on the
 same device, so on a card kernels K2, K3 and K5 still place it.  A failure
 of the split path itself reaches the caller.
 
+``step_resize`` (the elastic resize pass), ``step_reapers`` and the
+monitor's ``sweep`` (``sched/monitor.py``, which also feeds the adaptive
+``AdmissionController`` of ``sched/admission.py`` when
+``config.admission.enabled``) complete the leader's loop, and ``run()``
+drives all of them on wall-clock threads like the reference's chime
+channels.
+
 Responsibilities wired here:
  - status updates: cluster backends -> store state machines, optionally
    through the sharded status queue (``native.make_watch_queue``)
@@ -30,13 +37,13 @@ Responsibilities wired here:
  - per-pool rank queue (reference: pool-name->pending-jobs-atom)
  - direct-mode pools: backpressure submission without matching
    (reference: handle-kubernetes-scheduler-pool scheduler.clj:1747)
+ - reapers: lingering-task killer (max-runtime, scheduler.clj:1888-1953)
+   and straggler handler (scheduler.clj:1955-1986, group.clj)
 
-Not ported (each named in ROADMAP.md, queue 1): ``Monitor``,
-``AdmissionController`` (the constructor raises when
-``config.admission.enabled``), the optimizer (``step_optimize``),
-``warmup_kernels`` (the constructor raises when the pipeline's warmup or
-compilation-cache knobs are set), ``step_resize``, ``step_reapers`` and
-``run``'s wall-clock loops.
+Not ported (each named in ROADMAP.md, queue 1): the optimizer
+(``step_optimize``; the constructor raises when ``config.optimizer`` is
+set) and ``warmup_kernels`` (the constructor raises when the pipeline's
+warmup or compilation-cache knobs are set).
 """
 
 from __future__ import annotations
@@ -122,6 +129,26 @@ class Scheduler:
         if self.config.elastic.enabled:
             self.matcher.elastic = self.elastic
             self.rebalancer.elastic = self.elastic
+        # the optimizer loop is not ported (_refuse_unported)
+        self.optimizer_cycler = None
+        from .monitor import Monitor
+        self.monitor = Monitor(store, config=self.config)
+        # launch-token saturation input (sched/fleet.py): the sweep
+        # reads the same buckets the matcher admits against
+        self.monitor.rate_limits = self.rate_limits
+        # adaptive admission + brownout ladder (sched/admission.py):
+        # leader-only — the controller recovers any journaled brownout
+        # stage at construction, and each monitor sweep feeds it the
+        # saturation gauges.  None when the section is disabled.
+        self.admission = None
+        if self.config.admission.enabled:
+            from .admission import AdmissionController
+            self.admission = AdmissionController(
+                store, self.config, rate_limits=self.rate_limits)
+            self.monitor.admission = self.admission
+            # head-of-queue scaleback: the matcher shrinks its
+            # considerable window by the admission level under pressure
+            self.matcher.admission = self.admission
         from .heartbeat import HeartbeatTracker
         self.heartbeats = HeartbeatTracker(self.config.heartbeat_timeout_ms)
         # Heartbeat stamps and reaper sweeps follow the store's injectable
@@ -135,6 +162,7 @@ class Scheduler:
         # job uuid -> reserved hostname from the rebalancer
         self.reserved_hosts: Dict[str, str] = {}
         self._stop = threading.Event()
+        self._threads: List[threading.Thread] = []
         # fused production cycle driver, created lazily on first step_cycle;
         # _pipeline wraps it when config.pipeline.depth > 0 (the pipelined
         # optimistic driver, sched/pipeline.py)
@@ -165,6 +193,8 @@ class Scheduler:
         # backend class -> whether autoscale() takes a gangs= kwarg; the
         # backend set is fixed at construction, so probe each class once
         self._autoscale_takes_gangs: Dict[type, bool] = {}
+        # task_id -> first-seen-orphaned ms (reaper grace bookkeeping)
+        self._orphan_first_seen: Dict[str, int] = {}
         # Side-effect worker: cluster kills requested from a thread that
         # already holds that cluster's kill-lock read side (e.g. a tx-event
         # delivered during a launch) must run elsewhere or they self-deadlock.
@@ -204,10 +234,10 @@ class Scheduler:
     def _refuse_unported(self) -> None:
         """The reference's optional planes this port does not have raise
         here instead of being silently ignored."""
-        if self.config.admission.enabled:
+        if self.config.optimizer is not None:
             raise NotImplementedError(
-                "adaptive admission (config.admission.enabled) is not "
-                "ported: see ROADMAP.md, queue 1, 'AdmissionController'")
+                "the goodput optimizer loop (config.optimizer) is not "
+                "ported: see ROADMAP.md, queue 1, item 7c")
         pl = self.config.pipeline
         if pl.warmup_tasks or pl.warmup_hosts or pl.compilation_cache_dir:
             raise NotImplementedError(
@@ -1056,6 +1086,133 @@ class Scheduler:
         self.store.flush_audit()
         return decisions
 
+    # --------------------------------------------------------------- elastic
+    def step_resize(self) -> Dict[str, int]:
+        """Per-cycle elastic resize pass (docs/GANG.md elasticity):
+        execute grace-expired shrinks, then shed standing optimizer
+        shrink pressure per pool.  Growth needs no step of its own —
+        satisfied elastic gangs grow through the ordinary match path,
+        metered by the optimizer's per-pool grow budget.  Structural
+        no-op (empty ledger, zero pressure) for rigid-only workloads."""
+        if not self.config.elastic.enabled:
+            return {}
+        out: Dict[str, int] = {}
+        swept = self.elastic.sweep(self.clusters)
+        if swept:
+            out["_grace_expired"] = len(swept)
+        if any(self.elastic.shrink_pressure.values()):
+            for pool in self.store.pools():
+                if pool.state != "active":
+                    continue
+                shed = self.elastic.apply_pressure(pool.name, self.clusters)
+                if shed:
+                    out[pool.name] = shed
+        return out
+
+    # --------------------------------------------------------------- reapers
+    def step_reapers(self, current_ms: Optional[int] = None) -> List[str]:
+        """Kill tasks over their max runtime (lingering-task killer,
+        scheduler.clj:1888-1953) and straggler instances per group quantile
+        rule (scheduler.clj:1955-1986)."""
+        current = current_ms if current_ms is not None else self.clock()
+        killed: List[str] = []
+        # ONE materializing scan shared by every reaper: each
+        # running_instances() call deep-clones the full live set under the
+        # store lock, so repeating it per-reaper at the 100k design point
+        # would stall concurrent transactions
+        running = self.store.running_instances()
+        for job, inst in running:
+            if job.max_runtime_ms and inst.start_time_ms and \
+                    current - inst.start_time_ms > job.max_runtime_ms:
+                self._kill_instance(inst.task_id, Reasons.MAX_RUNTIME_EXCEEDED.code)
+                killed.append(inst.task_id)
+        # the snapshot is shared, so downstream reapers must skip tasks an
+        # earlier reaper already killed this tick (a stale entry would get
+        # a duplicate kill RPC and a duplicate task_id in the result)
+        done = set(killed)
+        killed.extend(self._reap_orphaned_cluster_instances(
+            current, running, skip=done))
+        done.update(killed)
+        killed.extend(self._reap_stragglers(current, running, skip=done))
+        if self.config.heartbeat_enabled:
+            for task_id in self.heartbeats.expired(current):
+                self._kill_instance(task_id, Reasons.HEARTBEAT_LOST.code)
+                self.heartbeats.forget(task_id)
+                killed.append(task_id)
+        return killed
+
+    def _reap_orphaned_cluster_instances(self, current_ms: int,
+                                         running=None,
+                                         skip=frozenset()) -> List[str]:
+        """Fail (NODE_LOST, mea-culpa) running instances whose compute
+        cluster this scheduler does not have — the previous leader's
+        in-process backend after a failover, or a dynamically deleted
+        cluster.  A grace window tolerates a cluster being re-added
+        (reference contract: a new leader re-reads all state and
+        reconciles what its backends can't account for,
+        mesos.clj:296-313 + scheduler.clj:1828-1878)."""
+        grace_ms = self.config.orphaned_cluster_grace_seconds * 1000.0
+        missing = self._orphan_first_seen
+        failed: List[str] = []
+        live = set()
+        if running is None:
+            running = self.store.running_instances()
+        for _job, inst in running:
+            if inst.task_id in skip:
+                continue
+            if inst.compute_cluster and \
+                    inst.compute_cluster not in self.clusters:
+                live.add(inst.task_id)
+                first = missing.setdefault(inst.task_id, current_ms)
+                if current_ms - first >= grace_ms:
+                    missing.pop(inst.task_id, None)
+                    self.store.update_instance_status(
+                        inst.task_id, InstanceStatus.FAILED,
+                        reason_code=Reasons.NODE_LOST.code)
+                    failed.append(inst.task_id)
+        for tid in list(missing):
+            if tid not in live:
+                missing.pop(tid)  # cluster came back (or task finished)
+        return failed
+
+    def _reap_stragglers(self, current_ms: int,
+                         running=None, skip=frozenset()) -> List[str]:
+        killed: List[str] = []
+        groups: Dict[str, List] = {}
+        if running is None:
+            running = self.store.running_instances()
+        for job, inst in running:
+            if inst.task_id in skip:
+                continue
+            if job.group:
+                groups.setdefault(job.group, []).append((job, inst))
+        for group_uuid, members in groups.items():
+            group = self.store.group(group_uuid)
+            if group is None or group.straggler_quantile is None \
+                    or group.straggler_multiplier is None:
+                continue
+            runtimes = []
+            for member_uuid in group.jobs:
+                member = self.store.job(member_uuid)
+                if member is None:
+                    continue
+                for tid in member.instances:
+                    mi = self.store.instance(tid)
+                    if mi is not None and mi.status is InstanceStatus.SUCCESS \
+                            and mi.end_time_ms:
+                        runtimes.append(mi.end_time_ms - mi.start_time_ms)
+            if not runtimes:
+                continue
+            runtimes.sort()
+            q_idx = min(len(runtimes) - 1,
+                        int(group.straggler_quantile * len(runtimes)))
+            threshold = runtimes[q_idx] * group.straggler_multiplier
+            for job, inst in members:
+                if current_ms - inst.start_time_ms > threshold:
+                    self._kill_instance(inst.task_id, Reasons.STRAGGLER.code)
+                    killed.append(inst.task_id)
+        return killed
+
     # ------------------------------------------------------------------ kills
     def kill_instance(self, task_id: str, reason_code: int) -> None:
         """Public single-instance kill: authoritative store transition first,
@@ -1126,7 +1283,51 @@ class Scheduler:
                 q.all_tasks_done.wait(remaining)
         return True
 
-    # -------------------------------------------------------------- lifecycle
+    # ------------------------------------------------------------- wall clock
+    def run(self) -> None:
+        """Start background cycle threads (the chime equivalent)."""
+        cfg = self.config
+
+        def loop(interval, fn) -> None:
+            # interval may be a callable so dynamically-tunable cadences
+            # (the rebalancer's no-restart interval-seconds) take effect on
+            # the next tick instead of being frozen at startup
+            while not self._stop.wait(interval() if callable(interval)
+                                      else interval):
+                try:
+                    fn()
+                except Exception:  # pragma: no cover - cycle errors are logged
+                    import logging
+                    logging.getLogger(__name__).exception("cycle failed")
+
+        if cfg.cycle_mode == "fused" and self.ranker.backend != "cpu":
+            # production path: one fused rank+match dispatch per cycle,
+            # followed by the idle-point GC maintenance (gc_discipline)
+            def fused_tick():
+                self.step_cycle()
+                self.maintain_gc()
+            specs = [(cfg.match_interval_seconds, fused_tick)]
+        else:
+            specs = [(cfg.rank_interval_seconds, self.step_rank),
+                     (cfg.match_interval_seconds, self.step_match)]
+        specs += [
+            (lambda: self.rebalancer.effective_params().interval_seconds,
+             self.step_rebalance),
+            (cfg.lingering_task_interval_seconds, self.step_reapers),
+            (cfg.monitor_interval_seconds, self.monitor.sweep),
+        ]
+        if cfg.elastic.enabled:
+            specs.append((cfg.elastic.resize_interval_seconds,
+                          self.step_resize))
+        for interval, fn in specs:
+            t = threading.Thread(target=loop, args=(interval, fn), daemon=True)
+            t.start()
+            self._threads.append(t)
+        # the optimizer's loop (the reference's last spec) is refused at
+        # construction: see _refuse_unported
+
     def shutdown(self) -> None:
-        """Stop the side-effect worker."""
+        """Stop the loops ``run`` started and the side-effect worker."""
         self._stop.set()
+        for t in self._threads:
+            t.join(timeout=5)

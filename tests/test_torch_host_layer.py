@@ -185,6 +185,14 @@ def test_lazy_imports_are_walked():
     assert ("cook_tpu_torch.state.store", "cook_tpu_torch.state.index") \
         in seen
     assert ("cook_tpu_torch.sched.fused", "cook_tpu_torch.ops.delta") in seen
+    # the leader's planes: the monitor's lazy imports of the request
+    # observer, the saturation layer and the partition idiom
+    for mod, tgt in (("sched.monitor", "rest.instrument"),
+                     ("sched.monitor", "sched.fleet"),
+                     ("sched.admission", "state.partition"),
+                     ("sched.fleet", "state.partition"),
+                     ("sched.scheduler", "sched.admission")):
+        assert (f"cook_tpu_torch.{mod}", f"cook_tpu_torch.{tgt}") in seen
     assert len(IMPORTS) > 100
 
 

@@ -329,3 +329,52 @@ def test_sync_resident_fault_repacks(fault):
                         applier=applier)
     assert nxt.reason == "delta" and nxt.k == 1
     assert torch.equal(nxt.flags_dev, torch.from_numpy(flags3))
+
+
+def _series_sum(registry, name, **labels):
+    return sum(v for lab, v in registry.series(name)
+               if all(lab.get(k) == x for k, x in labels.items()))
+
+
+@pytest.mark.parametrize("world", ["plain", "backoff_cap"])
+@pytest.mark.parametrize("fault", ["delta.extract", "delta.apply"])
+def test_driver_fault_repack_parity(fault, world):
+    """The production driver with a resident-delta fault armed on its
+    second cycle (a status-only change, which takes the delta path):
+    both packages repack with reason ``fault``, count the fallback once,
+    and launch the same pairs on every cycle, before and after."""
+    import importlib
+    from test_torch_driver import PORT, REF, WORLDS, World, counts, launched
+    sides = [World(m, WORLDS[world], 3) for m in (REF, PORT)]
+    mods = [(importlib.import_module(f"{m.root}.utils.faults").injector,
+             importlib.import_module(f"{m.root}.utils.metrics").registry)
+            for m in (REF, PORT)]
+    before = [(_series_sum(reg, "cook_kernel_fallback", kernel=fault),
+               _series_sum(reg, "cook_resident_repack", reason="fault"))
+              for _inj, reg in mods]
+    for c in range(4):
+        if c == 1:
+            for inj, _reg in mods:
+                inj.clear()
+                inj.arm(fault, schedule=[0])
+        try:
+            res = [w.cycle() for w in sides]
+        finally:
+            for inj, _reg in mods:
+                inj.clear()
+        assert launched(sides[0], res[0]) == launched(sides[1], res[1]), c
+        assert counts(res[0]) == counts(res[1]), c
+        for w in sides:
+            # status-only churn: the next cycle's change is a delta
+            w.now[0] += 60_000
+            running = [t for j in sorted(w.jobs, key=lambda j: j.uuid)
+                       for t in w.store.job(j.uuid).instances
+                       if w.store.instance(t).status
+                       is w.m.InstanceStatus.RUNNING]
+            for n, tid in enumerate(running[:2]):
+                w.cluster.complete_task(tid, exit_code=n)
+    after = [(_series_sum(reg, "cook_kernel_fallback", kernel=fault),
+              _series_sum(reg, "cook_resident_repack", reason="fault"))
+             for _inj, reg in mods]
+    assert [(a[0] - b[0], a[1] - b[1]) for a, b in zip(after, before)] == \
+        [(1, 1), (1, 1)]

@@ -14,6 +14,7 @@ both sides.
 """
 
 import threading
+import types
 
 import numpy as np
 import pytest
@@ -242,11 +243,12 @@ def test_default_device_without_a_card_raises():
         Rebalancer(PORT.Store(), PORT.Config())
 
 
-@pytest.mark.parametrize("knob", ["admission", "warmup", "cache"])
+@pytest.mark.parametrize("knob", ["optimizer", "warmup", "cache"])
 def test_unported_planes_raise(knob):
     cfg = PORT.Config()
-    if knob == "admission":
-        cfg.admission.enabled = True
+    if knob == "optimizer":
+        # any value: the loop is refused before the config is read
+        cfg.optimizer = object()
     elif knob == "warmup":
         cfg.pipeline.warmup_tasks = 64
         cfg.pipeline.warmup_hosts = 64
@@ -319,3 +321,367 @@ def test_failed_dispatch_degrades_like_the_reference(depth):
     assert counts(ra) == counts(rb)
     assert queues(ref) == queues(port)
     assert sum(len(v) for v in launched(port, rb).values()) > 0
+
+
+# ------------------------------------------------------- elastic resize
+def elastic_system(m, n_hosts=6, grace_s=0.0, size=4, lo=2, hi=None):
+    """The reference's ``tests/test_elastic.py`` system: split cycle on
+    the cpu backend, ``n_hosts`` 4-cpu hosts, one elastic gang ``g1``."""
+    cfg = m.Config()
+    cfg.cycle_mode = "split"
+    cfg.pipeline.depth = 0
+    cfg.elastic.shrink_grace_seconds = grace_s
+    cfg.default_matcher.backend = "cpu"
+    cfg.columnar_index = False
+    store = m.Store()
+    now = [1000.0]
+    store.clock = lambda: now[0]
+    hosts = [m.FakeHost(f"h{i}", m.Resources(cpus=4.0, mem=4096.0))
+             for i in range(n_hosts)]
+    cluster = m.FakeCluster("fake", hosts)
+    sched = _scheduler(m, store, cfg, [cluster], rank_backend="cpu")
+    group = m.Group(uuid="g1", gang=True, gang_size=size, gang_min=lo,
+                    gang_max=hi if hi is not None else size, jobs=[])
+    jobs = [m.Job(uuid=f"g1-m{i}", user="train", command="x",
+                  max_retries=5, resources=m.Resources(cpus=4.0, mem=1024.0),
+                  group="g1") for i in range(size)]
+    group.jobs = [j.uuid for j in jobs]
+    store.create_jobs(jobs, groups=[group])
+    return types.SimpleNamespace(m=m, store=store, cluster=cluster,
+                                 sched=sched, now=now, jobs=jobs)
+
+
+def _scheduler(m, store, cfg, clusters, **kw):
+    if m is REF:
+        return cook_tpu.sched.Scheduler(store, cfg, clusters, **kw)
+    return cook_tpu_torch.sched.Scheduler(store, cfg, clusters,
+                                          device="cpu", **kw)
+
+
+def split(s):
+    s.sched.step_rank()
+    return s.sched.step_match()
+
+
+def job_states(s, anonymous=False):
+    """Every job's state and its instances' (status, reason) in order —
+    comparable across packages (task ids are random).  ``anonymous``
+    drops the job uuids and sorts: the elastic pressure sheds the newest
+    of members launched in one cycle, a tie its task ids break."""
+    out = []
+    for j in sorted(s.store.jobs_where(lambda _j: True, clone=False),
+                    key=lambda j: j.uuid):
+        insts = [s.store.instance(t) for t in j.instances]
+        out.append((j.uuid, j.state.name,
+                    [(i.status.name, i.reason_code) for i in insts]))
+    return sorted(o[1:] for o in out) if anonymous else out
+
+
+def _last_task(s, res):
+    """The task of the last job (by uuid) this result launched."""
+    tids = res["default"].launched_task_ids
+    return max(tids, key=lambda t: s.store.instance(t).job_uuid)
+
+
+def _grace_shrink(s):
+    trace = []
+    tid = _last_task(s, split(s))
+    inst = s.store.instance(tid)
+    trace.append(s.sched.elastic.request_shrink(
+        tid, inst.job_uuid, "g1", "fake", s.sched.clusters,
+        reason="pressure", facts={"by": "test"}))
+    trace.append(s.sched.elastic.request_shrink(
+        tid, inst.job_uuid, "g1", "fake", s.sched.clusters))
+    trace.append(s.cluster.notifications[tid][0]["kind"])
+    for dt in (4000, 2000):
+        s.now[0] += dt
+        trace.append((s.sched.step_resize(), job_states(s)))
+    trace.append(s.store.gang_live_members("g1"))
+    return trace
+
+
+def _zero_grace(s):
+    tid = _last_task(s, split(s))
+    inst = s.store.instance(tid)
+    s.sched.elastic.request_shrink(tid, inst.job_uuid, "g1", "fake",
+                                   s.sched.clusters)
+    return [job_states(s), s.sched.step_resize()]
+
+
+def _pressure_surplus(s):
+    split(s)
+    trace = [s.store.gang_live_members("g1")]
+    s.sched.elastic.shrink_pressure["default"] = 5
+    for _ in range(2):
+        trace.append((s.sched.step_resize(), job_states(s, anonymous=True),
+                      s.store.gang_live_members("g1")))
+    return trace
+
+
+def _pressure_nets_pending(s):
+    res = split(s)
+    tids = sorted(res["default"].launched_task_ids,
+                  key=lambda t: s.store.instance(t).job_uuid)
+    for tid in tids[:2]:
+        inst = s.store.instance(tid)
+        s.sched.elastic.request_shrink(tid, inst.job_uuid, "g1", "fake",
+                                       s.sched.clusters)
+    s.sched.elastic.shrink_pressure["default"] = 2
+    trace = [s.sched.elastic.apply_pressure("default", s.sched.clusters)]
+    s.now[0] += 61_000
+    trace.append((s.sched.step_resize(), job_states(s),
+                  s.store.gang_live_members("g1")))
+    return trace
+
+
+def _regrow_to_max(s):
+    trace = []
+    for _ in range(3):
+        split(s)
+    trace.append(s.store.gang_live_members("g1"))
+    s.sched.elastic.shrink_pressure["default"] = 1
+    trace.append((s.sched.step_resize(), job_states(s, anonymous=True)))
+    for _ in range(3):
+        split(s)
+    trace.append((s.store.gang_live_members("g1"),
+                  job_states(s, anonymous=True)))
+    return trace
+
+
+def _rigid_noop(s):
+    split(s)
+    return [s.sched.step_resize(), job_states(s)]
+
+
+def _disabled(s):
+    split(s)
+    s.sched.config.elastic.enabled = False
+    s.sched.elastic.shrink_pressure["default"] = 3
+    return [s.sched.step_resize(), job_states(s)]
+
+
+RESIZE_WORLDS = {
+    "grace_shrink": ({"grace_s": 5.0}, _grace_shrink),
+    "zero_grace": ({}, _zero_grace),
+    "pressure_sheds_only_surplus": ({"lo": 3}, _pressure_surplus),
+    "pressure_nets_out_pending": ({"grace_s": 60.0},
+                                  _pressure_nets_pending),
+    "regrow_to_max": ({"n_hosts": 8, "size": 8, "hi": 4}, _regrow_to_max),
+    "rigid_noop": ({"n_hosts": 3, "size": 2, "lo": 2}, _rigid_noop),
+    "disabled": ({}, _disabled),
+}
+
+
+@pytest.mark.parametrize("name", sorted(RESIZE_WORLDS))
+def test_step_resize_parity(name):
+    """``step_resize`` on the reference's elastic worlds
+    (``tests/test_elastic.py``): each side's results, job and instance
+    states and live gang members equal after every step."""
+    kw, fn = RESIZE_WORLDS[name]
+    traces = [fn(elastic_system(m, **kw)) for m in (REF, PORT)]
+    assert traces[0] == traces[1]
+    if name == "grace_shrink":
+        assert traces[1][3][0] == {} and traces[1][4][0] == \
+            {"_grace_expired": 1}
+    elif name == "regrow_to_max":
+        assert traces[1][0] == 4 and traces[1][2][0] == 4
+
+
+# ---------------------------------------------------------------- reapers
+def reaper_system(m, n_hosts=2, heartbeat=False, clusters=True):
+    cfg = m.Config()
+    cfg.default_matcher.backend = "cpu"
+    cfg.heartbeat_enabled = heartbeat
+    cfg.heartbeat_timeout_ms = 1000
+    cfg.orphaned_cluster_grace_seconds = 30.0
+    store = m.Store()
+    now = [10_000_000]
+    store.clock = lambda: now[0]
+    cluster = m.FakeCluster("fake-1", [
+        m.FakeHost(hostname=f"h{i}", capacity=m.Resources(cpus=8.0,
+                                                           mem=8192.0))
+        for i in range(n_hosts)])
+    sched = _scheduler(m, store, cfg, [cluster] if clusters else [],
+                       rank_backend="cpu")
+    return types.SimpleNamespace(m=m, store=store, cluster=cluster,
+                                 sched=sched, now=now, jobs=[])
+
+
+def _submit(s, n, tag, **kw):
+    m = s.m
+    jobs = [m.Job(uuid=uuid(tag, i), user=f"u{i % 2}", command="x",
+                  resources=m.Resources(cpus=1.0, mem=64.0),
+                  submit_time_ms=1000 + i, **kw) for i in range(n)]
+    s.store.create_jobs(jobs)
+    s.jobs += jobs
+    return jobs
+
+
+def _reaped(s, current):
+    """The reapers' kills as job uuids, in order, and the states."""
+    killed = s.sched.step_reapers(current_ms=current)
+    return [s.store.instance(t).job_uuid for t in killed], job_states(s)
+
+
+def _max_runtime(s):
+    _submit(s, 3, 1, max_runtime_ms=10, max_retries=1)
+    _submit(s, 2, 2)
+    split(s)
+    return [_reaped(s, s.now[0] + 5), _reaped(s, s.now[0] + 100)]
+
+
+def _heartbeat(s):
+    _submit(s, 3, 1, max_retries=5)
+    split(s)
+    tids = sorted((t for j in s.jobs for t in s.store.job(j.uuid).instances),
+                  key=lambda t: s.store.instance(t).job_uuid)
+    base = s.sched.heartbeats.last_beat(tids[0])
+    s.sched.heartbeats.beat(tids[1], base + 4500)
+    return [_reaped(s, base + 500), _reaped(s, base + 5000),
+            s.sched.heartbeats.tracked_count()]
+
+
+def _orphans(s):
+    m = s.m
+    [j] = _submit(s, 1, 1)
+    s.store.launch_instance(j.uuid, "t1", hostname="h",
+                            compute_cluster="gone-cluster")
+    s.store.update_instance_status("t1", m.InstanceStatus.RUNNING)
+    t0 = s.now[0]
+    trace = [_reaped(s, t) for t in (t0, t0 + 29_000)]
+    # a successor starts mid-grace: it re-arms the window
+    s.sched = _scheduler(m, s.store, s.sched.config, [], rank_backend="cpu")
+    trace += [_reaped(s, t) for t in (t0 + 45_000, t0 + 74_000,
+                                      t0 + 76_000)]
+    return trace
+
+
+def _stragglers(s):
+    m = s.m
+    g = m.Group(uuid="55555555-0000-0000-0000-000000000000", name="g",
+                straggler_quantile=0.5, straggler_multiplier=2.0)
+    jobs = [m.Job(uuid=uuid(3, i), user="u0", command="x", group=g.uuid,
+                  resources=m.Resources(cpus=1.0, mem=64.0), max_retries=3,
+                  submit_time_ms=1000 + i) for i in range(6)]
+    g.jobs = [j.uuid for j in jobs]
+    s.store.create_jobs(jobs, groups=[g])
+    s.jobs += jobs
+    split(s)
+    tids = sorted((t for j in jobs for t in s.store.job(j.uuid).instances),
+                  key=lambda t: s.store.instance(t).job_uuid)
+    for n, tid in enumerate(tids[:3]):
+        s.now[0] += 1000 * (n + 1)
+        s.cluster.complete_task(tid, exit_code=0)
+    start = s.store.instance(tids[3]).start_time_ms
+    return [_reaped(s, start + 4000), _reaped(s, start + 20_000)]
+
+
+def _killed_once(s):
+    """A task over its max runtime on a vanished cluster, in a group with
+    a straggler rule: every reaper would kill it, it is killed (and
+    listed) once."""
+    m = s.m
+    g = m.Group(uuid="66666666-0000-0000-0000-000000000000", name="g",
+                straggler_quantile=0.0, straggler_multiplier=1.0)
+    jobs = [m.Job(uuid=uuid(4, i), user="u0", command="x", group=g.uuid,
+                  resources=m.Resources(cpus=1.0, mem=64.0), max_retries=3,
+                  max_runtime_ms=50, submit_time_ms=1000 + i)
+            for i in range(3)]
+    g.jobs = [j.uuid for j in jobs]
+    s.store.create_jobs(jobs, groups=[g])
+    s.jobs += jobs
+    s.store.launch_instance(jobs[0].uuid, "t-done", hostname="h0",
+                            compute_cluster="fake-1")
+    s.store.update_instance_status("t-done", m.InstanceStatus.RUNNING)
+    s.now[0] += 10
+    s.store.update_instance_status("t-done", m.InstanceStatus.SUCCESS)
+    for k, j in enumerate(jobs[1:]):
+        s.store.launch_instance(j.uuid, f"t{k}", hostname="h",
+                                compute_cluster="gone-cluster")
+        s.store.update_instance_status(f"t{k}", m.InstanceStatus.RUNNING)
+    t0 = s.now[0]
+    out = [_reaped(s, t0), _reaped(s, t0 + 31_000)]
+    assert len(out[1][0]) == len(set(out[1][0])) == 2
+    return out
+
+
+REAPER_WORLDS = {
+    "max_runtime": ({}, _max_runtime),
+    "heartbeat": ({"heartbeat": True}, _heartbeat),
+    "heartbeat_disabled": ({}, _heartbeat),
+    "orphan_grace_rearm": ({"clusters": False}, _orphans),
+    "stragglers": ({}, _stragglers),
+    "killed_once": ({}, _killed_once),
+}
+
+
+@pytest.mark.parametrize("name", sorted(REAPER_WORLDS))
+def test_step_reapers_parity(name):
+    """``step_reapers`` on the reference's reaper worlds
+    (``tests/test_e2e.py``, ``tests/test_heartbeat.py``,
+    ``tests/test_robustness.py``) and the straggler rule: the same jobs'
+    tasks killed in the same order with the same reasons."""
+    kw, fn = REAPER_WORLDS[name]
+    traces = [fn(reaper_system(m, **kw)) for m in (REF, PORT)]
+    assert traces[0] == traces[1]
+    kills = [t[0] for t in traces[1] if isinstance(t, tuple)]
+    assert any(kills) == (name != "heartbeat_disabled")
+
+
+# -------------------------------------------------------------------- run
+@pytest.mark.parametrize("mode", ["fused", "split", "elastic"])
+def test_run_starts_the_reference_loops(mode):
+    """``run()`` starts the reference's loop set for the config (the
+    optimizer's aside, which the port refuses at construction), each
+    loop runs on its interval, and ``shutdown()`` joins them."""
+    import threading
+    spec = WORLDS["plain"]
+    sides = []
+    for m in (REF, PORT):
+        w = make_world(m, spec, depth=0,
+                       rank_backend="cpu" if mode == "split" else "tpu")
+        cfg = w.cfg
+        cfg.match_interval_seconds = cfg.rank_interval_seconds = 0.05
+        cfg.lingering_task_interval_seconds = 0.05
+        cfg.monitor_interval_seconds = 0.05
+        cfg.rebalancer.interval_seconds = 0.05
+        cfg.elastic.enabled = mode == "elastic"
+        cfg.elastic.resize_interval_seconds = 0.05
+        sides.append(w)
+    ran = []
+    for w in sides:
+        seen = {}
+        done = threading.Event()
+        want = {"step_cycle" if mode != "split" else "step_match",
+                "step_reapers", "sweep", "step_rebalance"}
+        if mode == "elastic":
+            want.add("step_resize")
+        for name in ("step_cycle", "step_rank", "step_match", "step_reapers",
+                     "step_rebalance", "step_resize"):
+            orig = getattr(w.sched, name)
+
+            def wrapped(*a, _n=name, _f=orig, _s=seen, **k):
+                _s[_n] = _s.get(_n, 0) + 1
+                if want <= set(_s):
+                    done.set()
+                return _f(*a, **k)
+            setattr(w.sched, name, wrapped)
+        orig_sweep = w.sched.monitor.sweep
+
+        def sweep(_f=orig_sweep, _s=seen):
+            _s["sweep"] = _s.get("sweep", 0) + 1
+            if want <= set(_s):
+                done.set()
+            return _f()
+        w.sched.monitor.sweep = sweep
+        try:
+            w.sched.run()
+            n_threads = len(w.sched._threads)
+            assert done.wait(10.0), sorted(seen)
+        finally:
+            w.sched.shutdown()
+        assert not any(t.is_alive() for t in w.sched._threads)
+        ran.append((n_threads, set(seen) & want == want,
+                    "step_cycle" in seen, "step_rank" in seen))
+    assert ran[0] == ran[1]
+    assert ran[1][1]
