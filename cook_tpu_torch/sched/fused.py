@@ -72,6 +72,7 @@ from ..state.schema import DruMode, Job, Pool, SchedulerKind
 from ..state.store import Store
 from ..utils import audit as _audit
 from ..utils import tracing
+from ..utils.faults import injector as _faults
 from ..utils.flight import recorder as _flight
 from ..utils.metrics import registry
 from .constraints import build_constraint_mask, validate_group_placement
@@ -293,7 +294,6 @@ def sync_resident(packs: Dict[bool, ResidentPack], gpu_mode: bool, key: Tuple,
     failed repack raises.  Repacks are counted by reason
     (``resident.repack.<reason>``) and delta rows
     (``resident.delta_rows``) in ``ops.telemetry``."""
-    from ..utils.faults import injector as _faults
     st = packs.get(gpu_mode)
     reason, k = None, 0
     if st is None:
@@ -1166,7 +1166,6 @@ class FusedCycleDriver:
           token budgets.
 
         All are None on the sync path."""
-        from ..utils.faults import injector as _faults
         _faults.fire("fused.dispatch")
 
         pools = [p for p in self.store.pools()

@@ -281,9 +281,9 @@ def test_resident_staging_ships_no_rows_or_flags():
         _stage(c, rows, flags, mirror, resident=True)
 
 
-def _fallbacks(kernel):
-    return sum(v for lab, v in registry.series("cook_kernel_fallback")
-               if lab.get("kernel") == kernel)
+def _series_sum(registry, name, **labels):
+    return sum(v for lab, v in registry.series(name)
+               if all(lab.get(k) == x for k, x in labels.items()))
 
 
 @pytest.mark.parametrize("fault", ["extract", "apply", "bad_buffer"])
@@ -305,7 +305,7 @@ def test_sync_resident_fault_repacks(fault):
         packs[False].flags_buf = packs[False].flags_buf[:-1]  # no dump slot
     else:
         injector.arm(kernel, schedule=[0])
-    before = _fallbacks(kernel)
+    before = _series_sum(registry, "cook_kernel_fallback", kernel=kernel)
     telemetry.reset_all()
     try:
         with recorder.cycle(kind="fused") as rec:
@@ -314,7 +314,8 @@ def test_sync_resident_fault_repacks(fault):
     finally:
         injector.clear()
     assert sync.reason == "fault"
-    assert _fallbacks(kernel) == before + 1
+    assert _series_sum(registry, "cook_kernel_fallback",
+                       kernel=kernel) == before + 1
     assert rec.faults.get("kernel.dispatch-fallback") == 1
     assert telemetry.events()["resident.repack.fault"] == 1
     cold = sync_resident({}, False, ("k",), rows, flags2, 0,
@@ -329,11 +330,6 @@ def test_sync_resident_fault_repacks(fault):
                         applier=applier)
     assert nxt.reason == "delta" and nxt.k == 1
     assert torch.equal(nxt.flags_dev, torch.from_numpy(flags3))
-
-
-def _series_sum(registry, name, **labels):
-    return sum(v for lab, v in registry.series(name)
-               if all(lab.get(k) == x for k, x in labels.items()))
 
 
 @pytest.mark.parametrize("world", ["plain", "backoff_cap"])
