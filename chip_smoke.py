@@ -3211,7 +3211,12 @@ def phase_w(device="cuda", **size) -> dict:
     one sweep under cProfile; then the controller driven to level 0.5
     or below, ``step_rank`` + ``step_match`` counted, recorded and
     replayed (``w_split``), the controller driven back to stage 0; then
-    the reduced world on card and CPU (the card only)."""
+    the reduced world on card and CPU (the card only).  The flight
+    recorder is cleared first: the sweep's ``cycle_p99`` reads the
+    recorder's last ``slo.cycle_window`` cycles, and the earlier phases'
+    profiled and checked steps are no cycles of this world."""
+    from cook_tpu_torch.utils.flight import recorder
+    recorder.reset()
     t0 = time.perf_counter()
     s = sched_world(device, 2, admission=True, **size)
     sweeps = []
