@@ -13,6 +13,9 @@ from __future__ import annotations
 
 import torch
 
+# the reference's release (cook_tpu/__init__.py); /info and /debug report it
+__version__ = "0.1.0"
+
 
 def resolve_device(device) -> torch.device:
     """The device an entry point runs on.  ``"cuda"`` without a card is

@@ -43,16 +43,29 @@ SIDES = (pkg(REF), pkg(PORT))
 DURATIONS = [120.0, 940.0, 1650.0, 300.0, 2100.0, 80.0, 999.0]
 
 
+def fresh_request_log(p):
+    """Put one package's ``request_log`` singleton into its whole default
+    state: a file run earlier on the same worker may have left it
+    configured (ring lengths, ``slow_ms``) or switched off (``enabled``,
+    and ``capture``, which a brownout turns off), and ``reset()`` alone
+    clears only the rings and totals."""
+    log = p.instrument.request_log
+    log.configure(p.m.HttpConfig())
+    log.enabled = True
+    log.capture = True
+    log.reset()
+
+
 @pytest.fixture(autouse=True)
 def _same_cycle_history(monkeypatch):
     for p in SIDES:
         monkeypatch.setattr(
             p.flight.recorder, "recent_durations",
             lambda kinds, limit: DURATIONS[-limit:] if limit > 0 else [])
-        p.instrument.request_log.reset()
+        fresh_request_log(p)
     yield
     for p in SIDES:
-        p.instrument.request_log.reset()
+        fresh_request_log(p)
 
 
 def job(m, uuid, user, cpus=1.0, mem=100.0, pool="default", gpus=0.0,
