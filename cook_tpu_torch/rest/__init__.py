@@ -1,3 +1,5 @@
-"""The port's part of ``cook_tpu/rest``: the request observer
-(``instrument``) alone.  The API, its server and its clients wait for
-ROADMAP queue 1, item 10."""
+"""The port's REST plane (``cook_tpu/rest``): the API over the port's
+``Scheduler`` (``api``), its authenticators (``auth``), the request
+observer (``instrument``) and the instance statistics (``task_stats``)."""
+
+from .api import ApiError, ApiServer, CookApi  # noqa: F401

@@ -1,28 +1,46 @@
-"""The port's copy of the request observer of
-``cook_tpu/rest/instrument.py`` (imports re-rooted): ``RequestObserver``
-and the module-level :data:`request_log` singleton, with what they use
-(``redact_params`` and the bucket and phase constants).  The monitor
-sweep's endpoint-latency SLO and the admission controller's capture
-switch read the singleton.
+"""The port's copy of ``cook_tpu/rest/instrument.py`` (imports re-rooted).
 
-Left out until the REST plane is ported (ROADMAP queue 1, item 10): the
-endpoint templating (``endpoint_template`` and its route tables, which
-import the API's route table) and the gzip helpers of the HTTP server.
+Serving-plane request observability (docs/OBSERVABILITY.md).
 
-Serving-plane request observability (docs/OBSERVABILITY.md): RED
-metrics per endpoint template and bounded capture rings of recent and
-slow requests, each record carrying the request id, trace id, redacted
-query params and the per-phase breakdown.
+This module is the REST plane's measurement layer: before a path can be
+optimized it must decompose.  Three concerns,
+Borg/Dapper style (Verma et al., EuroSys '15; Sigelman et al., 2010):
+
+1. **Endpoint templating.**  Metric labels must be path TEMPLATES
+   (``/jobs/{uuid}``), never raw uuids — the label space is the route
+   table plus one ``{unmatched}`` bucket for 404 garbage, so per-endpoint
+   series stay bounded no matter what clients throw at the socket.  The
+   utils/metrics.py cardinality guard backstops the template resolver.
+
+2. **RED metrics.**  Per-endpoint request counts (by method and status
+   code), duration histograms, an in-flight gauge, and the request-size /
+   phase decomposition (journal append, fsync, replication ack wait) the
+   tracing layer's per-request phase collector feeds — "why was this POST
+   slow" is answerable from /metrics before anyone opens a trace.
+
+3. **Slow-request capture.**  A bounded ring of recent requests plus a
+   ring of requests over the slow threshold, each record carrying the
+   request id, trace id, redacted query params, and the per-phase
+   breakdown — served at ``GET /debug/requests`` with no external
+   collector (zero-egress friendly).
+
+The module-level :data:`request_log` singleton mirrors the repo's other
+observability planes (``utils.flight.recorder``, ``utils.tracing.tracer``).
 """
 
 from __future__ import annotations
 
+import gzip as _gzip
 import threading
 import time as _time
 from collections import deque
 from typing import Any, Dict, List, Optional, Tuple
 
 from ..utils.metrics import registry
+
+# endpoint label value for paths matching no registered route: the 404
+# surface must be one bounded series, not one per probe/typo'd path
+UNMATCHED = "{unmatched}"
 
 # request-size histogram bounds (bytes): submissions range from one tiny
 # job to multi-thousand-job batches
@@ -42,6 +60,48 @@ _REDACT_KEYS = frozenset({"token", "password", "authorization", "secret"})
 _PARAM_VALUE_CAP = 64
 
 
+def endpoint_template(method: str, path: str) -> str:
+    """Resolve a raw (method, path) to its route-table template
+    (``POST /jobs/<uuid>`` -> ``/jobs/{uuid}``); anything not in the
+    table — unknown paths AND wrong-method probes against known paths —
+    folds to :data:`UNMATCHED` so hostile traffic cannot mint metric
+    series or skew a real endpoint's error counts."""
+    static, templated = _route_tables()
+    if (method, path) in static:
+        return path
+    parts = tuple(p for p in path.split("/") if p)
+    for tmethod, tparts, template in templated:
+        if tmethod != method or len(tparts) != len(parts):
+            continue
+        if all(t.startswith("{") or t == p
+               for t, p in zip(tparts, parts)):
+            return template
+    return UNMATCHED
+
+
+_ROUTE_CACHE: Optional[Tuple[frozenset, Tuple]] = None
+
+
+def _route_tables() -> Tuple[frozenset, Tuple]:
+    """(static (method, path) set, ((method, template parts, template),
+    ...)) derived from the API route table; imported lazily (api.py
+    imports this module)."""
+    global _ROUTE_CACHE
+    if _ROUTE_CACHE is None:
+        from .api import API_ROUTES
+        static = set()
+        templated = []
+        for method, path, _summary, _leader in API_ROUTES:
+            if "{" in path:
+                tparts = tuple(p for p in path.split("/") if p)
+                if (method, tparts, path) not in templated:
+                    templated.append((method, tparts, path))
+            else:
+                static.add((method, path))
+        _ROUTE_CACHE = (frozenset(static), tuple(templated))
+    return _ROUTE_CACHE
+
+
 def redact_params(params: Dict[str, List[str]]) -> Dict[str, List[str]]:
     """Query params safe for the capture ring: secret-bearing keys are
     masked, values truncated (a 10k-uuid batch query must not bloat the
@@ -57,6 +117,28 @@ def redact_params(params: Dict[str, List[str]]) -> Dict[str, List[str]]:
             if len(values) > 8:
                 out[key].append(f"…+{len(values) - 8} more")
     return out
+
+
+def wants_gzip(accept_encoding: Optional[str]) -> bool:
+    """True when the client's Accept-Encoding admits gzip (q=0 opt-outs
+    honored)."""
+    for token in (accept_encoding or "").lower().split(","):
+        name, _, qs = token.strip().partition(";")
+        if name in ("gzip", "*"):
+            q = qs.strip()
+            if q.startswith("q="):
+                try:
+                    return float(q[2:]) > 0.0
+                except ValueError:
+                    return False
+            return True
+    return False
+
+
+def gzip_body(data: bytes) -> bytes:
+    # mtime pinned so identical payloads compress identically (test
+    # determinism; nothing reads the gzip timestamp)
+    return _gzip.compress(data, compresslevel=5, mtime=0)
 
 
 class RequestObserver:

@@ -191,7 +191,16 @@ def test_lazy_imports_are_walked():
                      ("sched.monitor", "sched.fleet"),
                      ("sched.admission", "state.partition"),
                      ("sched.fleet", "state.partition"),
-                     ("sched.scheduler", "sched.admission")):
+                     ("sched.scheduler", "sched.admission"),
+                     # the simulator and the REST plane
+                     ("sim.overload", "rest.instrument"),
+                     ("sim.__main__", "sim.overload"),
+                     ("rest.api", "sched.admission"),
+                     ("rest.api", "state.partition"),
+                     ("rest.instrument", "rest.api"),
+                     ("rest.task_stats", "state.partition"),
+                     ("sched.unscheduled", "sched.ranker"),
+                     ("client", "utils.retry")):
         assert (f"cook_tpu_torch.{mod}", f"cook_tpu_torch.{tgt}") in seen
     assert len(IMPORTS) > 100
 
