@@ -39,6 +39,12 @@ cuts the split cycle's considerable window, at the same world; a failed
 fused cycle degraded to the split path and resident-delta faults
 repacked; the reapers on the full cluster.
 
+The user entry points: the trace-replay simulator
+(``cook_tpu_torch.sim``) on a 20,000-job burst over 1,000 hosts, and
+the REST plane (``rest/api.CookApi`` behind ``ApiServer``, driven by
+``client.JobClient``) at the JAX package's serving bench world; each
+runs the scheduler's cycle on the card.
+
   1. prints the card's name and power limit (nvidia-smi);
   2. builds the kernels from ``cook_tpu_torch/ops/csrc`` (nvcc);
   3. phase F: K1, K2, K3, K5 and K5+K6 against their plain versions,
@@ -203,6 +209,35 @@ repacked; the reapers on the full cluster.
      one timed ``step_reapers`` on phase V's full cluster, where 1% of
      the jobs carry a max runtime of 1 ms (``reapers_ms``, the number
      killed, each ``max-runtime-exceeded``);
+  6j. phase Y: the simulator (``cook_tpu_torch.sim``). Y1: one
+     ``Simulator.run`` with ``Config()`` defaults (fused, depth 2) of
+     ``generate_example_trace(n_jobs=20_000, n_users=200, span_ms=
+     10_000, duration_ms=10_000)`` with fixed uuids over
+     ``generate_example_hosts(1_000)``, counted (``simulator``); at every
+     tick no host over its capacity and no job live twice, and every
+     launch of the tick before replayed against its plain version; wall
+     time, virtual makespan, ``step_cycle`` calls and their p50 and p99,
+     placements, completions (all), waits, preemptions, the flight
+     summary.  Y2: 2,000 jobs from 50 users over 100 hosts on the card
+     and with ``device="cpu"``, the same task records and summary less
+     its host-clock fields.  Y3: ``run_pipeline_parity`` (seed 3, 600
+     jobs, 40 hosts, depth 2) ok.  Y4: ``run_overload()`` ok.  Y5:
+     ``python -m cook_tpu_torch.sim --out <csv>`` in process, exit 0;
+  6k. phase Z: the REST plane at ``bench.py::bench_rest_plane``'s world
+     (a journaled ``Store.open``, ``Config()`` at depth 0, 200 hosts of
+     64 cpus and 65,536 MB, ``status_queue_shards=2``, ``CookApi`` behind
+     an ``ApiServer`` on localhost). Z1: 4 ``JobClient`` writers submit
+     2,000 jobs in batches of 20 (submissions a second, request p50 and
+     p99).  Z2: ``step_cycle`` until no job waits (at most 20), counted
+     (``rest``), every launch replayed against its plain version, no
+     host oversubscribed.  Z3: ten unplaceable jobs more; every
+     acknowledged job read back by ``GET /jobs/{uuid}`` at 1, 4 and 8
+     readers (QPS, p50, p99), its status and hosts the store's;
+     ``/queue``, ``/unscheduled_jobs``, ``/usage``, ``/metrics`` and
+     ``/debug`` answer.  Z4: after shutdown the journal reopened, every
+     acknowledged job there in its state.  Z5: one writer with fixed
+     uuids and a pinned store clock, 500 jobs over 50 hosts, on the card
+     and with ``device="cpu"``: the same pairs and job bodies;
   7. phase D: the two top-K kernels (structured at 100,000 x 50,000,
      E = 256; dense at 10,000 x 50,000), counted, then held against
      their plain versions (fit bit for bit, host where fit > -inf) and
@@ -226,8 +261,9 @@ repacked; the reapers on the full cluster.
      phase Q's legs as ``scheduler_sync`` and ``scheduler_pipelined``,
      phase V's ``step_rank`` and ``step_match`` as ``scheduler_split``,
      its ``step_rebalance`` as ``rebalancer``, phase W's split cycle as
-     ``admission_split`` and phase X's degraded cycles as
-     ``scheduler_degraded``)
+     ``admission_split``, phase X's degraded cycles as
+     ``scheduler_degraded``, phase Y1 as ``simulator`` and phase Z2 as
+     ``rest``)
      and last ``{"ok": true, "device": {...}}``.
 
 Usage: ``python3 chip_smoke.py`` from the root of a checkout (needs one
@@ -240,6 +276,7 @@ from __future__ import annotations
 import cProfile
 import json
 import pstats
+import re
 import statistics
 import subprocess
 import sys
@@ -3398,6 +3435,504 @@ def phase_x(v) -> dict:
             for k in set(counts[0]) | set(counts[2])}
 
 
+# ------------------------------------------ phase Y: the simulator
+# generate_example_trace(n_jobs=20_000, n_users=200, span_ms=10_000,
+# duration_ms=10_000) over generate_example_hosts(1_000), uuids fixed as
+# run_pipeline_parity fixes them, Config() defaults (fused, depth 2):
+# about 20,000 jobs pending behind 1,000 hosts within the first cycles,
+# drained at most max_jobs_considered (1,000) a cycle
+Y_JOBS, Y_USERS, Y_HOSTS = 20_000, 200, 1_000
+Y_SPAN_MS = Y_DURATION_MS = 10_000
+Y_SMALL = {"n_jobs": 2_000, "n_users": 50, "hosts": 100}  # card = CPU
+# summary() and flight-summary fields read off the host's clock
+Y_HOST_CLOCK = ("match_cycle_p50_ms", "match_cycle_p99_ms",
+                "rank_cycle_p50_ms", "placements_per_wall_s")
+Y_FLIGHT_HOST_CLOCK = ("cycle_ms_p50", "cycle_ms_p99", "detail_ms",
+                       "sync_wait_ms")
+
+
+class ReplayingRecorder:
+    """Records every stage-wrapper launch between two ``drain`` calls and
+    replays each against its plain version at the ``drain``, on the
+    inputs it was launched with (the resident buffers are scattered into
+    only at the next stage).  The replays' own launches are counted by
+    the wrappers' launchers; ``launches`` takes them off the counts."""
+
+    def __init__(self, what: str):
+        from cook_tpu_torch.ops import cuda_lib, telemetry
+        self.cuda_lib, self.telemetry, self.what = cuda_lib, telemetry, what
+        self.extra, self.held, self.replayed = {}, {}, 0
+        self._ctx = None
+
+    def start(self) -> None:
+        self.telemetry.reset_all()
+        self._ctx = self.cuda_lib.recording()
+        self.calls = self._ctx.__enter__()
+
+    def drain(self) -> None:
+        calls = self.calls
+        self._ctx.__exit__(None, None, None)
+        if calls:
+            before = self.telemetry.snapshot()
+            for k, n in replay_all(calls, self.what).items():
+                self.held[k] = self.held.get(k, 0) + n
+            after = self.telemetry.snapshot()
+            for k, n in after.items():
+                self.extra[k] = self.extra.get(k, 0) + n - before.get(k, 0)
+            self.replayed += len(calls)
+        self._ctx = self.cuda_lib.recording()
+        self.calls = self._ctx.__enter__()
+
+    def stop(self) -> dict:
+        """Replay what is left; the launches counted in between, less the
+        replays'."""
+        self.drain()
+        self._ctx.__exit__(None, None, None)
+        self._ctx = None
+        return {k: n - self.extra.get(k, 0)
+                for k, n in self.telemetry.snapshot().items()}
+
+
+def y_trace(n_jobs=Y_JOBS, n_users=Y_USERS, hosts=Y_HOSTS, seed=SEED):
+    from cook_tpu_torch.sim import (generate_example_hosts,
+                                    generate_example_trace, load_hosts,
+                                    load_trace)
+    entries = generate_example_trace(n_jobs=n_jobs, n_users=n_users,
+                                     seed=seed, span_ms=Y_SPAN_MS,
+                                     duration_ms=Y_DURATION_MS)
+    for i, e in enumerate(entries):
+        e["uuid"] = f"00000000-0000-4000-8000-{i:012d}"
+    return load_trace(entries), load_hosts(generate_example_hosts(hosts))
+
+
+def y_check_live(sim, what: str) -> int:
+    """No host of the simulator's cluster over its capacity and no job
+    with two live instances; returns the live count."""
+    caps = {h.hostname: np.array([h.capacity.cpus, h.capacity.mem])
+            for h in sim.cluster._hosts.values()}
+    used, per_job = {}, {}
+    live = sim.store.running_instances(clone=False)
+    for job, inst in live:
+        u = used.setdefault(inst.hostname, np.zeros(2))
+        u += (job.resources.cpus, job.resources.mem)
+        per_job[job.uuid] = per_job.get(job.uuid, 0) + 1
+    over = [h for h, u in used.items() if (u > caps[h]).any()]
+    if over:
+        raise AssertionError(f"{what}: hosts oversubscribed: {over[:5]}")
+    twice = [u for u, n in per_job.items() if n > 1]
+    if twice:
+        raise AssertionError(f"{what}: jobs with two live instances: "
+                             f"{twice[:5]}")
+    return len(live)
+
+
+def y_run(device="cuda", record=False, **size):
+    """One ``Simulator.run`` of ``y_trace(**size)`` with ``Config()``
+    defaults on ``device``; the store is checked at every tick, and with
+    ``record`` every launch is replayed against its plain version at the
+    tick after it.  Returns (result, sim, wall s, launches, replays)."""
+    from cook_tpu_torch.config import Config
+    from cook_tpu_torch.sim import Simulator
+    trace, hosts = y_trace(**size)
+    sim = Simulator(trace, hosts, config=Config(), device=device)
+    rec = ReplayingRecorder("phase Y1") if record else None
+    ticks = [0]
+
+    def on_tick(now_ms):
+        ticks[0] += 1
+        y_check_live(sim, f"phase Y {device} tick {ticks[0]}")
+        if rec is not None:
+            rec.drain()
+
+    sim.on_tick = on_tick
+    if rec is not None:
+        rec.start()
+    t0 = time.perf_counter()
+    try:
+        res = sim.run()
+    finally:
+        counts = rec.stop() if rec is not None else None
+    wall = time.perf_counter() - t0
+    sim.scheduler.shutdown()
+    if res.completed != res.total:
+        raise AssertionError(f"phase Y {device}: {res.completed} of "
+                             f"{res.total} jobs completed")
+    return res, sim, wall, counts, rec, ticks[0]
+
+
+def y_comparable(res) -> tuple:
+    """(task records less the task id, summary less the host clock)."""
+    recs = [{k: v for k, v in r.items() if k != "task"}
+            for r in res.task_records]
+    summ = {k: v for k, v in res.summary().items() if k not in Y_HOST_CLOCK}
+    summ["flight"] = {k: v for k, v in summ["flight"].items()
+                      if k not in Y_FLIGHT_HOST_CLOCK}
+    return recs, summ
+
+
+def phase_y(device="cuda", y1=None, small=None, parity=None,
+            overload=None, main_argv=()) -> dict:
+    """The simulator on the card: Y1 one world at full width, counted
+    (path ``simulator``); Y2 the reduced world on the card and with
+    ``device="cpu"``; Y3 ``run_pipeline_parity``; Y4 ``run_overload()``;
+    Y5 ``python -m cook_tpu_torch.sim`` in process."""
+    import contextlib
+    import io
+    import tempfile
+
+    from cook_tpu_torch.sim.__main__ import main as sim_main
+    from cook_tpu_torch.sim.overload import run_overload
+    from cook_tpu_torch.sim.simulator import run_pipeline_parity
+    t0 = time.perf_counter()
+    card = device == "cuda"
+    out = {"phase": "Y"}
+    res, _sim, wall, counts, rec, ticks = y_run(
+        device, record=card, **(y1 or {}))
+    summ = res.summary()
+    mw = res.match_wall_ms
+    out["y1"] = {
+        "jobs": res.total, "completed": res.completed, "wall_s": wall,
+        "ticks": ticks, "makespan_virtual_s": summ["makespan_virtual_s"],
+        "step_cycle_calls": len(mw),
+        "step_cycle_ms_p50": float(np.percentile(mw, 50)),
+        "step_cycle_ms_p99": float(np.percentile(mw, 99)),
+        "placements": res.placements, "preemptions": res.preemptions,
+        "wait_time_p50_s": summ["wait_time_p50_s"],
+        "wait_time_p99_s": summ["wait_time_p99_s"],
+        "flight": summ["flight"]}
+    if card:
+        missing = [k for k in SOURCES if counts.get(k, 0) <= 0]
+        if missing:
+            raise AssertionError(f"phase Y1: kernels not launched: "
+                                 f"{missing}")
+        out["y1"]["launches_per_kernel"] = counts
+        out["y1"]["replayed_equal_to_plain"] = rec.replayed
+        out["y1"]["replayed_by_wrapper"] = rec.held
+    print(json.dumps(out["y1"]))
+    del out["y1"]["flight"]   # printed above
+    del res, _sim
+
+    small = small or Y_SMALL
+    t1 = time.perf_counter()
+    legs = [y_run(d, **small) for d in (device, "cpu")]
+    got = [y_comparable(leg[0]) for leg in legs]
+    if got[0][0] != got[1][0]:
+        raise AssertionError("phase Y2: card and CPU task records differ")
+    if got[0][1] != got[1][1]:
+        diff = {k: (got[0][1].get(k), got[1][1].get(k))
+                for k in set(got[0][1]) | set(got[1][1])
+                if got[0][1].get(k) != got[1][1].get(k)}
+        raise AssertionError(f"phase Y2: summaries differ: {diff}")
+    out["y2"] = {"jobs": small["n_jobs"], "records": len(got[0][0]),
+                 "card_wall_s": legs[0][2], "cpu_wall_s": legs[1][2],
+                 "wall_s": time.perf_counter() - t1}
+    del legs, got
+
+    t1 = time.perf_counter()
+    par = run_pipeline_parity(device=device, **(parity or {
+        "seed": 3, "n_jobs": 600, "n_hosts": 40, "depth": 2}))
+    if not par["ok"]:
+        raise AssertionError(f"phase Y3: pipeline parity failed: {par}")
+    out["y3"] = {k: par[k] for k in (
+        "jobs", "depth", "sync_completed", "pipelined_completed",
+        "launched_equal", "pipelined_conflicts", "sync_placements",
+        "pipelined_placements")}
+    out["y3"]["wall_s"] = time.perf_counter() - t1
+
+    t1 = time.perf_counter()
+    ov = run_overload(device=device, **(overload or {}))
+    if not ov["ok"]:
+        raise AssertionError(f"phase Y4: overload replay failed: {ov}")
+    out["y4"] = {**{k: ov[k] for k in (
+        "offered", "admitted", "shed_total", "completed",
+        "committed_writes_lost", "wait_p99_s")},
+        "max_stage": ov["admission"]["max_stage"],
+        "wall_s": time.perf_counter() - t1}
+
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        csv_path = Path(tmp) / "records.csv"
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            rc = sim_main([*main_argv, "--device", device,
+                           "--out", str(csv_path)])
+        rows = len(csv_path.read_text().splitlines()) - 1
+    if rc != 0 or rows <= 0:
+        raise AssertionError(f"phase Y5: exit {rc}, {rows} records")
+    y5 = json.loads(printed.getvalue())
+    out["y5"] = {"exit": rc, "records": rows,
+                 "jobs_completed": y5["jobs_completed"],
+                 "jobs_total": y5["jobs_total"],
+                 "wall_s": time.perf_counter() - t1}
+    out["wall_s"] = time.perf_counter() - t0
+    print(json.dumps(out))
+    return counts or {}
+
+
+# ---------------------------------------------- phase Z: the REST plane
+# bench.py::bench_rest_plane's world (:1729-1790): a journaled store,
+# Config() with pipeline.depth 0, 200 hosts of 64 cpus and 65,536 MB,
+# status_queue_shards=2; 4 JobClient writers submit 2,000 jobs of 1 cpu
+# and 64 MB in batches of 20
+Z_JOBS, Z_BATCH, Z_WRITERS, Z_HOSTS = 2_000, 20, 4, 200
+Z_CYCLES = 20
+Z_READERS = (1, 4, 8)
+Z_SMALL = {"n_jobs": 500, "hosts": 50}    # card = CPU, one writer
+Z_TASK_ID = re.compile(r"\b(?!00000000-)[0-9a-f]{8}-[0-9a-f]{4}-4[0-9a-f]"
+                       r"{3}-[89ab][0-9a-f]{3}-[0-9a-f]{12}\b")
+
+
+def z_stack(device="cuda", directory=None, hosts=Z_HOSTS, shards=2,
+            clock=None):
+    """The REST deployment: a store (journaled in ``directory``), the
+    fake cluster, the port's ``Scheduler`` on ``device`` and an
+    ``ApiServer`` on a free localhost port."""
+    from cook_tpu_torch.cluster import FakeCluster, FakeHost
+    from cook_tpu_torch.config import Config
+    from cook_tpu_torch.rest import ApiServer, CookApi
+    from cook_tpu_torch.sched import Scheduler
+    from cook_tpu_torch.state import Resources, Store
+    store = Store.open(directory) if directory else Store()
+    if clock is not None:
+        store.clock = clock
+    cfg = Config()
+    cfg.pipeline.depth = 0
+    cluster = FakeCluster("fake-1", [
+        FakeHost(f"h{i}", Resources(cpus=64.0, mem=65536.0))
+        for i in range(hosts)])
+    sched = Scheduler(store, cfg, [cluster], status_queue_shards=shards,
+                      device=device)
+    api = CookApi(store, scheduler=sched, config=cfg, admins=["admin"])
+    server = ApiServer(api)
+    server.start()
+    return SimpleNamespace(store=store, cluster=cluster, cfg=cfg,
+                           sched=sched, api=api, server=server)
+
+
+def z_threads(n, fn) -> tuple:
+    """``fn(worker, latencies)`` on ``n`` threads; (wall s, latencies ms,
+    what each returned)."""
+    import threading
+    lats = [[] for _ in range(n)]
+    rets = [None] * n
+
+    def run(i):
+        rets[i] = fn(i, lats[i])
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(n)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return time.perf_counter() - t0, [x for sub in lats for x in sub], rets
+
+
+def z_cycles(z, rec=None, cycles=Z_CYCLES) -> list:
+    """``step_cycle`` until no job waits or ``cycles`` have run; the
+    launched pairs of each; the store checked after each."""
+    from cook_tpu_torch.state import JobState
+    pairs = []
+    for i in range(cycles):
+        res = z.sched.step_cycle()
+        z.sched.flush_status_updates()
+        if rec is not None:
+            rec.drain()
+        check_live(z, f"phase Z cycle {i}")
+        pairs.append(launched_pairs(z, res))
+        if not z.store.jobs_where(lambda j: j.state is JobState.WAITING):
+            break
+    return pairs
+
+
+def z_submit(z, n_jobs, writers, batch, uuids=None) -> dict:
+    """``writers`` JobClients submit ``n_jobs`` jobs in batches; the
+    acknowledged uuids, submissions a second and the request p50/p99."""
+    from cook_tpu_torch.client import JobClient
+    per_writer = n_jobs // (writers * batch)
+
+    def writer(i, lats):
+        client = JobClient(z.server.url, user=f"bench{i}")
+        acked = []
+        for b in range(per_writer):
+            specs = [{"command": "true", "cpus": 1.0, "mem": 64.0}
+                     for _ in range(batch)]
+            if uuids is not None:
+                for k, s in enumerate(specs):
+                    s["uuid"] = uuids[(i * per_writer + b) * batch + k]
+            t0 = time.perf_counter()
+            acked += client.submit(specs)
+            lats.append((time.perf_counter() - t0) * 1e3)
+        return acked
+
+    wall, lats, rets = z_threads(writers, writer)
+    acked = [u for r in rets for u in r]
+    if len(acked) != per_writer * writers * batch:
+        raise AssertionError(f"phase Z: {len(acked)} submissions "
+                             f"acknowledged")
+    return {"acked": acked, "jobs_per_s": len(acked) / wall,
+            "request_p50_ms": float(np.percentile(lats, 50)),
+            "request_p99_ms": float(np.percentile(lats, 99)),
+            "wall_s": wall}
+
+
+def z_read_back(z, uuids, readers) -> dict:
+    """GET /jobs/{uuid} for every uuid over ``readers`` threads; each
+    job's status and instance hosts must equal the store's."""
+    from cook_tpu_torch.client import JobClient
+    per = -(-len(uuids) // readers)
+
+    def reader(i, lats):
+        client = JobClient(z.server.url, user="reader")
+        bad = []
+        for u in uuids[i * per:(i + 1) * per]:
+            t0 = time.perf_counter()
+            body = client.job(u)
+            lats.append((time.perf_counter() - t0) * 1e3)
+            job = z.store.job(u)
+            hosts = [z.store.instance(t).hostname for t in job.instances]
+            if body["status"] != job.state.value or \
+                    [x["hostname"] for x in body["instances"]] != hosts:
+                bad.append(u)
+        return bad
+
+    wall, lats, rets = z_threads(readers, reader)
+    bad = [u for r in rets for u in r]
+    if bad:
+        raise AssertionError(f"phase Z3: {len(bad)} jobs read back unlike "
+                             f"the store: {bad[:3]}")
+    return {"qps": len(uuids) / wall,
+            "p50_ms": float(np.percentile(lats, 50)),
+            "p99_ms": float(np.percentile(lats, 99))}
+
+
+def z_norm(value, names):
+    """``value`` with each task id (``new_uuid()``, minted at random)
+    renamed by order of first appearance."""
+    if isinstance(value, str):
+        return Z_TASK_ID.sub(lambda m: names.setdefault(
+            m.group(0), f"task-{len(names)}"), value)
+    if isinstance(value, list):
+        return [z_norm(v, names) for v in value]
+    if isinstance(value, dict):
+        return {z_norm(k, names): z_norm(v, names) for k, v in value.items()}
+    return value
+
+
+def z_small_leg(device, n_jobs, hosts) -> tuple:
+    """One writer with fixed uuids against a store with a pinned clock:
+    the launched pairs of each cycle and every job's body."""
+    from cook_tpu_torch.client import JobClient
+    now = [1_700_000_000_000]
+    z = z_stack(device, hosts=hosts, shards=None, clock=lambda: now[0])
+    try:
+        uuids = [f"00000000-0000-4000-8000-{i:012d}" for i in range(n_jobs)]
+        z_submit(z, n_jobs, 1, Z_BATCH, uuids=uuids)
+        now[0] += 1_000
+        pairs = z_cycles(z)
+        client, names = JobClient(z.server.url, user="reader"), {}
+        bodies = [z_norm(client.job(u), names) for u in uuids]
+    finally:
+        z.server.stop()
+        z.sched.shutdown()
+    return pairs, bodies
+
+
+def phase_z(device="cuda", n_jobs=Z_JOBS, writers=Z_WRITERS, batch=Z_BATCH,
+            hosts=Z_HOSTS, readers=Z_READERS, small=None) -> dict:
+    """The REST plane on the card: Z1 submissions through 4 JobClient
+    writers; Z2 ``step_cycle`` until the queue is empty (path ``rest``,
+    every launch replayed); Z3 every acknowledged job read back at 1, 4
+    and 8 readers, and the other surfaces; Z4 the journal reopened; Z5
+    one writer on the card and with ``device="cpu"``."""
+    import shutil
+    import tempfile
+
+    from cook_tpu_torch.client import JobClient
+    from cook_tpu_torch.state import Store
+    t0 = time.perf_counter()
+    card = device == "cuda"
+    out = {"phase": "Z"}
+    tmp = tempfile.mkdtemp(prefix="cook_rest_plane")
+    try:
+        z = z_stack(device, tmp, hosts=hosts)
+        sub = z_submit(z, n_jobs, writers, batch)
+        acked = sub.pop("acked")
+        out["z1"] = sub
+        rec = ReplayingRecorder("phase Z2") if card else None
+        if rec is not None:
+            rec.start()
+        t1 = time.perf_counter()
+        try:
+            pairs = z_cycles(z, rec)
+        finally:
+            counts = rec.stop() if rec is not None else {}
+        out["z2"] = {"cycles": len(pairs),
+                     "launched": [len(p) for p in pairs],
+                     "wall_s": time.perf_counter() - t1}
+        if sum(out["z2"]["launched"]) != len(acked):
+            raise AssertionError(f"phase Z2: launched "
+                                 f"{out['z2']['launched']} of {len(acked)}")
+        if card:
+            missing = [k for k in SOURCES if counts.get(k, 0) <= 0]
+            if missing:
+                raise AssertionError(f"phase Z2: kernels not launched: "
+                                     f"{missing}")
+            out["z2"]["launches_per_kernel"] = counts
+            out["z2"]["replayed_equal_to_plain"] = rec.replayed
+        # ten jobs no host can take (128 cpus): they stay pending for the
+        # explainer, and are acknowledged submissions like the rest
+        admin = JobClient(z.server.url, user="admin")
+        pending = admin.submit([{"command": "true", "cpus": 128.0,
+                                 "mem": 64.0} for _ in range(10)])
+        acked += pending
+        out["z3"] = {f"readers_{n}": z_read_back(z, acked, n)
+                     for n in readers}
+        surfaces = {
+            "/queue": lambda: admin.queue(),
+            "/unscheduled_jobs": lambda: admin.unscheduled_jobs(pending),
+            "/usage": lambda: admin.usage(user="bench0"),
+            "/metrics": lambda: admin.metrics(),
+            "/debug": lambda: admin._request("GET", "/debug")}
+        answered = {}
+        for path, call in surfaces.items():
+            body = call()
+            if not body:
+                raise AssertionError(f"phase Z3: {path} answered nothing")
+            answered[path] = len(json.dumps(body))
+        out["z3"]["answered_bytes"] = answered
+        states = {u: z.store.job(u).state.value for u in acked}
+        z.server.stop()
+        z.sched.shutdown()
+        z.store.close()
+        t1 = time.perf_counter()
+        reopened = Store.open(tmp)
+        lost = [u for u in acked if reopened.job(u) is None
+                or reopened.job(u).state.value != states[u]]
+        reopened.close()
+        if lost:
+            raise AssertionError(f"phase Z4: {len(lost)} acknowledged jobs "
+                                 f"not read back: {lost[:3]}")
+        out["z4"] = {"acked": len(acked), "read_back": len(acked),
+                     "reopen_s": time.perf_counter() - t1}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    small = small or Z_SMALL
+    t1 = time.perf_counter()
+    a, b = (z_small_leg(d, **small) for d in (device, "cpu"))
+    if a[0] != b[0]:
+        raise AssertionError("phase Z5: card and CPU launched different "
+                             "pairs")
+    if a[1] != b[1]:
+        raise AssertionError("phase Z5: card and CPU job bodies differ")
+    out["z5"] = {"jobs": small["n_jobs"], "cycles": len(a[0]),
+                 "launched": [len(p) for p in a[0]],
+                 "wall_s": time.perf_counter() - t1}
+    out["wall_s"] = time.perf_counter() - t0
+    print(json.dumps(out))
+    return counts
+
+
 # ---------------------------------------------- phase E: the split matcher
 FULL_WORLDS = (
     # (name, J, H, seed, packing): bench_match, bench_match_large,
@@ -4247,6 +4782,8 @@ def main() -> int:
     admission_counts = phase_w()
     degraded_counts = phase_x(v)
     del v
+    sim_counts = phase_y()
+    rest_counts = phase_z()
     rank_counts = phase_r(build_world(np.random.default_rng(SEED)))
     preempt_counts = phase_p(np.random.default_rng(SEED + 10))
     topk_rows = phase_d()
@@ -4273,7 +4810,9 @@ def main() -> int:
                 "scheduler_split": rebalance_counts["split"].get(k, 0),
                 "rebalancer": rebalance_counts["rebalancer"].get(k, 0),
                 "admission_split": admission_counts.get(k, 0),
-                "scheduler_degraded": degraded_counts.get(k, 0)},
+                "scheduler_degraded": degraded_counts.get(k, 0),
+                "simulator": sim_counts.get(k, 0),
+                "rest": rest_counts.get(k, 0)},
             **({"inside": "greedy"} if k == "gang" else {}),
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
