@@ -706,12 +706,8 @@ def test_task_stats_and_job_reasons(seed):
 
 
 # ------------------------------------------------ the port's refusals
-def _port_stack(**kw):
-    return Stack(SIDES[1], **kw)
-
-
 def test_debug_health_static_edges_unavailable():
-    s = _port_stack()
+    s = Stack(SIDES[1])
     try:
         status, health = s.call("GET", "/debug/health")
     finally:
@@ -721,7 +717,7 @@ def test_debug_health_static_edges_unavailable():
 
 
 def test_repl_dir_answers_501(tmp_path):
-    s = _port_stack()
+    s = Stack(SIDES[1])
     try:
         s.api.repl_dir = str(tmp_path)
         status, body = s.call("GET", "/debug/replication", user="admin")
