@@ -6,7 +6,7 @@ modules still to be ported are handled without importing them:
 ``/debug/health`` reports ``locks.static_edges`` as ``"unavailable"``
 (the reference's branch for a deploy without ``analysis/``), a
 ``repl_dir`` (set only by the daemon) answers 501 on
-``/debug/replication``, and ``POST /clusters/{name}`` with an
+``/debug/replication``, and ``POST /compute-clusters/{name}`` with an
 allowlisted factory answers 501 (the daemon's ``build_clusters``).
 
 REST API server.

@@ -47,6 +47,7 @@ def pkg(m):
 
 SIDES = (pkg(REF), pkg(PORT))
 T0 = 1_700_000_000_000
+CLUSTER = "rest-parity"
 # ids minted at random on each side: uuid4 task ids, and the 16- and
 # 32-digit trace and span ids of the tracing layer
 RANDOM_ID = re.compile(
@@ -83,9 +84,11 @@ class Stack:
         self.now = [T0]
         self.store = m.Store()
         self.store.clock = lambda: self.now[0]
+        # a cluster name no other test file uses: its circuit breaker, in
+        # each package's process-wide breaker registry, is this file's own
         self.cluster = m.FakeCluster(
-            "fake-1", [m.FakeHost(f"h{i}", m.Resources(cpus=8.0, mem=8192.0))
-                       for i in range(n_hosts)])
+            CLUSTER, [m.FakeHost(f"h{i}", m.Resources(cpus=8.0, mem=8192.0))
+                      for i in range(n_hosts)])
         cfg = m.Config()
         cfg.pipeline.depth = 0
         if cfg_fn is not None:
@@ -501,12 +504,19 @@ def _http_obs(s, log):
                   headers={"Accept-Encoding": "gzip;q=0"})
     log.append((plain[0], plain[1].get("Content-Encoding"), plain[2]))
     status, health = s.call("GET", "/debug/health")
-    # the lock block is each package's process-wide lock monitor: the
-    # reference's is armed for the whole session by tests/conftest.py and
-    # holds every earlier test's edges, and its static_edges come from its
-    # analysis package, which the port has not got yet (the port's
-    # "unavailable" is tested on its own below)
-    health.pop("locks")
+    # Each package's process-wide planes hold what every earlier test on
+    # the same worker left there, so they are left out: the lock monitor
+    # (the reference's is armed for the whole session by tests/conftest.py,
+    # and its static_edges come from its analysis package, which the port
+    # has not got yet: the port's "unavailable" is tested on its own
+    # below), the metrics registry (burn rates, the pipeline-depth gauge,
+    # the repack counters) and "healthy", which reads both; the breaker
+    # registry is kept for this stack's own cluster
+    for k in ("locks", "slo_burn_rates", "pipeline_depth",
+              "resident_repacks", "healthy"):
+        health.pop(k)
+    health["breakers"] = {k: v for k, v in health["breakers"].items()
+                          if k == CLUSTER}
     # host-clock readings: the cycle p99 behind the saturation gauge and
     # the request log's summed durations
     health["saturation"].pop("cycle_p99")
@@ -739,7 +749,7 @@ def test_cluster_factory_answers_501_and_403_as_the_reference():
                               {"factory": "not-allowed"}, user="admin"))
             out.append(s.call("POST", "/compute-clusters/extra",
                               {"factory": "fake"}, user="bob"))
-            out.append(s.call("POST", "/compute-clusters/fake-1",
+            out.append(s.call("POST", f"/compute-clusters/{CLUSTER}",
                               {"state": "draining"}, user="admin"))
             if p is SIDES[1]:
                 status, body = s.call("POST", "/compute-clusters/extra",

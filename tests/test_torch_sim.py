@@ -28,7 +28,8 @@ def pkg(root):
                       ("workload", "sim.workload"),
                       ("overload", "sim.overload"), ("main", "sim.__main__"),
                       ("schema", "state.schema"), ("config", "config"),
-                      ("instrument", "rest.instrument")):
+                      ("instrument", "rest.instrument"),
+                      ("retry", "utils.retry")):
         setattr(ns, name, importlib.import_module(f"{root}.{mod}"))
     return ns
 
@@ -50,16 +51,22 @@ TRANSFER_TELEMETRY = ("recompiles", "h2d_bytes", "d2h_bytes")
 
 
 @pytest.fixture(autouse=True)
-def _fresh_request_logs():
+def _fresh_planes():
     # the overload replay's admission controller drives each package's
-    # request log; both start and end every test in their default state
+    # request log, and every simulator launches through the process-wide
+    # circuit breaker of its cluster "sim": both start and end every test
+    # in their default state, whatever ran before on the worker
     sides = [types.SimpleNamespace(m=p.config, instrument=p.instrument)
              for p in (REF, PORT)]
-    for side in sides:
-        fresh_request_log(side)
+
+    def fresh():
+        for side, p in zip(sides, (REF, PORT)):
+            fresh_request_log(side)
+            p.retry.breakers.get("sim").reset()
+
+    fresh()
     yield
-    for side in sides:
-        fresh_request_log(side)
+    fresh()
 
 
 def comparable(summary):
