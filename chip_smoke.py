@@ -39,6 +39,11 @@ cuts the split cycle's considerable window, at the same world; a failed
 fused cycle degraded to the split path and resident-delta faults
 repacked; the reapers on the full cluster.
 
+The node (``python -m cook_tpu_torch --config``, ``daemon.CookDaemon``):
+in process under a REST backlog, and as two processes with journal
+replication through a SIGKILL failover, each leader driving the cycle's
+kernels on the card.
+
 The user entry points: the trace-replay simulator
 (``cook_tpu_torch.sim``) on an 8,000-job burst over 1,000 hosts, and
 the REST plane (``rest/api.CookApi`` behind ``ApiServer``, driven by
@@ -159,7 +164,8 @@ runs the scheduler's cycle on the card.
      sync waits by site, the pack / stage / apply split, the launch
      counts of each leg, and one more step under cProfile (the main
      thread's largest own times); both legs again without status
-     shards, in turns; after every step no host oversubscribed and no
+     shards, once each; after every
+     step no host oversubscribed and no
      job with two live instances; on each shard leg's store three steps
      whose every dispatched wire is cloned and run through
      ``megacycle_plain`` on the card after its fetch (all seven outputs
@@ -219,7 +225,7 @@ runs the scheduler's cycle on the card.
      launch of the tick before replayed against its plain version; wall
      time, virtual makespan, ``step_cycle`` calls and their p50 and p99,
      placements, completions (all), waits, preemptions, the flight
-     summary.  Y2: 2,000 jobs from 50 users over 100 hosts on the card
+     summary.  Y2: 1,000 jobs from 50 users over 100 hosts on the card
      and with ``device="cpu"``, the same task records and summary less
      its host-clock fields.  Y3: ``run_pipeline_parity`` (seed 3, 600
      jobs, 40 hosts, depth 2) ok.  Y4: ``run_overload()`` ok.  Y5:
@@ -239,6 +245,40 @@ runs the scheduler's cycle on the card.
      acknowledged job there in its state.  Z5: one writer with fixed
      uuids and a pinned store clock, 500 jobs over 50 hosts, on the card
      and with ``device="cpu"``: the same pairs and job bodies;
+  6l. phase N: the node in process (``daemon.CookDaemon``, ``start()``):
+     a journaled data dir, an explicit election dir, ``"device":
+     "cuda"``, the port's fake cluster of 1,000 hosts of 64 cpus and
+     65,536 MB (tasks of 3 s, auto-advanced), a scheduler section that
+     sets only ``match_interval_seconds`` 1.0 (fused, depth 2,
+     resident, columnar); 4 ``JobClient`` writers submit 8,000 jobs
+     from 200 users in batches of 20 (phase Y1's backlog through the
+     front door) and the daemon's own loops place and complete them;
+     every launch of its cycles recorded and replayed against its plain
+     version after its step (path ``daemon``), no host oversubscribed
+     and no job live twice after every step; submissions a second, the
+     seconds from the last acknowledgement until every job is placed
+     and until every job has completed, the dispatching cycles; the
+     journal scans clean; after ``shutdown()`` the reopened journal
+     holds every acknowledged job in its state;
+  6m. phase O: two ``python -m cook_tpu_torch --config`` nodes on the
+     card, each with its own data dir, a shared election dir and
+     ``"replication": {"listen_port": 0, "sync": true}``, phase N's
+     cluster at 200 hosts; the leader on ``nvidia-smi
+     --query-compute-apps``'s list (by its pid, or where a container's
+     processes all show as pid 1, by one entry more than the processes
+     already there; the standby adds none); the port's ``cs`` submits
+     200 jobs and
+     ``cs wait``s for them; the leader's cluster is drained (``POST
+     /compute-clusters/node-fake``) and 500 more are submitted; once
+     ``/debug/replication`` shows the standby synced the leader is
+     killed with SIGKILL, and its entry leaves the list; the seconds
+     from the kill until the standby leads and until its first
+     placement; every acknowledged job on the new leader and every
+     waiting one placed by it; the new leader on the list;
+     ``cook_tpu_torch.sim.system``'s command line (in process: it is a
+     client of the node) generates, simulates
+     (20 users x 10 jobs over 10 s) and reports against it (wait and
+     turnaround p50); SIGTERM ends it with exit code 0;
   7. phase D: the two top-K kernels (structured at 100,000 x 50,000,
      E = 256; dense at 10,000 x 50,000), counted, then held against
      their plain versions (fit bit for bit, host where fit > -inf) and
@@ -263,13 +303,15 @@ runs the scheduler's cycle on the card.
      phase V's ``step_rank`` and ``step_match`` as ``scheduler_split``,
      its ``step_rebalance`` as ``rebalancer``, phase W's split cycle as
      ``admission_split``, phase X's degraded cycles as
-     ``scheduler_degraded``, phase Y1 as ``simulator`` and phase Z2 as
-     ``rest``)
+     ``scheduler_degraded``, phase Y1 as ``simulator``, phase Z2 as
+     ``rest`` and phase N as ``daemon``)
      and last ``{"ok": true, "device": {...}}``.
 
 Usage: ``python3 chip_smoke.py`` from the root of a checkout (needs one
-CUDA card and nvcc; builds into ./build/cuda, with the ptxas report in
-build/cuda/ptxas.log).  Any failure raises.
+CUDA card, nvcc and g++): it builds every kernel and native library it
+needs, the kernels into ./build/cuda (the ptxas report in
+build/cuda/ptxas.log) and the replication carrier into ./build/native.
+Any failure raises.
 """
 
 from __future__ import annotations
@@ -2775,10 +2817,10 @@ def phase_q() -> dict:
     """The Scheduler's production loop at bench_pipeline_driver's world:
     the depth-0 leg, then the depth-2 leg (the default), each counted
     on its own; on the depth-2 leg's store the checked steps, the
-    queue-fetch check and a profiled step; then four legs without
+    queue-fetch check and a profiled step; then two legs without
     status shards (the updates applied on the cycle thread as they
-    arrive), in turns (depth 0, 2, 2, 0), to read the depths apart from
-    the shards' cost; then the reduced world on card and CPU.  Each
+    arrive), depth 0 then 2, to read the depths apart from the shards'
+    cost; then the reduced world on card and CPU.  Each
     leg's world is dropped before the next is built."""
     import gc
     counts, checks = {}, {"phase": "Q"}
@@ -2794,14 +2836,14 @@ def phase_q() -> dict:
         del s
         gc.collect()
     turns = {0: [], 2: []}
-    for depth in (0, 2, 2, 0):
+    for depth in (0, 2):
         s = q_leg(depth, shards=None)
         print(json.dumps(s.leg))
         turns[depth].append(s.leg["p50_ms"])
         s.sched.shutdown()
         del s
         gc.collect()
-    checks["no_shards_p50_ms_in_turns"] = turns
+    checks["no_shards_p50_ms"] = turns
     checks["card_against_cpu_launched"] = q_card_against_cpu()
     print(json.dumps(checks))
     return {"sync": counts[0], "pipelined": counts[2]}
@@ -3447,7 +3489,7 @@ def phase_x(v) -> dict:
 # over about 1,000 pending jobs; users and hosts are not cut
 Y_JOBS, Y_USERS, Y_HOSTS = 8_000, 200, 1_000
 Y_SPAN_MS = Y_DURATION_MS = 10_000
-Y_SMALL = {"n_jobs": 2_000, "n_users": 50, "hosts": 100}  # card = CPU
+Y_SMALL = {"n_jobs": 1_000, "n_users": 50, "hosts": 100}  # card = CPU
 # summary() and flight-summary fields read off the host's clock
 Y_HOST_CLOCK = ("match_cycle_p50_ms", "match_cycle_p99_ms",
                 "rank_cycle_p50_ms", "placements_per_wall_s")
@@ -3933,6 +3975,466 @@ def phase_z(device="cuda", n_jobs=Z_JOBS, writers=Z_WRITERS, batch=Z_BATCH,
     out["wall_s"] = time.perf_counter() - t0
     print(json.dumps(out))
     return counts
+
+
+# ---------------------------------------------- phases N and O: the node
+# Phase N: one CookDaemon in process on a journaled data dir, Config()
+# but for match_interval_seconds 1.0, the fake cluster at phase Y1's
+# 1,000 hosts of 64 cpus and 65,536 MB (tasks of 3 s, auto-advanced);
+# 4 JobClient writers submit Y1's backlog, 8,000 jobs from 200 users in
+# batches of 20.  Phase O: two ``python -m cook_tpu_torch`` nodes with
+# socket replication on 200 hosts.
+N_JOBS, N_USERS, N_HOSTS, N_WRITERS, N_BATCH = 8_000, 200, 1_000, 4, 20
+N_TIMEOUT_S = 180.0
+O_HOSTS, O_FIRST, O_WAITING = 200, 200, 500
+O_SIM = {"users": 20, "jobs_per_user": 10, "duration_s": 10.0}
+O_TIMEOUT_S = 120.0
+
+
+def node_conf(directory: Path, name: str, device: str, hosts: int,
+              **extra) -> dict:
+    """A node's config: its own data dir, the shared election dir, the
+    port's fake cluster (tasks of 3 s on the wall clock), and a
+    scheduler section that sets only the match interval."""
+    conf = {"host": "127.0.0.1", "port": 0, "device": device,
+            "data_dir": str(directory / f"data-{name}"),
+            "election_dir": str(directory / "election"),
+            "admins": ["admin"],
+            "clusters": [{"factory": "cook_tpu_torch.cluster.fake.factory",
+                          "kwargs": {"name": "node-fake", "n_hosts": hosts,
+                                     "cpus": 64.0, "mem": 65536.0,
+                                     "default_task_duration_ms": 3_000,
+                                     "auto_advance": True}}],
+            "scheduler": {"match_interval_seconds": 1.0}}
+    conf.update(extra)
+    return conf
+
+
+def wait_for(pred, timeout: float, what: str, every: float = 0.05):
+    deadline = time.perf_counter() + timeout
+    while True:
+        got = pred()
+        if got:
+            return got
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"{what}: not within {timeout} s")
+        time.sleep(every)
+
+
+def n_submit(url, n_jobs, n_users, writers, batch, seed) -> dict:
+    """``writers`` JobClients submit ``n_jobs`` jobs of 1-4 cpus and
+    64-2,047 MB in batches of ``batch``, each batch from the next of
+    ``n_users`` users; the acknowledged uuids and submissions a second."""
+    from cook_tpu_torch.client import JobClient
+    per_writer = n_jobs // (writers * batch)
+    rng = np.random.default_rng(seed)
+    cpus = rng.integers(1, 5, n_jobs).astype(float)
+    mem = rng.integers(64, 2048, n_jobs).astype(float)
+    last = [0.0] * writers
+
+    def writer(i, lats):
+        clients = {}
+        acked = []
+        for b in range(per_writer):
+            k0 = (i * per_writer + b) * batch
+            user = f"user{(k0 // batch) % n_users:03d}"
+            client = clients.setdefault(user, JobClient(url, user=user))
+            specs = [{"command": "true", "cpus": cpus[k], "mem": mem[k]}
+                     for k in range(k0, k0 + batch)]
+            t0 = time.perf_counter()
+            acked += client.submit(specs)
+            last[i] = time.perf_counter()
+            lats.append((last[i] - t0) * 1e3)
+        return acked
+
+    wall, lats, rets = z_threads(writers, writer)
+    acked = [u for r in rets for u in r]
+    if len(acked) != per_writer * writers * batch:
+        raise AssertionError(f"{len(acked)} submissions acknowledged")
+    return {"acked": acked, "last_ack": max(last),
+            "jobs_per_s": len(acked) / wall,
+            "request_p50_ms": float(np.percentile(lats, 50)),
+            "request_p99_ms": float(np.percentile(lats, 99)),
+            "wall_s": wall}
+
+
+def phase_n(device="cuda", n_jobs=N_JOBS, n_users=N_USERS, hosts=N_HOSTS,
+            writers=N_WRITERS, batch=N_BATCH) -> dict:
+    """The node in process: ``CookDaemon.start()`` leads, 4 writers
+    submit, the daemon's own loops place and complete every job; every
+    launch of its cycles is recorded and replayed against its plain
+    version after its step (path ``daemon``); no host oversubscribed
+    and no job live twice after every step; the journal scans clean;
+    after ``shutdown()`` the reopened journal holds every acknowledged
+    job in its state."""
+    import shutil
+    import tempfile
+    import threading
+
+    from cook_tpu_torch.daemon import CookDaemon
+    from cook_tpu_torch.state import JobState, Store
+    from cook_tpu_torch.state.integrity import scan_journal
+    card = device == "cuda"
+    out = {"phase": "N"}
+    tmp = Path(tempfile.mkdtemp(prefix="cook_node"))
+    t0 = time.perf_counter()
+    node = CookDaemon(node_conf(tmp, "n", device, hosts))
+    running = True
+
+    def leader():
+        if node.exit_code != 0:
+            raise AssertionError("phase N: the takeover failed")
+        return node.scheduler
+
+    try:
+        node.start()
+        sched = wait_for(leader, 60.0, "phase N: leadership")
+        out["lead_s"] = time.perf_counter() - t0
+        if sched.device.type != torch.device(device).type:
+            raise AssertionError(f"phase N: the leader runs on "
+                                 f"{sched.device}")
+        # the loops wait one interval before their first tick: the
+        # recorder starts (and zeroes the counts) before any launch
+        rec = ReplayingRecorder("phase N") if card else None
+        guard = threading.Lock()
+        steps = []
+        step_cycle = sched.step_cycle
+
+        def counted_step(*a, **kw):
+            t1 = time.perf_counter()
+            res = step_cycle(*a, **kw)
+            with guard:
+                t2 = time.perf_counter()
+                if rec is not None and rec._ctx is not None:
+                    rec.drain()
+                check_live(node, f"phase N step {len(steps)}")
+                steps.append((t1, sum(len(r.launched_task_ids)
+                                      for r in res.values()),
+                              t2 - t1, time.perf_counter() - t2))
+            return res
+
+        if rec is not None:
+            rec.start()
+        sched.step_cycle = counted_step
+        sub = n_submit(node.node_url, n_jobs, n_users, writers, batch,
+                       SEED + 11)
+        acked, last_ack = sub.pop("acked"), sub.pop("last_ack")
+        out["n1"] = sub
+
+        def count(state):
+            return len(node.store.jobs_where(
+                lambda j: j.state is state, clone=False))
+
+        wait_for(lambda: count(JobState.WAITING) == 0, N_TIMEOUT_S,
+                 "phase N: every job placed", every=0.1)
+        placed_s = time.perf_counter() - last_ack
+        wait_for(lambda: count(JobState.COMPLETED) == len(acked),
+                 N_TIMEOUT_S, "phase N: every job completed", every=0.1)
+        completed_s = time.perf_counter() - last_ack
+        states = {u: node.store.job(u).state.value for u in acked}
+        journal = scan_journal(str(tmp / "data-n" / "journal.jsonl"))
+        if journal.corrupt or journal.good != journal.size:
+            raise AssertionError(f"phase N: journal unsound: "
+                                 f"{journal.reason}")
+        with guard:
+            # each step: its start after the last acknowledgement (s), the
+            # jobs it launched, its own wall and the replays' and checks'
+            # after it (ms)
+            out["n2"] = {
+                "placed_after_last_ack_s": placed_s,
+                "completed_after_last_ack_s": completed_s,
+                "step_cycles": len(steps),
+                "dispatching_cycles": sum(1 for s in steps if s[1]),
+                "steps": [[t1 - last_ack, n, s * 1e3, r * 1e3]
+                          for t1, n, s, r in steps],
+                "replay_and_check_s": sum(s[3] for s in steps),
+                "journal_records": len(journal.records)}
+        node.shutdown()
+        running = False
+        counts = rec.stop() if rec is not None else {}
+        if card:
+            missing = [k for k in SOURCES if counts.get(k, 0) <= 0]
+            if missing:
+                raise AssertionError(f"phase N: kernels not launched: "
+                                     f"{missing}")
+            out["n2"]["launches_per_kernel"] = counts
+            out["n2"]["replayed_equal_to_plain"] = rec.replayed
+        t1 = time.perf_counter()
+        reopened = Store.open(str(tmp / "data-n"))
+        lost = [u for u in acked if reopened.job(u) is None
+                or reopened.job(u).state.value != states[u]]
+        reopened.close()
+        if lost:
+            raise AssertionError(f"phase N: {len(lost)} acknowledged jobs "
+                                 f"not read back: {lost[:3]}")
+        out["n3"] = {"acked": len(acked), "read_back": len(acked),
+                     "states": sorted(set(states.values())),
+                     "reopen_s": time.perf_counter() - t1}
+    finally:
+        if running:
+            node.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t0
+    print(json.dumps(out))
+    return counts
+
+
+def compute_apps() -> list:
+    """The pids ``nvidia-smi`` lists as compute processes on the card,
+    one entry a process that holds a CUDA context."""
+    got = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout
+    return [int(x) for x in got.split() if x.strip().isdigit()]
+
+
+def on_card(pid: int, others: int, what: str) -> str:
+    """Raise unless process ``pid`` is on ``nvidia-smi``'s list of
+    compute apps.  Where the list names it, by its pid; in a container
+    whose processes the list shows all as pid 1 (a PID namespace it
+    cannot map), by the count: one entry more than the ``others`` known
+    to hold a context."""
+    apps = compute_apps()
+    if pid in apps:
+        return "pid"
+    if apps and set(apps) == {1} and len(apps) == others + 1:
+        return "count"
+    raise AssertionError(f"phase O: {what} (pid {pid}) not among the "
+                         f"compute apps {apps} ({others} others)")
+
+
+class NodeProc:
+    """One ``python -m cook_tpu_torch --config`` child, its output in a
+    file; ``serving()`` waits for its banner and sets ``url``."""
+
+    def __init__(self, conf: dict, directory: Path, name: str):
+        import os
+        self.log = directory / f"node-{name}.log"
+        path = directory / f"node-{name}.json"
+        path.write_text(json.dumps(conf))
+        env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve()
+                                              .parent),
+                   PYTHONUNBUFFERED="1")
+        with open(self.log, "w") as f:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "cook_tpu_torch", "--config",
+                 str(path)], stdout=f, stderr=subprocess.STDOUT,
+                cwd=str(Path(__file__).resolve().parent), env=env)
+        self.name = name
+
+    def serving(self) -> "NodeProc":
+        self.url = wait_for(self._banner, 90.0, f"phase O: node "
+                            f"{self.name} serving", every=0.1)
+        return self
+
+    def _banner(self):
+        if self.proc.poll() is not None:
+            raise AssertionError(f"node exited {self.proc.returncode}: "
+                                 f"{self.log.read_text()[-2000:]}")
+        for line in self.log.read_text().splitlines():
+            if line.startswith("cook_tpu: serving "):
+                return line.split()[2]
+        return None
+
+    def get(self, path: str):
+        import urllib.request
+        req = urllib.request.Request(self.url + path,
+                                     headers={"X-Cook-User": "admin"})
+        with urllib.request.urlopen(req, timeout=10) as r:
+            return json.load(r)
+
+    def post(self, path: str, body: dict):
+        import urllib.request
+        req = urllib.request.Request(
+            self.url + path, data=json.dumps(body).encode(), method="POST",
+            headers={"X-Cook-User": "admin",
+                     "Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=10) as r:
+            return json.load(r)
+
+    def leads(self) -> bool:
+        try:
+            return bool(self.get("/info").get("leader"))
+        except OSError:
+            return False
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait(timeout=30)
+
+
+def cs(url: str, home: Path, *argv, stdin=None, timeout=O_TIMEOUT_S):
+    """The port's ``cs`` as a user runs it; its stdout."""
+    import os
+    env = dict(os.environ, COOK_URL=url, COOK_USER="alice", HOME=str(home),
+               PYTHONPATH=str(Path(__file__).resolve().parent))
+    got = subprocess.run(
+        [sys.executable, "-m", "cook_tpu_torch.cli.main", *argv],
+        input=stdin, capture_output=True, text=True, timeout=timeout,
+        env=env)
+    if got.returncode != 0:
+        raise AssertionError(f"cs {argv[0]}: exit {got.returncode}: "
+                             f"{got.stderr[-2000:]}")
+    return got.stdout
+
+
+def states_of(node: NodeProc, uuids) -> dict:
+    import urllib.parse
+    out = {}
+    for i in range(0, len(uuids), 100):
+        q = urllib.parse.urlencode({"uuid": uuids[i:i + 100]}, doseq=True)
+        for j in node.get(f"/jobs?{q}"):
+            out[j["uuid"]] = j["status"]
+    return out
+
+
+def phase_o(device="cuda", hosts=O_HOSTS, first=O_FIRST, waiting=O_WAITING,
+            sim=None) -> dict:
+    """Two nodes as processes on the card with socket replication: the
+    leader is on ``nvidia-smi``'s list; ``cs`` submits ``first`` jobs and
+    waits for them, then ``waiting`` more; once the standby is synced
+    the leader's cluster drained (``POST /compute-clusters``) and the
+    leader killed with SIGKILL; the standby promotes, holds every
+    acknowledged job and places every one that waited, and is on the
+    list; ``sim.system``'s command line (in process: it is a client)
+    generates, simulates and reports a schedule against it; SIGTERM
+    stops it with exit code 0."""
+    import contextlib
+    import io
+    import os
+    import shutil
+    import signal
+    import tempfile
+
+    from cook_tpu_torch.sim.system import main as system_main
+    card = device == "cuda"
+    out = {"phase": "O"}
+    tmp = Path(tempfile.mkdtemp(prefix="cook_nodes"))
+    repl = {"listen_port": 0, "sync": True}
+    nodes = []
+    t0 = time.perf_counter()
+    try:
+        # the processes on the card before the nodes (this one, after the
+        # earlier phases)
+        others = len(compute_apps()) if card else 0
+        # both boot at once; whichever takes the lock leads (a), the
+        # other follows its journal (b)
+        nodes += [NodeProc(node_conf(tmp, n, device, hosts,
+                                     replication=repl), tmp, n).serving()
+                  for n in ("a", "b")]
+        a = wait_for(lambda: next((n for n in nodes if n.leads()), None),
+                     90.0, "phase O: a node leads", every=0.1)
+        b = nodes[1] if a is nodes[0] else nodes[0]
+        out["boot_s"] = time.perf_counter() - t0
+        spec = {"command": "true", "cpus": 1.0, "mem": 64.0}
+        t1 = time.perf_counter()
+        first_uuids = cs(a.url, tmp, "submit", "--raw",
+                         stdin=json.dumps([spec] * first)).split()
+        done = json.loads(cs(a.url, tmp, "wait", *first_uuids,
+                             "--timeout", str(O_TIMEOUT_S)))
+        if len(first_uuids) != first or any(
+                j["status"] != "completed" for j in done):
+            raise AssertionError("phase O: cs wait did not see every job "
+                                 "complete")
+        out["o1"] = {"jobs": first, "submit_and_wait_s":
+                     time.perf_counter() - t1}
+        if card:
+            # the standby holds no context: only the leader is added
+            out["o1"]["leader_on_card_by"] = on_card(a.proc.pid, others,
+                                                     "the leader")
+        # the operator drains the leader's cluster (its state lives in the
+        # leader's memory only), so the next jobs wait until a failover
+        a.post("/compute-clusters/node-fake", {"state": "draining"})
+        late = cs(a.url, tmp, "submit", "--raw",
+                  stdin=json.dumps([spec] * waiting)).split()
+        panel = wait_for(
+            lambda: (lambda p: p if p.get("synced_followers", 0) >= 1
+                     else None)(a.get("/debug/replication")),
+            30.0, "phase O: standby synced")
+        before = states_of(a, late)
+        os.kill(a.proc.pid, signal.SIGKILL)
+        t_kill = time.perf_counter()
+        a.proc.wait(timeout=30)
+        if card:
+            # the killed leader's context is gone before the standby
+            # (a 1 s candidacy window first) makes its own
+            wait_for(lambda: len(compute_apps()) == others, 0.8,
+                     "phase O: the killed leader left the card", 0.02)
+        waited = [u for u in late if before[u] == "waiting"]
+        if len(waited) != waiting:
+            raise AssertionError(f"phase O: {waiting - len(waited)} jobs "
+                                 "placed on a drained cluster")
+        wait_for(b.leads, 60.0, "phase O: standby leads", every=0.05)
+        led_s = time.perf_counter() - t_kill
+
+        def first_placed():
+            st = states_of(b, waited)
+            return any(s != "waiting" for s in st.values())
+
+        wait_for(first_placed, 60.0, "phase O: first placement", 0.05)
+        placed_s = time.perf_counter() - t_kill
+        wait_for(lambda: all(s != "waiting" for s in
+                             states_of(b, waited).values()),
+                 60.0, "phase O: every waiting job placed", 0.1)
+        every_s = time.perf_counter() - t_kill
+        held = states_of(b, first_uuids + late)
+        if sorted(held) != sorted(first_uuids + late):
+            raise AssertionError(f"phase O: {first + waiting - len(held)} "
+                                 "acknowledged jobs lost in the failover")
+        out["o2"] = {"acked": len(held), "waiting_at_kill": len(waited),
+                     "synced_followers": panel["synced_followers"],
+                     "standby_leads_s": led_s,
+                     "kill_to_first_placement_s": placed_s,
+                     "kill_to_every_placement_s": every_s,
+                     "standby_epoch": b.get("/debug/replication")
+                     .get("epoch")}
+        if card:
+            out["o2"]["new_leader_on_card_by"] = on_card(
+                b.proc.pid, others, "the new leader")
+        sim = sim or O_SIM
+        sched_path, res_path = tmp / "schedule.json", tmp / "results.json"
+        t1 = time.perf_counter()
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            for argv in (["generate", "-f", str(sched_path), "--users",
+                          str(sim["users"]), "--jobs-per-user",
+                          str(sim["jobs_per_user"]), "--duration-s",
+                          str(sim["duration_s"]), "--seed",
+                          str(SEED % 1000)],
+                         ["simulate", "-f", str(sched_path), "--url",
+                          b.url, "--out", str(res_path),
+                          "--settle-timeout-s", "120"]):
+                rc = system_main(argv)
+                if rc != 0:
+                    raise AssertionError(f"phase O: sim.system "
+                                         f"{argv[0]}: exit {rc}")
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            system_main(["report", "-f", str(res_path)])
+        report = json.loads(printed.getvalue())
+        total = sim["users"] * sim["jobs_per_user"]
+        if report["jobs_total"] != total or report["finished"] != total \
+                or report["submit_errors"]:
+            raise AssertionError(f"phase O: simulation: {report}")
+        out["o3"] = {"jobs": total, "finished": report["finished"],
+                     "failed": report["failed"],
+                     "wait_p50_ms": report["overall"]["wait"]["p50_ms"],
+                     "turnaround_p50_ms":
+                         report["overall"]["turnaround"]["p50_ms"],
+                     "wall_s": time.perf_counter() - t1}
+        b.proc.send_signal(signal.SIGTERM)
+        rc = b.proc.wait(timeout=60)
+        if rc != 0:
+            raise AssertionError(f"phase O: SIGTERM exit code {rc}")
+        out["o4"] = {"sigterm_exit": rc}
+    finally:
+        for n in nodes:
+            n.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t0
+    print(json.dumps(out))
+    return out
 
 
 # ---------------------------------------------- phase E: the split matcher
@@ -4653,14 +5155,29 @@ def main() -> int:
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     print(card)
+    walls, t_mark = {}, [time.perf_counter()]
+
+    def mark(name):
+        # seconds of command since the previous mark, by phase
+        now = time.perf_counter()
+        walls[name] = now - t_mark[0]
+        t_mark[0] = now
+
     t0 = time.perf_counter()
     cuda_lib.build(verbose=True)
     build_s = time.perf_counter() - t0
     log = cuda_lib.BUILD_DIR / "ptxas.log"
     log.write_text(cuda_lib.BUILD_LOG)
-    print(json.dumps({"build_s": build_s, "ptxas_log": str(log)}))
+    from cook_tpu_torch.state.replication import replication_available
+    t0 = time.perf_counter()
+    if not replication_available():
+        raise RuntimeError("g++ failed to build native/repl.cpp")
+    print(json.dumps({"build_s": build_s, "ptxas_log": str(log),
+                      "native_build_s": time.perf_counter() - t0}))
 
+    mark("build")
     phase_f()
+    mark("F")
     rng = np.random.default_rng(SEED)
     w = build_world(rng)
     res_dev = torch.from_numpy(w.res).cuda()
@@ -4681,7 +5198,9 @@ def main() -> int:
     print(json.dumps(k2_k4_line(rows)))
     for line in k1_k56_lines({**rows, "cycle_cuda_launches": cycle_launches}):
         print(json.dumps(line))
+    mark("A")
     phase_c()
+    mark("C")
 
     # phase B: the main path, counted
     snap, scales0 = snapshot(w), dict(scales)
@@ -4777,20 +5296,38 @@ def main() -> int:
                       "churn_events": churn_events,
                       "resident_launches_per_kernel": res_counts,
                       "churn_launches_per_kernel": churn_counts}))
+    mark("B")
     print(json.dumps(phase_mirror(np.random.default_rng(SEED + 9))))
+    mark("M")
     driver_counts = phase_s()
+    mark("S")
     sched_counts = phase_q()
+    mark("Q")
     rebalance_counts, v = phase_v(keep=True)
+    mark("V")
     admission_counts = phase_w()
+    mark("W")
     degraded_counts = phase_x(v)
     del v
+    mark("X")
     sim_counts = phase_y()
+    mark("Y")
     rest_counts = phase_z()
+    mark("Z")
+    node_counts = phase_n()
+    mark("N")
+    phase_o()
+    mark("O")
     rank_counts = phase_r(build_world(np.random.default_rng(SEED)))
+    mark("R")
     preempt_counts = phase_p(np.random.default_rng(SEED + 10))
+    mark("P")
     topk_rows = phase_d()
+    mark("D")
     split_counts = phase_e()
+    mark("E")
     print(json.dumps({"phase": "E", "launches_per_kernel": split_counts}))
+    print(json.dumps({"phase_wall_s": walls}))
     print(card)
     out = []
     for k, row in rows.items():
@@ -4814,7 +5351,8 @@ def main() -> int:
                 "admission_split": admission_counts.get(k, 0),
                 "scheduler_degraded": degraded_counts.get(k, 0),
                 "simulator": sim_counts.get(k, 0),
-                "rest": rest_counts.get(k, 0)},
+                "rest": rest_counts.get(k, 0),
+                "daemon": node_counts.get(k, 0)},
             **({"inside": "greedy"} if k == "gang" else {}),
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,

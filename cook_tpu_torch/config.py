@@ -1169,3 +1169,23 @@ class Config:
 
     def pool_quota(self, pool_name: str) -> Optional[PoolQuota]:
         return self.pool_quotas.get(pool_name)
+
+
+def refuse_unported(config: Config, optimizer: bool = False) -> None:
+    """The reference's optional scheduler planes this port does not have
+    raise here instead of being silently ignored.  One check for the
+    ``Scheduler``'s constructor and the daemon's boot
+    (``daemon.build_scheduler_config``, where ``optimizer`` says the
+    config file has an ``"optimizer"`` section), so the two refusals
+    cannot drift apart."""
+    if optimizer or config.optimizer is not None:
+        raise NotImplementedError(
+            "the goodput optimizer loop (config.optimizer) is not "
+            "ported: see ROADMAP.md, queue 1, item 7c")
+    pl = config.pipeline
+    if pl.warmup_tasks or pl.warmup_hosts or pl.compilation_cache_dir:
+        raise NotImplementedError(
+            "the boot-time warmup and the compilation cache "
+            "(pipeline.warmup_tasks / warmup_hosts / "
+            "compilation_cache_dir) are not ported: see ROADMAP.md, "
+            "queue 1, item 7e ('warmup_kernels')")

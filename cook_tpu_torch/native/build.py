@@ -1,6 +1,6 @@
 """The port's copy of ``cook_tpu/native/build.py``: the build-if-stale
 helper for the native (C++) host components the port uses (the status
-watch queue)."""
+watch queue and the journal replication carrier)."""
 
 from __future__ import annotations
 

@@ -1,13 +1,9 @@
 """The port's copy of ``cook_tpu/rest/api.py`` (imports re-rooted).
 
 ``CookApi`` drives the port's ``Scheduler``, so every cycle a REST
-deployment runs is on the scheduler's device.  Three branches that need
-modules still to be ported are handled without importing them:
-``/debug/health`` reports ``locks.static_edges`` as ``"unavailable"``
-(the reference's branch for a deploy without ``analysis/``), a
-``repl_dir`` (set only by the daemon) answers 501 on
-``/debug/replication``, and ``POST /compute-clusters/{name}`` with an
-allowlisted factory answers 501 (the daemon's ``build_clusters``).
+deployment runs is on the scheduler's device.  ``/debug/health`` reports
+``locks.static_edges`` as ``"unavailable"`` (the reference's branch for
+a deploy without ``analysis/``, which is still to be ported).
 
 REST API server.
 
@@ -2304,11 +2300,8 @@ class CookApi:
                 "min_acked": srv.min_acked(),
             })
         if self.repl_dir:
-            # only the daemon sets repl_dir; the replication plane it
-            # reads is still to be ported
-            raise ApiError(501, "the replication candidate position "
-                                "(state/replication) is not ported: see "
-                                "ROADMAP.md, queue 1, item 11")
+            from ..state.replication import candidate_position
+            out["position"] = candidate_position(self.repl_dir)
         if self.elector is not None:
             try:
                 out["candidates"] = self.elector.read_candidates()
@@ -2448,10 +2441,17 @@ class CookApi:
                 raise ApiError(
                     403, f"factory {factory!r} not in the configured "
                          "cluster_factory_allowlist")
-            # the factories are built by the daemon, still to be ported
-            raise ApiError(501, "dynamic cluster creation needs the "
-                                "daemon's build_clusters, which is not "
-                                "ported: see ROADMAP.md, queue 1, item 10")
+            from ..daemon import build_clusters
+            try:
+                [fresh] = build_clusters(
+                    [{"factory": factory,
+                      "kwargs": dict(body.get("kwargs") or {},
+                                     name=name)}], self.store,
+                    config=self.config)
+            except Exception as e:
+                raise ApiError(422, f"cluster factory failed: {e}")
+            self.scheduler.add_cluster(fresh)
+            return {"name": name, "state": fresh.state, "created": True}
         new_state = body.get("state")
         legal = {"running": {"draining"}, "draining": {"running", "deleted"}}
         if new_state not in legal.get(cluster.state, set()):

@@ -55,7 +55,7 @@ from typing import Dict, List, Optional, Tuple
 
 from .. import resolve_device
 from ..cluster.base import ComputeCluster, LaunchSpec
-from ..config import Config
+from ..config import Config, refuse_unported
 from ..state.schema import (
     InstanceStatus,
     Job,
@@ -85,7 +85,9 @@ class Scheduler:
         self.config = config or Config()
         # the device every device path of this scheduler runs on
         self.device = resolve_device(device)
-        self._refuse_unported()
+        # the reference's planes this port does not have raise here (the
+        # node's boot makes the same check) instead of being ignored
+        refuse_unported(self.config)
         # sharded-controller identity (one partition = one process = one
         # mesh shard).  Process-wide, not per-scheduler: a shard worker
         # runs exactly one scheduler, and everything the shard emits —
@@ -129,7 +131,7 @@ class Scheduler:
         if self.config.elastic.enabled:
             self.matcher.elastic = self.elastic
             self.rebalancer.elastic = self.elastic
-        # the optimizer loop is not ported (_refuse_unported)
+        # the optimizer loop is not ported (refuse_unported)
         self.optimizer_cycler = None
         from .monitor import Monitor
         self.monitor = Monitor(store, config=self.config)
@@ -230,21 +232,6 @@ class Scheduler:
         # open (died between match and launch-ack) against actual cluster
         # state — refund or adopt, never duplicate, never lose.
         self.reconcile_launch_intents()
-
-    def _refuse_unported(self) -> None:
-        """The reference's optional planes this port does not have raise
-        here instead of being silently ignored."""
-        if self.config.optimizer is not None:
-            raise NotImplementedError(
-                "the goodput optimizer loop (config.optimizer) is not "
-                "ported: see ROADMAP.md, queue 1, item 7c")
-        pl = self.config.pipeline
-        if pl.warmup_tasks or pl.warmup_hosts or pl.compilation_cache_dir:
-            raise NotImplementedError(
-                "the boot-time warmup and the compilation cache "
-                "(pipeline.warmup_tasks / warmup_hosts / "
-                "compilation_cache_dir) are not ported: see ROADMAP.md, "
-                "queue 1, 'warmup_kernels'")
 
     # ---------------------------------------------------------------- wiring
     def add_cluster(self, cluster: ComputeCluster) -> None:
@@ -1324,7 +1311,7 @@ class Scheduler:
             t.start()
             self._threads.append(t)
         # the optimizer's loop (the reference's last spec) is refused at
-        # construction: see _refuse_unported
+        # construction: see refuse_unported
 
     def shutdown(self) -> None:
         """Stop the loops ``run`` started and the side-effect worker."""

@@ -1,12 +1,16 @@
 """CLI: python -m cook_tpu_torch.sim --trace trace.json --hosts hosts.json
      or: python -m cook_tpu_torch.sim --workload spec.json [--emit-trace t.json]
      or: python -m cook_tpu_torch.sim --parity-pipeline | --overload
+     or: python -m cook_tpu_torch.sim --crashpoints  (exhaustive disk-fault /
+         crash-point recovery matrix, sim/crashpoint.py; exit 1 on any
+         storage-contract violation)
 
 The port's copy of ``cook_tpu/sim/__main__.py``, with ``--device``
 (default ``cuda``; ``cpu`` runs the plain PyTorch path).  The chaos,
-failover, crash-point and cell-outage modes keep their flags but exit 2
-before any work: their modules are still to be ported (ROADMAP.md,
-queue 1, item 10)."""
+failover and cell-outage modes keep their flags but exit 2 before any
+work: their modules (``sim/chaos.py``, ``sim/federation.py``) are still
+to be ported (ROADMAP.md, queue 1, item 10's chaos remainder, which
+needs the partitioned and federated planes of item 11)."""
 
 import argparse
 import json
@@ -27,7 +31,7 @@ def _unported_mode(args):
     (checked before any work, with no import of the missing module)."""
     if args.chaos and args.overload:
         return "--overload --chaos"
-    for flag in ("crashpoints", "chaos_failover", "cell_outage", "chaos"):
+    for flag in ("chaos_failover", "cell_outage", "chaos"):
         if getattr(args, flag):
             return "--" + flag.replace("_", "-")
     return None
@@ -167,10 +171,20 @@ def main(argv=None) -> int:
                         "exit 1 on divergence")
     args = p.parse_args(argv)
 
+    if args.crashpoints:
+        from .crashpoint import run_crashpoints
+        cres = run_crashpoints(
+            n_jobs=args.jobs or 4,
+            stride=args.crashpoint_stride or 1)
+        print(json.dumps(cres.summary(), indent=2))
+        return 0 if cres.ok else 1
+
     refused = _unported_mode(args)
     if refused is not None:
         print(f"cook_tpu_torch.sim: {refused} is not ported yet: see "
-              "ROADMAP.md, queue 1, item 10", file=sys.stderr)
+              "ROADMAP.md, queue 1, item 10 (the chaos, failover and "
+              "cell-outage modes) and item 11 (the partitioned and "
+              "federated planes they drive)", file=sys.stderr)
         return 2
 
     if args.parity_pipeline:

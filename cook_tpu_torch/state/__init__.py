@@ -1,6 +1,7 @@
 """The port's copy of ``cook_tpu/state``: the entity schema, the
-transactional ``Store`` and its columnar index.  The partitioned write
-plane (``partition``, ``read_replica``, ``replication``) is not copied
+transactional ``Store`` and its columnar index, and the HA plane the
+node uses (``replication``, ``read_replica``, ``repair``).  The
+partitioned write plane (``partition.PartitionedStore``) is not copied
 (ROADMAP queue 1, item 11)."""
 
 from .schema import (  # noqa: F401

@@ -200,7 +200,25 @@ def test_lazy_imports_are_walked():
                      ("rest.instrument", "rest.api"),
                      ("rest.task_stats", "state.partition"),
                      ("sched.unscheduled", "sched.ranker"),
-                     ("client", "utils.retry")):
+                     ("client", "utils.retry"),
+                     # the node, its HA state plane and the operators' tools
+                     ("daemon", "sched.fleet"),
+                     ("daemon", "state.replication"),
+                     ("daemon", "state.read_replica"),
+                     ("rest.api", "state.replication"),
+                     ("rest.api", "daemon"),
+                     ("state.read_replica", "state.partition"),
+                     ("state.read_replica", "state.replication"),
+                     ("state.repair", "state.replication"),
+                     ("state.replication", "native.build"),
+                     ("sched.election", "utils.faults"),
+                     ("sched.election", "utils.fsatomic"),
+                     ("cli.main", "agent.file_server"),
+                     ("cli.main", "utils.tracing"),
+                     ("sim.system", "client"),
+                     ("sim.crashpoint", "state.repair"),
+                     ("sim.crashpoint", "state.replication"),
+                     ("sim.__main__", "sim.crashpoint")):
         assert (f"cook_tpu_torch.{mod}", f"cook_tpu_torch.{tgt}") in seen
     assert len(IMPORTS) > 100
 

@@ -727,38 +727,78 @@ def test_debug_health_static_edges_unavailable():
 
 
 def test_repl_dir_answers_501(tmp_path):
-    s = Stack(SIDES[1])
-    try:
-        s.api.repl_dir = str(tmp_path)
-        status, body = s.call("GET", "/debug/replication", user="admin")
-    finally:
-        s.close()
-    assert status == 501
-    assert "ROADMAP.md, queue 1, item 11" in body["error"]
+    """A ``repl_dir`` (the daemon sets it on a replicated node) puts the
+    mirror's candidate position on ``/debug/replication``, as the
+    reference does.  (The name is older than the port of
+    ``state/replication``, when the port answered 501 here.)"""
+    d = tmp_path / "mirror"
+    d.mkdir()
+    (d / "repl_token").write_text("tok")
+    (d / "journal.jsonl").write_bytes(b'{"tx": 1}\n{"torn')
+    (d / "repl_epoch").write_text("3")
+    out = []
+    for p in SIDES:
+        s = Stack(p)
+        try:
+            s.api.repl_dir = str(d)
+            out.append(s.call("GET", "/debug/replication", user="admin"))
+        finally:
+            s.close()
+    assert out[0] == out[1]
+    status, body = out[1]
+    assert status == 200
+    assert body["position"] == {"epoch": 3, "offset": 10, "synced": False,
+                                "began": True}
 
 
 def test_cluster_factory_answers_501_and_403_as_the_reference():
-    def allow(m, cfg):
-        cfg.cluster_factory_allowlist = ["fake"]
-
+    """``POST /compute-clusters/{name}``: a factory off the allowlist is
+    403, a non-admin is 403, and an allowlisted factory builds the
+    cluster through the daemon's ``build_clusters`` as the reference
+    does.  (The name is older than the port of the daemon, when the
+    port answered 501 for an allowlisted factory.)"""
     out = []
     for p in SIDES:
+        factory = f"{p.root}.cluster.fake.factory"
+
+        def allow(m, cfg):
+            cfg.cluster_factory_allowlist = ["fake", factory]
+
         s = Stack(p, cfg_fn=allow)
         try:
             out.append(s.call("POST", "/compute-clusters/extra",
                               {"factory": "not-allowed"}, user="admin"))
             out.append(s.call("POST", "/compute-clusters/extra",
-                              {"factory": "fake"}, user="bob"))
+                              {"factory": factory}, user="bob"))
             out.append(s.call("POST", f"/compute-clusters/{CLUSTER}",
                               {"state": "draining"}, user="admin"))
-            if p is SIDES[1]:
-                status, body = s.call("POST", "/compute-clusters/extra",
-                                      {"factory": "fake"}, user="admin")
-                assert status == 501
-                assert "ROADMAP.md, queue 1, item 10" in body["error"]
+            out.append(s.call("POST", "/compute-clusters/extra",
+                              {"factory": factory,
+                               "kwargs": {"n_hosts": 2}}, user="admin"))
+            out.append(sorted(s.sched.clusters))
+            out.append(s.step())
         finally:
             s.close()
         out.append(None)
     n = len(out) // 2
     assert out[n:] == out[:n]
-    assert out[0][0] == 403
+    assert out[0][0] == 403 and out[1][0] == 403
+    assert out[3] == (200, {"name": "extra", "state": "running",
+                            "created": True})
+
+
+def test_cluster_factory_in_the_jax_package_is_refused():
+    """The port's REST create path reaches the daemon's refusal of a
+    factory in the JAX package (importing it would load JAX)."""
+    def allow(m, cfg):
+        cfg.cluster_factory_allowlist = ["cook_tpu.cluster.fake.factory"]
+
+    s = Stack(SIDES[1], cfg_fn=allow)
+    try:
+        status, body = s.call("POST", "/compute-clusters/extra",
+                              {"factory": "cook_tpu.cluster.fake.factory"},
+                              user="admin")
+    finally:
+        s.close()
+    assert status == 422
+    assert "cook_tpu_torch.cluster.fake.factory" in body["error"]
