@@ -255,7 +255,11 @@ runs the scheduler's cycle on the card.
      front door) and the daemon's own loops place and complete them;
      every launch of its cycles recorded and replayed against its plain
      version after its step (path ``daemon``), no host oversubscribed
-     and no job live twice after every step; submissions a second, the
+     and no job live twice after every step; a fault in a step, the
+     cycle's own or a check's, which the match loop would log and
+     carry on from, fails the phase, as do a step left unchecked and a
+     kernel whose path launches differ from its replays'; submissions
+     a second, the
      seconds from the last acknowledgement until every job is placed
      and until every job has completed, the dispatching cycles; the
      journal scans clean; after ``shutdown()`` the reopened journal
@@ -271,7 +275,9 @@ runs the scheduler's cycle on the card.
      ``cs wait``s for them; the leader's cluster is drained (``POST
      /compute-clusters/node-fake``) and 500 more are submitted; once
      ``/debug/replication`` shows the standby synced the leader is
-     killed with SIGKILL, and its entry leaves the list; the seconds
+     killed with SIGKILL, and the list's count, polled from the kill,
+     shows the handover (down to the processes already there, or up by
+     one, the new context made before the old one left); the seconds
      from the kill until the standby leads and until its first
      placement; every acknowledged job on the new leader and every
      waiting one placed by it; the new leader on the list;
@@ -3518,16 +3524,19 @@ class ReplayingRecorder:
     def drain(self) -> None:
         calls = self.calls
         self._ctx.__exit__(None, None, None)
-        if calls:
-            before = self.telemetry.snapshot()
-            for k, n in replay_all(calls, self.what).items():
-                self.held[k] = self.held.get(k, 0) + n
-            after = self.telemetry.snapshot()
-            for k, n in after.items():
-                self.extra[k] = self.extra.get(k, 0) + n - before.get(k, 0)
-            self.replayed += len(calls)
-        self._ctx = self.cuda_lib.recording()
-        self.calls = self._ctx.__enter__()
+        try:
+            if calls:
+                before = self.telemetry.snapshot()
+                for k, n in replay_all(calls, self.what).items():
+                    self.held[k] = self.held.get(k, 0) + n
+                after = self.telemetry.snapshot()
+                for k, n in after.items():
+                    self.extra[k] = (self.extra.get(k, 0) + n
+                                     - before.get(k, 0))
+                self.replayed += len(calls)
+        finally:
+            self._ctx = self.cuda_lib.recording()
+            self.calls = self._ctx.__enter__()
 
     def stop(self) -> dict:
         """Replay what is left; the launches counted in between, less the
@@ -3537,6 +3546,15 @@ class ReplayingRecorder:
         self._ctx = None
         return {k: n - self.extra.get(k, 0)
                 for k, n in self.telemetry.snapshot().items()}
+
+    def unreplayed(self, counts: dict) -> dict:
+        """Where a replay launches each recorded call's kernels again,
+        the path's launches ``counts`` (from ``stop``) equal the
+        replays' by kernel; the kernels where they differ, with both
+        counts: a launch made while nothing recorded."""
+        return {k: (counts.get(k, 0), self.extra.get(k, 0))
+                for k in set(counts) | set(self.extra)
+                if counts.get(k, 0) != self.extra.get(k, 0)}
 
 
 def y_trace(n_jobs=Y_JOBS, n_users=Y_USERS, hosts=Y_HOSTS, seed=SEED):
@@ -4097,21 +4115,35 @@ def phase_n(device="cuda", n_jobs=N_JOBS, n_users=N_USERS, hosts=N_HOSTS,
         # recorder starts (and zeroes the counts) before any launch
         rec = ReplayingRecorder("phase N") if card else None
         guard = threading.Lock()
-        steps = []
+        steps, calls, faults = [], [0], []
         step_cycle = sched.step_cycle
 
         def counted_step(*a, **kw):
-            t1 = time.perf_counter()
-            res = step_cycle(*a, **kw)
+            # the match loop logs a failed cycle and carries on: a fault
+            # here, the cycle's own or a check's, is kept for the phase
+            # to raise
             with guard:
-                t2 = time.perf_counter()
-                if rec is not None and rec._ctx is not None:
-                    rec.drain()
-                check_live(node, f"phase N step {len(steps)}")
-                steps.append((t1, sum(len(r.launched_task_ids)
-                                      for r in res.values()),
-                              t2 - t1, time.perf_counter() - t2))
+                calls[0] += 1
+            try:
+                t1 = time.perf_counter()
+                res = step_cycle(*a, **kw)
+                with guard:
+                    t2 = time.perf_counter()
+                    if rec is not None and rec._ctx is not None:
+                        rec.drain()
+                    check_live(node, f"phase N step {len(steps)}")
+                    steps.append((t1, sum(len(r.launched_task_ids)
+                                          for r in res.values()),
+                                  t2 - t1, time.perf_counter() - t2))
+            except BaseException as e:
+                faults.append(e)
+                raise
             return res
+
+        def no_fault():
+            if faults:
+                raise AssertionError(f"phase N: {len(faults)} step_cycle "
+                                     f"calls failed") from faults[0]
 
         if rec is not None:
             rec.start()
@@ -4122,6 +4154,7 @@ def phase_n(device="cuda", n_jobs=N_JOBS, n_users=N_USERS, hosts=N_HOSTS,
         out["n1"] = sub
 
         def count(state):
+            no_fault()
             return len(node.store.jobs_where(
                 lambda j: j.state is state, clone=False))
 
@@ -4148,15 +4181,30 @@ def phase_n(device="cuda", n_jobs=N_JOBS, n_users=N_USERS, hosts=N_HOSTS,
                 "steps": [[t1 - last_ack, n, s * 1e3, r * 1e3]
                           for t1, n, s, r in steps],
                 "replay_and_check_s": sum(s[3] for s in steps),
+                # the match thread's replays and checks between the last
+                # acknowledgement and the last placement, which the
+                # placement waited for
+                "replay_and_check_to_placed_s": sum(
+                    s[3] for s in steps
+                    if last_ack <= s[0]
+                    and s[0] + s[2] + s[3] < last_ack + placed_s),
                 "journal_records": len(journal.records)}
         node.shutdown()
         running = False
         counts = rec.stop() if rec is not None else {}
+        no_fault()
+        if len(steps) != calls[0]:
+            raise AssertionError(f"phase N: {calls[0]} step_cycle calls, "
+                                 f"{len(steps)} checked")
         if card:
             missing = [k for k in SOURCES if counts.get(k, 0) <= 0]
             if missing:
                 raise AssertionError(f"phase N: kernels not launched: "
                                      f"{missing}")
+            skipped = rec.unreplayed(counts)
+            if skipped:
+                raise AssertionError(f"phase N: launches not replayed "
+                                     f"(path, replays): {skipped}")
             out["n2"]["launches_per_kernel"] = counts
             out["n2"]["replayed_equal_to_plain"] = rec.replayed
         t1 = time.perf_counter()
@@ -4188,19 +4236,45 @@ def compute_apps() -> list:
     return [int(x) for x in got.split() if x.strip().isdigit()]
 
 
-def on_card(pid: int, others: int, what: str) -> str:
+def on_card(pid: int, others: int, what: str, seen=None) -> str:
     """Raise unless process ``pid`` is on ``nvidia-smi``'s list of
     compute apps.  Where the list names it, by its pid; in a container
     whose processes the list shows all as pid 1 (a PID namespace it
     cannot map), by the count: one entry more than the ``others`` known
-    to hold a context."""
+    to hold a context.  After a process that held a context was killed,
+    ``seen``, the counts polled since the kill, must show the handover:
+    down to ``others`` (the killed context gone first) or up to
+    ``others + 2`` (the new one made first)."""
     apps = compute_apps()
     if pid in apps:
         return "pid"
-    if apps and set(apps) == {1} and len(apps) == others + 1:
+    if apps and set(apps) == {1} and len(apps) == others + 1 and (
+            seen is None or others in seen or others + 2 in seen):
         return "count"
     raise AssertionError(f"phase O: {what} (pid {pid}) not among the "
-                         f"compute apps {apps} ({others} others)")
+                         f"compute apps {apps} ({others} others, counts "
+                         f"seen since the kill {sorted(seen or ())})")
+
+
+class AppCounts:
+    """The counts of ``nvidia-smi``'s compute apps, polled in a thread
+    until ``stop``."""
+
+    def __init__(self):
+        import threading
+        self.seen, self._stop = set(), threading.Event()
+        self._thread = threading.Thread(target=self._poll, daemon=True)
+        self._thread.start()
+
+    def _poll(self) -> None:
+        while not self._stop.is_set():
+            self.seen.add(len(compute_apps()))
+            self._stop.wait(0.02)
+
+    def stop(self) -> set:
+        self._stop.set()
+        self._thread.join(timeout=10)
+        return self.seen
 
 
 class NodeProc:
@@ -4312,7 +4386,7 @@ def phase_o(device="cuda", hosts=O_HOSTS, first=O_FIRST, waiting=O_WAITING,
     out = {"phase": "O"}
     tmp = Path(tempfile.mkdtemp(prefix="cook_nodes"))
     repl = {"listen_port": 0, "sync": True}
-    nodes = []
+    nodes, polled = [], None
     t0 = time.perf_counter()
     try:
         # the processes on the card before the nodes (this one, after the
@@ -4355,12 +4429,10 @@ def phase_o(device="cuda", hosts=O_HOSTS, first=O_FIRST, waiting=O_WAITING,
         before = states_of(a, late)
         os.kill(a.proc.pid, signal.SIGKILL)
         t_kill = time.perf_counter()
+        # the killed leader's context and the standby's new one may show
+        # in either order
+        polled = AppCounts() if card else None
         a.proc.wait(timeout=30)
-        if card:
-            # the killed leader's context is gone before the standby
-            # (a 1 s candidacy window first) makes its own
-            wait_for(lambda: len(compute_apps()) == others, 0.8,
-                     "phase O: the killed leader left the card", 0.02)
         waited = [u for u in late if before[u] == "waiting"]
         if len(waited) != waiting:
             raise AssertionError(f"phase O: {waiting - len(waited)} jobs "
@@ -4390,8 +4462,12 @@ def phase_o(device="cuda", hosts=O_HOSTS, first=O_FIRST, waiting=O_WAITING,
                      "standby_epoch": b.get("/debug/replication")
                      .get("epoch")}
         if card:
+            wait_for(lambda: len(compute_apps()) == others + 1, 30.0,
+                     "phase O: the killed leader left the card", 0.1)
+            seen = polled.stop()
             out["o2"]["new_leader_on_card_by"] = on_card(
-                b.proc.pid, others, "the new leader")
+                b.proc.pid, others, "the new leader", seen)
+            out["o2"]["compute_apps_seen_after_kill"] = sorted(seen)
         sim = sim or O_SIM
         sched_path, res_path = tmp / "schedule.json", tmp / "results.json"
         t1 = time.perf_counter()
@@ -4429,6 +4505,8 @@ def phase_o(device="cuda", hosts=O_HOSTS, first=O_FIRST, waiting=O_WAITING,
             raise AssertionError(f"phase O: SIGTERM exit code {rc}")
         out["o4"] = {"sigterm_exit": rc}
     finally:
+        if polled is not None:
+            polled.stop()
         for n in nodes:
             n.stop()
         shutil.rmtree(tmp, ignore_errors=True)

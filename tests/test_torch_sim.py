@@ -345,22 +345,12 @@ REFUSED = {
     "--cell-outage": ["--chaos", "--cell-outage", "--cells", "3"],
     "--overload --chaos": ["--overload", "--chaos"],
 }
-# ported since the flag was refused: it now runs as the reference does
-CRASHPOINTS = ["--crashpoints", "--jobs", "2", "--crashpoint-stride", "3"]
 
 
-@pytest.mark.parametrize("flag", sorted(REFUSED) + ["--crashpoints"])
+@pytest.mark.parametrize("flag", sorted(REFUSED))
 def test_unported_modes_exit_2(flag, capsys):
-    """The modes whose modules are still to come exit 2 before any work;
-    ``--crashpoints`` (its case keeps the name it had while refused)
-    exits 0 with the reference's summary."""
-    if flag == "--crashpoints":
-        ref = _main(REF, CRASHPOINTS, capsys)
-        port = _main(PORT, CRASHPOINTS + ["--device", "cpu"], capsys)
-        assert port == ref
-        summary = json.loads(ref[1])
-        assert ref[0] == 0 and summary["ok"] and summary["violations"] == []
-        return
+    """The modes whose modules are still to come exit 2 before any
+    work."""
     before = set(sys.modules)
     rc = PORT.main.main(REFUSED[flag] + ["--device", "cpu"])
     out, err = capsys.readouterr()
@@ -370,6 +360,17 @@ def test_unported_modes_exit_2(flag, capsys):
     assert "ROADMAP.md, queue 1, item 10" in err
     new = set(sys.modules) - before
     assert not any(m.startswith("cook_tpu_torch.sim.") for m in new)
+
+
+def test_crashpoints_mode_matches_the_reference(capsys):
+    """``--crashpoints`` runs the crash-point matrix and exits 0 with the
+    reference's summary."""
+    argv = ["--crashpoints", "--jobs", "2", "--crashpoint-stride", "3"]
+    ref = _main(REF, argv, capsys)
+    port = _main(PORT, argv + ["--device", "cpu"], capsys)
+    assert port == ref
+    summary = json.loads(ref[1])
+    assert ref[0] == 0 and summary["ok"] and summary["violations"] == []
 
 
 # ------------------------------------------------------ default device
