@@ -50,6 +50,11 @@ the REST plane (``rest/api.CookApi`` behind ``ApiServer``, driven by
 ``client.JobClient``) at the JAX package's serving bench world; each
 runs the scheduler's cycle on the card.
 
+The production scheduler section (``examples/cook-production.json``):
+the boot warmup with its kernel cache, the goodput optimizer whose
+replays match through K5 on the card, the entity pack's dense-mask
+cycle, and the native pack (``native/pack.cpp``) on phase S's arrays.
+
   1. prints the card's name and power limit (nvidia-smi);
   2. builds the kernels from ``cook_tpu_torch/ops/csrc`` (nvcc);
   3. phase F: K1, K2, K3, K5 and K5+K6 against their plain versions,
@@ -153,6 +158,13 @@ runs the scheduler's cycle on the card.
      same store, counted on its own, each of its launches recorded and
      replayed against its plain version, and its rank held against
      ``rank_kernel_compact``'s plain version on the same inputs;
+     then phase U2 on the same driver and store: one cycle with the
+     native pack's three entry points (``pack_diff``, ``order_merge``,
+     ``prune_rows``) spied on, each captured call run again through
+     ``libcookpack`` and through its numpy branch, equal
+     (``native_available()`` must hold), and four cycles in turns
+     (native, numpy, numpy, native), their ``stage_ms`` and
+     ``pack_ms``;
   6f. phase Q: ``Scheduler.step_cycle`` at ``bench_pipeline_driver``'s
      world, nothing cut (100,000 jobs from ``_driver_jobs``, seed 13;
      5,000 hosts of 64 cpus and 65,536 MB; ``Config()``;
@@ -163,9 +175,9 @@ runs the scheduler's cycle on the card.
      (its ``queue.rows`` wait read); p50 and p99, launches, conflicts,
      sync waits by site, the pack / stage / apply split, the launch
      counts of each leg, and one more step under cProfile (the main
-     thread's largest own times); both legs again without status
-     shards, once each; after every
-     step no host oversubscribed and no
+     thread's largest own times); the depth-0 leg again without
+     status shards (cut from one leg a depth for the run's time); after
+     every step no host oversubscribed and no
      job with two live instances; on each shard leg's store three steps
      whose every dispatched wire is cloned and run through
      ``megacycle_plain`` on the card after its fetch (all seven outputs
@@ -225,7 +237,7 @@ runs the scheduler's cycle on the card.
      launch of the tick before replayed against its plain version; wall
      time, virtual makespan, ``step_cycle`` calls and their p50 and p99,
      placements, completions (all), waits, preemptions, the flight
-     summary.  Y2: 1,000 jobs from 50 users over 100 hosts on the card
+     summary.  Y2: 500 jobs from 50 users over 100 hosts on the card
      and with ``device="cpu"``, the same task records and summary less
      its host-clock fields.  Y3: ``run_pipeline_parity`` (seed 3, 600
      jobs, 40 hosts, depth 2) ok.  Y4: ``run_overload()`` ok.  Y5:
@@ -285,6 +297,36 @@ runs the scheduler's cycle on the card.
      client of the node) generates, simulates
      (20 users x 10 jobs over 10 s) and reports against it (wait and
      turnaround p50); SIGTERM ends it with exit code 0;
+  6n. phase T: the production scheduler section through
+     ``daemon.build_scheduler_config``, with the fake cluster in place
+     of its remote backend (queue 1, item 11) and its
+     ``compilation_cache_dir`` in ``build/cuda-cache`` (the file's lies
+     outside the checkout). T1: two fresh ``python3`` processes on
+     phase Q's world (100,000 jobs, 200 users, 5,000 hosts) and 4
+     elastic gangs of 8 (min 4), no status shards, a pinned store
+     clock: the first with the boot warmup at the file's grid (131,072
+     x 8,192, 2,048 users, no sweep; its seconds, its run count held
+     to the reference's rule, its launches counted and replayed) over
+     an emptied cache (nvcc builds the library there), the second
+     without the warmup over that cache (the library loaded); each
+     reports the first step's ms against the p50 of ``T_STEPS`` more.
+     T2: ``step_optimize`` once with the file's ``optimizer_config`` on
+     the first process's world after its steps (the last 900 s, the
+     newest 200 jobs, 64 hosts, 6 candidate replays), its seconds and
+     decisions, its launches counted (path ``optimizer``), recorded
+     and replayed against their plain versions, and the applied levers
+     held to the decisions (the grow budget, the shrink pressure less
+     what it shed, the rebalancer's ``max_preemption``); then Q_SMALL's
+     world (10,000 jobs, 500 hosts) on the card and with
+     ``device="cpu"``, the same decisions;
+  6o. phase U1: the entity-pack driver (``columnar_index=False``) on
+     one pool of 100,000 jobs (T bucket 131,072) x 8,192 hosts, C =
+     1,024, 3 cycles counted (path ``dense_cycle``): each cycle's
+     dense inputs through ``parallel/sharded.dense_pool_cycle`` on the
+     card, every compact output equal bit for bit, the gang outputs
+     the no-op reduction; ``pack_ms``, ``stage_ms``, ``h2d_bytes`` and
+     the cycle's ms; then a 3,000-job world on the card and on the CPU,
+     the same (job uuid, hostname) pairs every cycle;
   7. phase D: the two top-K kernels (structured at 100,000 x 50,000,
      E = 256; dense at 10,000 x 50,000), counted, then held against
      their plain versions (fit bit for bit, host where fit > -inf) and
@@ -310,13 +352,16 @@ runs the scheduler's cycle on the card.
      its ``step_rebalance`` as ``rebalancer``, phase W's split cycle as
      ``admission_split``, phase X's degraded cycles as
      ``scheduler_degraded``, phase Y1 as ``simulator``, phase Z2 as
-     ``rest`` and phase N as ``daemon``)
+     ``rest``, phase N as ``daemon``, phase T's warmup as ``warmup``
+     and its replays as ``optimizer``, phase U1 as ``dense_cycle``)
      and last ``{"ok": true, "device": {...}}``.
 
 Usage: ``python3 chip_smoke.py`` from the root of a checkout (needs one
 CUDA card, nvcc and g++): it builds every kernel and native library it
 needs, the kernels into ./build/cuda (the ptxas report in
-build/cuda/ptxas.log) and the replication carrier into ./build/native.
+build/cuda/ptxas.log; phase T builds them once more into
+./build/cuda-cache) and the replication carrier and the native pack
+into ./build/native.
 Any failure raises.
 """
 
@@ -330,7 +375,7 @@ import statistics
 import subprocess
 import sys
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -2234,6 +2279,7 @@ def driver_cycle(s, kind: str, i: int, check: bool = True) -> dict:
         raise AssertionError(f"phase S: launched jobs that were not "
                              f"pending: {stray[:5]}")
     live = check_hosts(s)
+    s.last_queues = queues
     step_ms = (t1 - t0) * 1e3 + enq + fetch + apply_ms
     return {"phase": "S", "kind": kind, "cycle": i, "step_ms": step_ms,
             "pack_ms": drv.last_pack_ms, "stage_ms": group_stage_ms,
@@ -2292,7 +2338,7 @@ def profile_step(s, tries: int = 3) -> dict:
     return {"busy_ms": "not measured", "tries": tries}
 
 
-def phase_s(device="cuda", **size) -> dict:
+def phase_s(device="cuda", keep=False, **size):
     """The driver at bench_driver_cycle's world: one warm cycle, one
     settle cycle, then S_TIMED timed cycles, each topped up with as many
     fresh jobs as the last one launched; launches counted over these
@@ -2300,7 +2346,8 @@ def phase_s(device="cuda", **size) -> dict:
     the split cycle (``Ranker.rank_pool``, ``Matcher.match_pool``) on
     the same store, counted on its own; each of its launches is replayed
     against its plain version, and the rank against
-    ``rank_kernel_compact``'s plain version on the same inputs."""
+    ``rank_kernel_compact``'s plain version on the same inputs.  With
+    ``keep`` the world is returned too (phase U2 runs on it)."""
     from cook_tpu_torch.ops import cuda_lib, telemetry
     from cook_tpu_torch.sched import ranker as ranker_mod
     from cook_tpu_torch.sched.ranker import Ranker
@@ -2385,7 +2432,8 @@ def phase_s(device="cuda", **size) -> dict:
                            "replayed_equal_to_plain": held,
                            "rank_max_abs_err_against_plain": rank_err}}
     print(json.dumps(out))
-    return {"driver": counts, "split": split_counts}
+    counts = {"driver": counts, "split": split_counts}
+    return (counts, s) if keep else counts
 
 
 def split_rank_check(ranked, what: str = "phase S") -> float:
@@ -2823,11 +2871,12 @@ def phase_q() -> dict:
     """The Scheduler's production loop at bench_pipeline_driver's world:
     the depth-0 leg, then the depth-2 leg (the default), each counted
     on its own; on the depth-2 leg's store the checked steps, the
-    queue-fetch check and a profiled step; then two legs without
+    queue-fetch check and a profiled step; then one leg without
     status shards (the updates applied on the cycle thread as they
-    arrive), depth 0 then 2, to read the depths apart from the shards'
-    cost; then the reduced world on card and CPU.  Each
-    leg's world is dropped before the next is built."""
+    arrive) at depth 0, to read the shards' cost (the depth-2 leg
+    without them was cut for the run's time); then the reduced world
+    on card and CPU.  Each leg's world is dropped before the next is
+    built."""
     import gc
     counts, checks = {}, {"phase": "Q"}
     for depth in (0, 2):
@@ -2841,8 +2890,8 @@ def phase_q() -> dict:
         s.sched.shutdown()
         del s
         gc.collect()
-    turns = {0: [], 2: []}
-    for depth in (0, 2):
+    turns = {0: []}
+    for depth in turns:
         s = q_leg(depth, shards=None)
         print(json.dumps(s.leg))
         turns[depth].append(s.leg["p50_ms"])
@@ -3495,7 +3544,7 @@ def phase_x(v) -> dict:
 # over about 1,000 pending jobs; users and hosts are not cut
 Y_JOBS, Y_USERS, Y_HOSTS = 8_000, 200, 1_000
 Y_SPAN_MS = Y_DURATION_MS = 10_000
-Y_SMALL = {"n_jobs": 1_000, "n_users": 50, "hosts": 100}  # card = CPU
+Y_SMALL = {"n_jobs": 500, "n_users": 50, "hosts": 100}  # card = CPU
 # summary() and flight-summary fields read off the host's clock
 Y_HOST_CLOCK = ("match_cycle_p50_ms", "match_cycle_p99_ms",
                 "rank_cycle_p50_ms", "placements_per_wall_s")
@@ -5224,6 +5273,556 @@ def greedy_gang_edge_check():
             "ms": ms, "k5_alone_ms": k5_ms}))
 
 
+# --------------------------------- phase T: the production scheduler section
+ROOT = Path(__file__).resolve().parent
+# compilation_cache_dir: the file's /var/cook/xla-cache lies outside the
+# checkout; the smoke keeps the library in the checkout's build/
+T_CACHE = ROOT / "build" / "cuda-cache"
+T_STEPS = 6              # steps after the first, each leg
+T_GANGS, T_GANG_SIZE, T_GANG_MIN = 4, 8, 4   # elastic gangs in the world
+T_CLOCK = 2_000_000      # the pinned store clock (ms) of phase T's worlds
+T_CHILD_TIMEOUT_S = 240.0
+
+
+def production_section() -> dict:
+    """``examples/cook-production.json``'s ``"scheduler"`` section."""
+    path = ROOT / "examples" / "cook-production.json"
+    return json.loads(path.read_text())["scheduler"]
+
+
+def t_config(warmup=True, cache=T_CACHE):
+    """The production section through ``daemon.build_scheduler_config``,
+    the compilation cache in the checkout; ``warmup`` False zeroes the
+    warmup knobs (a boot without it)."""
+    from cook_tpu_torch.daemon import build_scheduler_config
+    spec = production_section()
+    spec["pipeline"]["compilation_cache_dir"] = str(cache)
+    if not warmup:
+        spec["pipeline"]["warmup_tasks"] = 0
+        spec["pipeline"]["warmup_hosts"] = 0
+    return build_scheduler_config(spec)
+
+
+def expected_warm_runs(cfg, device="cuda") -> int:
+    """The warmup's run count for ``cfg`` by the reference's rule
+    (``cook_tpu/sched/fused.py:280-463``): per DRU mode, T bucket and H
+    bucket, one run a distinct cap bucket, and where the megacycle is
+    warmed (a ``tpu-megakernel`` pin, or ``auto`` on the card) one more
+    a cap for each rows codec (wide, and i8 with the quantized wire)."""
+    from cook_tpu_torch.ops.padding import bucket
+    pl = cfg.pipeline
+
+    def grid(n):
+        top = bucket(n, minimum=64)
+        return [top] if not pl.warmup_sweep else \
+            [64 << i for i in range(top.bit_length() - 6)]
+    backends = {cfg.default_matcher.backend}
+    backends |= {mc.backend for _rx, mc in cfg.pool_matchers}
+    caps = {bucket(cfg.default_matcher.max_jobs_considered)}
+    caps |= {bucket(mc.max_jobs_considered) for _rx, mc in cfg.pool_matchers}
+    mega = "tpu-megakernel" in backends or (
+        "auto" in backends and device == "cuda")
+    codecs = 2 if cfg.quantized_wire else 1
+    runs = 0
+    for T in grid(pl.warmup_tasks):
+        for _H in grid(pl.warmup_hosts):
+            n = len({min(c, T) for c in caps})
+            runs += n * (1 + (codecs if mega else 0))
+    return runs * (2 if pl.warmup_gpu else 1)
+
+
+def t_world(cfg, device="cuda", n_jobs=Q_JOBS, n_users=Q_USERS,
+            hosts=Q_HOSTS, seed=Q_SEED, counted=False, gangs=T_GANGS):
+    """The production section's ``Scheduler`` (no status shards) over a
+    fresh store with a pinned clock: phase Q's jobs and ``gangs``
+    elastic gangs of ``T_GANG_SIZE`` (min ``T_GANG_MIN``) submitted
+    last, so the optimizer's 900 s window and its newest
+    ``max_replay_jobs`` hold them.  The scheduler is built first, as a
+    node's takeover builds it."""
+    from cook_tpu_torch.cluster import FakeCluster, FakeHost
+    from cook_tpu_torch.sched import Scheduler
+    from cook_tpu_torch.state import Group, Job, Resources, Store
+    rng = np.random.default_rng(seed)
+    store = Store()
+    store.clock = lambda: T_CLOCK
+    cluster = FakeCluster("fake-prod", [
+        FakeHost(f"h{i}", Resources(cpus=64.0, mem=65536.0))
+        for i in range(hosts)])
+    t0 = time.perf_counter()
+    sched = Scheduler(store, cfg, [cluster], rank_backend="tpu",
+                      device=device)
+    boot_s = time.perf_counter() - t0
+    s = SimpleNamespace(store=store, cluster=cluster, cfg=cfg, sched=sched,
+                        rng=rng, n_users=n_users, hosts=hosts,
+                        uuid=counted_uuids(seed) if counted else None)
+    q_top_up(s, n_jobs)
+    members, groups = [], []
+    for g in range(gangs):
+        guuid = f"{seed:08x}-0000-4000-9000-{g:012x}"
+        jobs = [Job(uuid=f"{seed:08x}-0000-4000-a{g:03x}-{i:012x}",
+                    user=f"train{g}", command="x", max_retries=5,
+                    priority=90, group=guuid,
+                    submit_time_ms=T_CLOCK - 60_000 + g,
+                    resources=Resources(cpus=16.0, mem=16384.0))
+                for i in range(T_GANG_SIZE)]
+        groups.append(Group(uuid=guuid, gang=True, gang_size=T_GANG_SIZE,
+                            gang_min=T_GANG_MIN, gang_max=T_GANG_SIZE,
+                            jobs=[j.uuid for j in jobs]))
+        members += jobs
+    if members:
+        store.create_jobs(members, groups=groups)
+    store.ensure_index()
+    s.boot_s = boot_s
+    return s
+
+
+def t_step(s, what, i) -> dict:
+    """One timed ``step_cycle``, then the status updates flushed and the
+    store checked (outside the timed step)."""
+    t0 = time.perf_counter()
+    results = s.sched.step_cycle()
+    ms = (time.perf_counter() - t0) * 1e3
+    s.sched.flush_status_updates()
+    live = check_live(s, f"phase T {what} step {i}")
+    n = sum(len(r.launched_task_ids) for r in results.values())
+    return {"step": i, "step_ms": ms, "launched": n, "live": live}
+
+
+def t1_leg(warm: bool, device="cuda", grid=None, optimize=False,
+           **size) -> dict:
+    """One fresh process's boot on the production section (the child of
+    :func:`phase_t`): the kernels' library from ``compilation_cache_dir``
+    (built there when it is not), with ``warm`` the boot warmup
+    (counted, timed, each of its launches replayed against its plain
+    version), then the first step and ``T_STEPS`` more on phase Q's
+    world; with ``optimize``, T2's ``step_optimize`` on that world
+    (:func:`t_optimize`)."""
+    from cook_tpu_torch.ops import cuda_lib, telemetry
+    t_proc = time.perf_counter()
+    cfg = t_config(warmup=warm)
+    pl = cfg.pipeline
+    if warm and grid is not None:  # a CPU rehearsal's (tasks, hosts)
+        pl.warmup_tasks, pl.warmup_hosts = grid
+    knobs = (pl.warmup_tasks, pl.warmup_hosts)
+    # the constructor's warmup, made explicitly below to read its count
+    pl.warmup_tasks = pl.warmup_hosts = 0
+    s = t_world(cfg, device, **size)
+    pl.warmup_tasks, pl.warmup_hosts = knobs
+    card = device == "cuda"
+    out = {"warm": warm, "world_s": time.perf_counter() - t_proc,
+           "build_dir": str(cuda_lib.BUILD_DIR),
+           "library_loaded_before_warmup": cuda_lib._LIB is not None}
+    if warm:
+        telemetry.reset_all()
+        with cuda_lib.recording() as calls:
+            t0 = time.perf_counter()
+            runs = s.sched.warmup_kernels()
+            if card:
+                torch.cuda.synchronize()
+            out["warmup_s"] = time.perf_counter() - t0
+        counts = telemetry.snapshot()
+        want = expected_warm_runs(cfg, device)
+        if not 0 < runs == want:
+            raise AssertionError(f"phase T: warmup ran {runs} times, the "
+                                 f"rule gives {want}")
+        missing = [k for k in SOURCES if counts.get(k, 0) <= 0]
+        if card and missing:
+            raise AssertionError(f"phase T: warmup launched no {missing}")
+        out.update(warmup_runs=runs, warmup_runs_expected=want,
+                   warmup_launches=counts,
+                   warmup_replayed_equal_to_plain=replay_all(
+                       calls, "phase T warmup") if card else {})
+    steps = [t_step(s, "warm" if warm else "cold", 0)]
+    # built (nvcc ran) or loaded from the cache, by the warmup or else
+    # by the first step
+    out["library"] = dict(cuda_lib.LAST_BUILD)
+    for i in range(T_STEPS):
+        q_top_up(s, steps[-1]["launched"])
+        steps.append(t_step(s, "warm" if warm else "cold", 1 + i))
+    if not sum(x["launched"] for x in steps):
+        raise AssertionError("phase T: no step launched anything")
+    out.update(first_step_ms=steps[0]["step_ms"],
+               warm_p50_ms=statistics.median(x["step_ms"]
+                                             for x in steps[1:]),
+               steps=steps, process_s=time.perf_counter() - t_proc)
+    if optimize:
+        out["optimizer"] = t_optimize(s, record=card)
+    return out
+
+
+def t1_child(warm: bool, optimize: bool = False) -> dict:
+    """:func:`t1_leg` in a fresh ``python3`` process; its last stdout
+    line is the leg's JSON.  A failed child fails the phase."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT), PYTHONUNBUFFERED="1")
+    code = ("import json, chip_smoke as cs; print(json.dumps(cs.t1_leg("
+            f"{warm!r}, optimize={optimize!r})))")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                          env=env, capture_output=True, text=True,
+                          timeout=T_CHILD_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise RuntimeError(f"phase T child (warm={warm}) exit "
+                           f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    out["child_wall_s"] = time.perf_counter() - t0
+    return out
+
+
+@contextmanager
+def ordered_task_ids():
+    """``uuid.uuid4`` from a counter inside the block: the elastic shrink
+    of the optimizer's replays breaks ties by task id, which would
+    otherwise be random on each side of a card-against-CPU comparison."""
+    import itertools
+    import uuid
+    real, counter = uuid.uuid4, itertools.count(1)
+    uuid.uuid4 = lambda: uuid.UUID(int=next(counter), version=4)
+    try:
+        yield
+    finally:
+        uuid.uuid4 = real
+
+
+def t_optimize(s, record=True) -> dict:
+    """``step_optimize`` once (its replays recorded and each launch
+    replayed against its plain version), and the applied levers held
+    against the decisions: the grow budget, the shrink pressure (less
+    what it shed at once) and the rebalancer's ``max_preemption``."""
+    from cook_tpu_torch.ops import cuda_lib, telemetry
+    sched = s.sched
+    pending0 = len(sched.elastic.debug()["pending_shrinks"])
+    dyn0 = s.store.dynamic_config("rebalancer")
+    telemetry.reset_all()
+    with ordered_task_ids(), cuda_lib.recording() as calls:
+        t0 = time.perf_counter()
+        decisions = sched.step_optimize()
+        secs = time.perf_counter() - t0
+    counts = telemetry.snapshot()
+    if not decisions:
+        raise AssertionError("phase T: the optimizer decided nothing")
+    shed = len(sched.elastic.debug()["pending_shrinks"]) - pending0
+    budgets = []
+    for pool, d in decisions.items():
+        grow = sched.elastic.grow_budget.get(pool)
+        if (grow is None) != (d.grow_budget is None) or (
+                grow is not None and grow != float(d.grow_budget)):
+            raise AssertionError(f"phase T: grow budget {grow} against "
+                                 f"the decision's {d.grow_budget}")
+        left = sched.elastic.shrink_pressure.get(pool, 0)
+        if left + shed != d.shrink_pressure:
+            raise AssertionError(f"phase T: shrink pressure {left} (+{shed} "
+                                 f"shed) against {d.shrink_pressure}")
+        if d.preemption_budget is not None:
+            budgets.append(d.preemption_budget)
+    dyn = s.store.dynamic_config("rebalancer")
+    if budgets and (dyn or {}).get("max_preemption") != max(budgets):
+        raise AssertionError(f"phase T: max_preemption {dyn} against "
+                             f"{max(budgets)}")
+    if not budgets and dyn != dyn0:
+        raise AssertionError("phase T: the dynamic config moved without "
+                             "a preemption budget")
+    held = replay_all(calls, "phase T optimizer") if record and calls \
+        else {}
+    return {"seconds": secs, "launches": counts, "replayed": len(calls),
+            "replayed_equal_to_plain": held,
+            "decisions": {p: d.to_dict() for p, d in decisions.items()},
+            "grow_budget": dict(sched.elastic.grow_budget),
+            "shrink_pressure": dict(sched.elastic.shrink_pressure),
+            "shed": shed, "max_preemption": (dyn or {}).get(
+                "max_preemption")}
+
+
+def t_small(device) -> dict:
+    """Q_SMALL's world with the production section on ``device`` (counted
+    uuids, pinned clock): two steps, then ``step_optimize``; the
+    decisions as dicts."""
+    cfg = t_config(warmup=False)
+    s = t_world(cfg, device=device, counted=True, **Q_SMALL)
+    for i in range(2):
+        t_step(s, f"small {device}", i)
+    with ordered_task_ids():
+        d = s.sched.step_optimize()
+    return {p: x.to_dict() for p, x in d.items()}
+
+
+def phase_t() -> dict:
+    """The production scheduler section on the card (the fake cluster in
+    place of the file's remote backend, queue 1 item 11): T1, the boot
+    warmup at the file's grid (131,072 x 8,192, 2,048 users, no sweep)
+    in a fresh process with an empty ``compilation_cache_dir`` (nvcc
+    builds the library there), then a fresh process without the warmup
+    over the cache the first filled (the library loaded); each reports
+    its first step against the warm p50.  T2: ``step_optimize`` once on
+    the first process's world after its steps (its replays counted,
+    recorded and replayed against their plain versions, the levers
+    checked), and on Q_SMALL's world the card's decisions equal to the
+    CPU's.  Returns the warmup's and the optimizer's launches."""
+    import shutil
+    shutil.rmtree(T_CACHE, ignore_errors=True)
+    warm = t1_child(True, optimize=True)
+    opt = warm.pop("optimizer")
+    print(json.dumps({"phase": "T1", **warm}))
+    cold = t1_child(False)
+    print(json.dumps({"phase": "T1", **cold}))
+    if warm["library"].get("built") is not True:
+        raise AssertionError("phase T: the empty cache held a library")
+    if cold["library"].get("built") is not False:
+        raise AssertionError("phase T: the cache did not hold the library")
+    print(json.dumps({"phase": "T1", "summary": {
+        "warmup_s": warm["warmup_s"], "warmup_runs": warm["warmup_runs"],
+        "library_build_s_in_warm_leg": warm["library"]["seconds"],
+        "library_find_s_in_cold_leg": cold["library"]["seconds"],
+        "library_load_s": {"warm": warm["library"]["load_s"],
+                           "cold": cold["library"]["load_s"]},
+        "cache_held_library_for_cold_leg": not cold["library"]["built"],
+        "first_step_ms": {"warm": warm["first_step_ms"],
+                          "cold": cold["first_step_ms"]},
+        "warm_p50_ms": {"warm": warm["warm_p50_ms"],
+                        "cold": cold["warm_p50_ms"]}}}))
+    if opt["launches"].get("greedy", 0) <= 0:
+        raise AssertionError("phase T: the replays launched no K5")
+    print(json.dumps({"phase": "T2", "world": {
+        "jobs": Q_JOBS, "users": Q_USERS, "hosts": Q_HOSTS,
+        "elastic_gangs": T_GANGS, "after_steps": 1 + T_STEPS}, **opt}))
+    card, cpu = t_small("cuda"), t_small("cpu")
+    if card != cpu:
+        raise AssertionError(f"phase T: Q_SMALL decisions differ:\n"
+                             f"card {card}\ncpu  {cpu}")
+    print(json.dumps({"phase": "T2", "small_world": Q_SMALL,
+                      "decisions_card_equal_cpu": True,
+                      "decisions": card}))
+    return {"warmup": warm["warmup_launches"], "optimizer": opt["launches"]}
+
+
+# ------------------------------ phase U: the dense cycle and the native pack
+U_JOBS, U_USERS, U_HOSTS, U_CYCLES = 100_000, 200, 8_192, 3
+U_SMALL = {"n_jobs": 3_000, "n_users": 20, "hosts": 300}  # card = CPU
+
+
+def u_world(device="cuda", n_jobs=U_JOBS, n_users=U_USERS, hosts=U_HOSTS,
+            seed=S_SEED):
+    """The driver on the entity pack (``columnar_index=False``): one
+    pool, phase S's jobs (counted uuids), ``hosts`` hosts of 64 cpus."""
+    s = driver_world(device, n_jobs=0, n_users=n_users, hosts=hosts,
+                     seed=seed)
+    s.cfg.columnar_index = False
+    make = counted_uuids(seed)
+    jobs = driver_jobs(s.rng, n_jobs, n_users)
+    for j in jobs:
+        j.uuid = make()
+    for i in range(0, n_jobs, 10_000):
+        s.store.create_jobs(jobs[i:i + 10_000])
+    s.make_uuid = make
+    return s
+
+
+def u_top_up(s, n):
+    fresh = driver_jobs(s.rng, n, s.n_users)
+    for j in fresh:
+        j.uuid = s.make_uuid()
+    if fresh:
+        s.store.create_jobs(fresh)
+
+
+def u_cycle(s, i, check=True) -> dict:
+    """One entity-pack step through the driver's four phases; between
+    fetch and apply the staged dense inputs through
+    ``parallel/sharded.dense_pool_cycle`` on the same device, every
+    compact output equal (the gang outputs the no-op reduction)."""
+    from cook_tpu_torch.ops import pallas_cycle, telemetry
+    from cook_tpu_torch.parallel import sharded
+    drv = s.driver
+    seen = []
+    real = pallas_cycle.dense_wire
+
+    def spy(fields):
+        seen.append(fields)
+        return real(fields)
+    pallas_cycle.dense_wire = spy
+    try:
+        t0 = time.perf_counter()
+        staged = drv.stage(s.sched)
+        t1 = time.perf_counter()
+    finally:
+        pallas_cycle.dense_wire = real
+    queues = {p.name: [] for p in staged.pools}
+    results, line = {}, {"cycle": i, "pack_ms": drv.last_pack_ms,
+                         "stage_phase_ms": (t1 - t0) * 1e3}
+    for sg, fields in zip(staged.groups, seen):
+        if not sg.dense:
+            raise AssertionError("phase U: a group staged off the dense wire")
+        before = telemetry.snapshot()
+        ta = time.perf_counter()
+        gd = drv.dispatch_group(sg)
+        got = drv.fetch_group(gd)
+        tb = time.perf_counter()
+        after = telemetry.snapshot()
+        for k, v in after.items():
+            s.counts[k] = s.counts.get(k, 0) + v - before.get(k, 0)
+        err = None
+        if check:
+            ref = sharded.dense_pool_cycle(
+                sharded.dense_inputs_from_numpy(fields, drv.device),
+                gpu_mode=sg.gpu_mode,
+                max_over_quota_jobs=s.cfg.max_over_quota_jobs,
+                considerable_cap=min(sg.cap, sg.T), device=drv.device)
+            cand_row, cand_assign, cand_qpos, n_queue, cand_gang, drop = got
+            err = 0.0
+            for name, a, b in (("n_queue", n_queue, ref.n_queue),
+                               ("cand_row", cand_row, ref.cand_row),
+                               ("cand_assign", cand_assign, ref.cand_assign),
+                               ("cand_qpos", cand_qpos, ref.cand_qpos)):
+                if not np.array_equal(a, b.cpu().numpy()):
+                    raise AssertionError(f"phase U cycle {i}: {name} "
+                                         f"differs from the dense plain "
+                                         f"cycle")
+            for p, n in enumerate(n_queue.tolist()):
+                err = max(err, max_err(gd.res.queue_rows[p, :n],
+                                       ref.queue_rows[p, :n]))
+            if not (np.array_equal(cand_gang, cand_assign)
+                    and not drop.any()):
+                raise AssertionError(f"phase U cycle {i}: the no-op gang "
+                                     f"reduction moved a slot")
+        drv.apply_group(s.sched, gd, queues, results)
+        line.update(stage_ms=sg.stage_ms, h2d_bytes=sg.mega["h2d_bytes"],
+                    cycle_ms=(tb - ta) * 1e3, T=sg.T, H=sg.H,
+                    rows_codec=sg.mega["rows_codec"],
+                    outputs_equal_to_dense_plain=check, max_abs_err=err)
+    s.sched.flush_status_updates()
+    check_hosts(s)
+    line["placements"] = launched_pairs(s, results)
+    return line
+
+
+def u_small(device) -> list:
+    s = u_world(device, **U_SMALL)
+    pairs = []
+    for i in range(U_CYCLES):
+        pairs.append(u_cycle(s, i, check=False)["placements"])
+        u_top_up(s, len(pairs[-1]))
+    return pairs
+
+
+def phase_u1(device="cuda", **size) -> dict:
+    """U1: the entity-pack driver at one pool of 131,072 task rows (the
+    bucket of 100,000 jobs and the running ones) x 8,192 hosts, C =
+    1,024, for ``U_CYCLES`` cycles, counted (path ``dense_cycle``);
+    then U_SMALL's world on the card and on the CPU, the same (job
+    uuid, hostname) pairs every cycle."""
+    from cook_tpu_torch.ops import telemetry
+    s = u_world(device, **size)
+    telemetry.reset_all()
+    lines = []
+    for i in range(U_CYCLES):
+        line = u_cycle(s, i, check=device == "cuda")
+        n = len(line.pop("placements"))
+        line["placements"] = n
+        print(json.dumps({"phase": "U1", **line}))
+        lines.append(line)
+        u_top_up(s, n)
+    counts = dict(s.counts)
+    missing = [k for k in SOURCES if counts.get(k, 0) <= 0]
+    if device == "cuda" and missing:
+        raise AssertionError(f"phase U: kernels not launched: {missing}")
+    if not sum(x["placements"] for x in lines):
+        raise AssertionError("phase U: no placement")
+    card, cpu = u_small(device), u_small("cpu")
+    if card != cpu:
+        raise AssertionError("phase U: U_SMALL pairs differ, card and CPU")
+    print(json.dumps({"phase": "U1", "launches_per_kernel": counts,
+                      "small_world": U_SMALL, "small_pairs_card_equal_cpu":
+                      [len(p) for p in card],
+                      "median": {k: statistics.median(x[k] for x in lines)
+                                 for k in ("pack_ms", "stage_ms",
+                                           "cycle_ms", "h2d_bytes")}}))
+    return counts
+
+
+U2_TURNS = ("native", "numpy", "numpy", "native")
+
+
+def phase_u2(s) -> dict:
+    """U2, on phase S's driver and world: one cycle with the native
+    pack's three entry points spied on, each captured call run again
+    through ``libcookpack`` and through its numpy branch, equal; then
+    one cycle a turn with the native branch and with the numpy branch
+    (native, numpy, numpy, native), ``stage_ms`` and ``pack_ms`` of
+    each."""
+    from cook_tpu_torch.native import pack
+    if not pack.native_available():
+        raise AssertionError("phase U: libcookpack did not build")
+    captured = {}
+    real = {n: getattr(pack, n) for n in ("pack_diff", "order_merge",
+                                          "prune_rows")}
+
+    def spy(name):
+        def f(*args):
+            captured.setdefault(name, [copy_args(args)])
+            return real[name](*args)
+        return f
+    for n in real:
+        setattr(pack, n, spy(n))
+    try:
+        top_up(s, 1_000)
+        line = driver_cycle(s, "U2", 0, check=False)
+        touch_driver_queue(s)
+    finally:
+        for n, f in real.items():
+            setattr(pack, n, f)
+    missing = sorted(set(real) - set(captured))
+    if missing:
+        raise AssertionError(f"phase U: no call of {missing} in phase "
+                             f"S's cycle")
+    checks = {}
+    for name, (args,) in captured.items():
+        t0 = time.perf_counter()
+        got = real[name](*args)
+        t1 = time.perf_counter()
+        with pack.numpy_branch():
+            want = real[name](*args)
+        t2 = time.perf_counter()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"phase U: {name} differs from its numpy "
+                                 f"branch")
+        checks[name] = {"native_ms": (t1 - t0) * 1e3,
+                        "numpy_ms": (t2 - t1) * 1e3,
+                        "sizes": [int(np.size(a)) for a in args
+                                  if isinstance(a, np.ndarray)],
+                        "equal_to_numpy": True}
+    turns = []
+    for i, branch in enumerate(U2_TURNS):
+        top_up(s, line["placements"])
+        ctx = pack.numpy_branch() if branch == "numpy" else nullcontext()
+        with ctx:
+            line = driver_cycle(s, f"U2 {branch}", 1 + i, check=False)
+            touch_driver_queue(s)
+        turns.append({"branch": branch, "stage_ms": line["stage_ms"],
+                      "pack_ms": line["pack_ms"],
+                      "step_ms": line["step_ms"],
+                      "resident_path": line["resident_path"]})
+    by = {b: {k: statistics.mean(t[k] for t in turns if t["branch"] == b)
+              for k in ("stage_ms", "pack_ms", "step_ms")}
+          for b in ("native", "numpy")}
+    out = {"phase": "U2", "native_available": True, "checks": checks,
+           "turns": turns, "mean_by_branch": by}
+    print(json.dumps(out))
+    return out
+
+
+def touch_driver_queue(s) -> int:
+    """The driver's published queue read (its rows fetched and the
+    cycle's launches pruned, as a queue consumer would)."""
+    q = s.last_queues.get("default")
+    return 0 if q is None else len(q.uuids)
+
+
+def copy_args(args) -> tuple:
+    return tuple(a.copy() if isinstance(a, np.ndarray) else a for a in args)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available", file=sys.stderr)
@@ -5377,8 +5976,11 @@ def main() -> int:
     mark("B")
     print(json.dumps(phase_mirror(np.random.default_rng(SEED + 9))))
     mark("M")
-    driver_counts = phase_s()
+    driver_counts, s_world = phase_s(keep=True)
     mark("S")
+    phase_u2(s_world)
+    del s_world
+    mark("U2")
     sched_counts = phase_q()
     mark("Q")
     rebalance_counts, v = phase_v(keep=True)
@@ -5396,6 +5998,10 @@ def main() -> int:
     mark("N")
     phase_o()
     mark("O")
+    prod_counts = phase_t()
+    mark("T")
+    dense_counts = phase_u1()
+    mark("U1")
     rank_counts = phase_r(build_world(np.random.default_rng(SEED)))
     mark("R")
     preempt_counts = phase_p(np.random.default_rng(SEED + 10))
@@ -5430,7 +6036,10 @@ def main() -> int:
                 "scheduler_degraded": degraded_counts.get(k, 0),
                 "simulator": sim_counts.get(k, 0),
                 "rest": rest_counts.get(k, 0),
-                "daemon": node_counts.get(k, 0)},
+                "daemon": node_counts.get(k, 0),
+                "warmup": prod_counts["warmup"].get(k, 0),
+                "optimizer": prod_counts["optimizer"].get(k, 0),
+                "dense_cycle": dense_counts.get(k, 0)},
             **({"inside": "greedy"} if k == "gang" else {}),
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,

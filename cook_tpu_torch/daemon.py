@@ -6,10 +6,9 @@ without its card exits nonzero and never serves; the elected leader's
 ``Scheduler`` runs on it.  Each branch that needs a module still to be
 ported is refused at boot with the ROADMAP.md item that holds it: a
 ``"federation"`` section, ``partitions.count > 1`` and ``election.mode =
-"k8s-lease"`` (queue 1, item 11), an ``"optimizer"`` section (item 7c),
-the pipeline's warmup and compilation cache (item 7e).  A cluster
-factory in the JAX package (``cook_tpu.`` ...) is refused too: importing
-it would load JAX into the node.
+"k8s-lease"`` (queue 1, item 11).  A cluster or optimizer factory in
+the JAX package (``cook_tpu.`` ...) is refused too: importing it would
+load JAX into the node.
 
 Process shell: config file -> store -> election -> clusters -> scheduler
 -> REST, serving until leadership loss.
@@ -57,7 +56,7 @@ from pathlib import Path
 from typing import Dict, List, Optional
 
 from . import resolve_device
-from .config import Config, refuse_unported
+from .config import Config
 from .policy import PluginRegistry, QueueLimits, RateLimits
 from .rest.api import (ApiError, ApiServer, CookApi,
                        check_container_wire_bytes, check_env_wire_bytes)
@@ -166,6 +165,15 @@ def build_scheduler_config(spec: Dict) -> Config:
         # the sections above
         from .config import ElasticConfig
         cfg.elastic = ElasticConfig.from_conf(spec["elastic"])
+    if "optimizer" in spec:
+        # the goodput optimizer loop (sched/optimizer.py): factories,
+        # interval, and the nested goodput knobs are ALL validated at
+        # boot — from_conf constructs the cycler once, so a typo'd
+        # candidate list, a non-positive interval or a factory in the
+        # JAX package fails here, not at the first cycle half a minute
+        # into leadership
+        from .sched.optimizer import OptimizerConfig
+        cfg.optimizer = OptimizerConfig.from_conf(spec["optimizer"])
     if "fleet" in spec:
         # fleet observability plane (docs/OBSERVABILITY.md): federation
         # scrape cadence, trace fan-out timeout, static extra members,
@@ -221,10 +229,6 @@ def build_scheduler_config(spec: Dict) -> Config:
             _check_plane_wire_bytes(conf_key, value_key, val)
             table.append((rx, val))
         setattr(cfg, attr, table)
-    # the goodput optimizer (an "optimizer" section) and the pipeline's
-    # warmup knobs are not ported: refuse them at boot, with the same
-    # check the Scheduler's constructor makes
-    refuse_unported(cfg, optimizer="optimizer" in spec)
     return cfg
 
 

@@ -7,7 +7,10 @@ with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false`` (no
 fast math), one ``nvcc -c`` per source started together, then linked
 into one shared library with a plain C interface and loaded with
 ``ctypes``.  The library lands in ``build/cuda/`` at the root of the
-checkout, named by a hash of the sources and flags, so an edit rebuilds.
+checkout (or in the directory ``ops/telemetry.enable_compilation_cache``
+names), named by a hash of the sources and flags, so an edit rebuilds;
+``LAST_BUILD`` says whether the last :func:`build` found the library or
+ran nvcc, and how long that took.
 
 :func:`stage` turns a launcher into a stage wrapper: a CPU tensor takes
 the plain PyTorch version, a CUDA tensor launches the kernel or raises.
@@ -23,6 +26,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Callable, List, NamedTuple, Optional
 
@@ -69,6 +73,9 @@ _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int,
 
 _LIB: Optional[ctypes.CDLL] = None
 BUILD_LOG = ""
+# the last build(): {"path", "built" (nvcc ran), "seconds"}, and the
+# library's load ("load_s", by lib())
+LAST_BUILD: dict = {}
 
 
 def _sources() -> List[Path]:
@@ -100,8 +107,11 @@ def build(verbose: bool = False) -> Path:
     (skipped when a library of the same hash exists).  ``verbose`` adds
     ``-Xptxas -v``; the compiler output lands in ``BUILD_LOG``."""
     global BUILD_LOG
+    t0 = time.perf_counter()
     out = BUILD_DIR / f"libcook_cycle_{_digest()}.so"
     if out.exists() and not verbose:
+        LAST_BUILD.update(path=str(out), built=False,
+                          seconds=time.perf_counter() - t0)
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cc = nvcc()
@@ -131,17 +141,22 @@ def build(verbose: bool = False) -> Path:
     if link.returncode != 0:
         raise RuntimeError(f"link failed:\n{link.stdout}")
     os.replace(tmp, out)
+    LAST_BUILD.update(path=str(out), built=True,
+                      seconds=time.perf_counter() - t0)
     return out
 
 
 def lib() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
-        dll = ctypes.CDLL(str(build()))
+        path = build()
+        t0 = time.perf_counter()
+        dll = ctypes.CDLL(str(path))
         for name, sig in _SIGNATURES.items():
             fn = getattr(dll, name)
             fn.argtypes = [_CTYPES[c] for c in sig]
             fn.restype = ctypes.c_int
+        LAST_BUILD["load_s"] = time.perf_counter() - t0
         _LIB = dll
     return _LIB
 

@@ -21,6 +21,18 @@ by hand for sm_90a (``csrc/``):
 Torch only allocates memory and calls them.  On the CPU ``megacycle``
 runs the plain cycle instead: ``parallel/sharded.pool_cycle`` plus
 ``gang_reduce_body``, the same decisions by construction.
+
+The dense-mask cycle (the entity pack's ``PoolCycleInputs``, whose
+plain version is ``parallel/sharded.dense_pool_cycle``) runs through the
+same chain: :func:`dense_wire` recasts its already expanded columns as
+a wire whose rows are the identity into its own usage (so K1's gathers
+return the dense columns and its phase 0 sums the pool bases in the
+reference's order), whose segment bits reproduce the dense segments
+exactly, and in which every task is its own exception row with the
+dense ``cmask`` row as its mask, so K5 places each admitted slot
+against exactly that row: ``megacycle(wire_from_numpy(dense_wire(
+fields), device))`` is the dense cycle, its gang outputs the no-op
+reduction (the dense pack stages no gang wire).
 """
 
 from __future__ import annotations
@@ -91,7 +103,8 @@ def wire_from_numpy(fields: dict, device="cuda") -> MegaCycleWire:
         elif k in _F32_FIELDS:
             a = a.astype(np.float32)
         elif k == "exc_mask":
-            a = a.astype(bool)
+            # no host copy: the dense wire's mask is [P, T, H]
+            a = a.astype(bool, copy=False)
         out[k] = to_device(torch.from_numpy(np.ascontiguousarray(a)), dev)
     return MegaCycleWire(**out)
 
@@ -173,3 +186,80 @@ def megacycle(wire: MegaCycleWire, *, gpu_mode: bool = False,
         return megacycle_plain(wire, **kw)
     from .stages import megacycle_stages
     return megacycle_stages(wire, **kw)
+
+
+def dense_wire(fields: dict) -> dict:
+    """The wire fields (numpy, for :func:`wire_from_numpy`) of a dense
+    cycle's inputs: ``fields`` holds the stacked PoolCycleInputs arrays
+    (numpy, [P, T, ...]).
+
+    * ``rows[p, t] = p * T + t`` into ``res_base`` = the usage rows and
+      ``disk_base`` = the job_res disk column, so K1's decode returns
+      usage, and job_res as (cpus, mem, gpus) of usage with that disk,
+      times pending, which is the dense job_res (pending rows' usage is
+      their demand; running rows' job_res is zero in both);
+    * USER_FIRST where the segment changes (``first_idx[t] !=
+      first_idx[t - 1]``, and at 0): the dense segments' starts
+      (``first_idx == t``) and ends, the first padding row included
+      (the dense end of the last user when it is not the first), so the
+      segmented scans and segment totals see the dense segments;
+    * per-user tables taken at each segment's first row (tokens, shares
+      and quota are per-user columns in the dense pack), gathered back
+      by K1 through the segment index, which is the dense user_rank on
+      every valid row;
+    * every task its own exception row (``exc_rows[p, t] = t``) with the
+      dense ``cmask`` as ``exc_mask``; the host bits are never read for
+      an exception row.
+
+    Padding and running rows may differ from the dense arrays only where
+    the cycle masks them (not valid, or not pending)."""
+    pending = np.asarray(fields["pending"], dtype=bool)
+    P, T = pending.shape
+    first = np.asarray(fields["first_idx"]).astype(np.int64)
+    change = np.ones((P, T), dtype=bool)
+    change[:, 1:] = first[:, 1:] != first[:, :-1]
+    from .delta import pack_flags
+    flags = pack_flags(pending, np.asarray(fields["valid"], dtype=bool),
+                       change,
+                       enqueue_ok=np.asarray(fields["enqueue_ok"], bool),
+                       launch_ok=np.asarray(fields["launch_ok"], bool))
+    seg = np.cumsum(change, axis=1) - 1
+    from .padding import bucket
+    U = bucket(int(seg[:, -1].max()) + 1, minimum=8)
+    tokens_u = np.full((P, U), np.inf, dtype=np.float32)
+    shares_u = np.full((P, U, 3), np.inf, dtype=np.float32)
+    quota_u = np.full((P, U, 4), np.inf, dtype=np.float32)
+    tokens = np.asarray(fields["tokens"], dtype=np.float32)
+    shares = np.asarray(fields["shares"], dtype=np.float32)
+    quota = np.asarray(fields["quota"], dtype=np.float32)
+    for p in range(P):
+        at = np.flatnonzero(change[p])
+        tokens_u[p, :at.size] = tokens[p, at]
+        shares_u[p, :at.size] = shares[p, at]
+        quota_u[p, :at.size] = quota[p, at]
+    usage = np.asarray(fields["usage"], dtype=np.float32)
+    job_res = np.asarray(fields["job_res"], dtype=np.float32)
+    cmask = np.asarray(fields["cmask"], dtype=bool)
+    H = cmask.shape[2]
+    rows = (np.arange(P, dtype=np.int64)[:, None] * T
+            + np.arange(T, dtype=np.int64)[None, :]).astype(np.int32)
+    gang = empty_gang_wire(P, T, H)
+    return dict(
+        rows=rows, flags=flags,
+        res_base=np.ascontiguousarray(usage.reshape(P * T, 4)),
+        disk_base=np.ascontiguousarray(job_res[..., 3].reshape(P * T)),
+        tokens_u=tokens_u, shares_u=shares_u, quota_u=quota_u,
+        num_considerable=np.asarray(fields["num_considerable"], np.int32),
+        pool_quota=np.asarray(fields["pool_quota"], np.float32),
+        group_quota=np.asarray(fields["group_quota"], np.float32),
+        group_id=np.asarray(fields["group_id"], np.int32),
+        host_bits=np.stack([quant.pack_bits(np.zeros((P, H), bool)),
+                            quant.pack_bits(np.ones((P, H), bool))], axis=1),
+        exc_rows=np.ascontiguousarray(
+            np.broadcast_to(np.arange(T, dtype=np.int32), (P, T))),
+        exc_mask=cmask,
+        avail=np.asarray(fields["avail"], np.float32),
+        capacity=np.asarray(fields["capacity"], np.float32),
+        gang_id=gang[0], gang_size=gang[1], gang_attr=gang[2],
+        host_topo=gang[3])
+

@@ -11,7 +11,10 @@ the port of ``cook_tpu/ops/telemetry.py``'s (:94-133): they feed the
 metrics registry and the active cycle's flight record, and the first
 also counts ``transfer.<direction>`` here.  The reference's
 ``instrument_jit`` counts JIT recompiles; the port compiles nothing per
-shape, so it has no counterpart."""
+shape, so it has no counterpart.  :func:`enable_compilation_cache` is
+the counterpart of the reference's (:137-160): the port's one compile
+is nvcc's build of the kernels' library, so the cache is the directory
+that library is built in and loaded from."""
 
 from __future__ import annotations
 
@@ -105,3 +108,26 @@ def profile_upload(stage_ms: float, tensors) -> None:
     print(f"[profile] stage={stage_ms}ms upload="
           f"{(time.perf_counter() - t0) * 1e3:.0f}ms "
           f"({nbytes / 1e6:.1f}MB)", file=sys.stderr)
+
+
+def enable_compilation_cache(path: str) -> bool:
+    """Build the kernels' library into ``path`` (created if missing) and
+    load it from there (``ops/cuda_lib.BUILD_DIR``): the library is
+    named by a hash of its sources and flags, so a restarted node, or a
+    failover successor sharing the directory, loads the library a
+    predecessor built instead of running nvcc again.  Returns True when
+    the directory is in use; False (never raises) when ``path`` is
+    empty or cannot be created, and the default ``build/cuda`` stays.
+    A library this process has already loaded stays loaded."""
+    if not path:
+        return False
+    from pathlib import Path
+
+    from . import cuda_lib
+    try:
+        target = Path(path).expanduser().resolve()
+        target.mkdir(parents=True, exist_ok=True)
+    except OSError:
+        return False
+    cuda_lib.BUILD_DIR = target
+    return True

@@ -1,11 +1,16 @@
 """The fused pool cycle (rank -> considerable -> match) over P pools on
 one device, plain PyTorch: the single-device form of
-``cook_tpu/parallel/sharded.py``'s ``make_pool_cycle(..., structured=True,
-compact=True)``.  The all_gather of every pool's running usage becomes a
-direct sum over the pools.
+``cook_tpu/parallel/sharded.py``'s ``make_pool_cycle``, in its three
+input forms: the compact wire (``structured=True, compact=True``, the
+columnar pack's), the structured mask, and the dense bool[P, T, H]
+constraint mask of :class:`PoolCycleInputs` (``structured=False``, the
+entity pack's; ``_pool_cycle_one``, ``single_pool_cycle``).  The
+all_gather of every pool's running usage becomes a direct sum over the
+pools.
 
-This is the plain version of the whole cycle; on the card
-``ops/pallas_cycle.megacycle`` runs the same math as CUDA stage kernels.
+These are the plain versions of the whole cycle; on the card
+``ops/pallas_cycle.megacycle`` runs the same math as CUDA stage kernels
+(the dense form through ``ops/pallas_cycle.dense_wire``).
 """
 
 from __future__ import annotations
@@ -23,6 +28,8 @@ from ..ops.delta import (FLAG_ENQUEUE_OK, FLAG_LAUNCH_OK, FLAG_PENDING,
                          FLAG_USER_FIRST, FLAG_VALID)
 from ..ops.scan import (segmented_cumsum_by_first_idx,
                         user_segments_from_flags, window32_sum)
+
+INF = float("inf")
 
 
 class CompactPoolCycleInputs(NamedTuple):
@@ -45,6 +52,53 @@ class CompactPoolCycleInputs(NamedTuple):
     exc_mask: torch.Tensor    # bool[P, E, H]
     avail: torch.Tensor       # f32[P, H, 4]
     capacity: torch.Tensor    # f32[P, H, 4]
+
+
+class PoolCycleInputs(NamedTuple):
+    """Per-pool padded arrays with the DENSE constraint mask, stacked on
+    a leading pool axis [P, ...] (the entity pack's form).  Pending rows
+    double as match candidates (job_res/cmask); running rows have
+    pending=False."""
+
+    usage: torch.Tensor        # f32[P, T, 4] (cpus, mem, gpus, 1)
+    quota: torch.Tensor        # f32[P, T, 4]
+    shares: torch.Tensor       # f32[P, T, 3]
+    first_idx: torch.Tensor    # i32[P, T]
+    user_rank: torch.Tensor    # i32[P, T]
+    pending: torch.Tensor      # bool[P, T]
+    valid: torch.Tensor        # bool[P, T]
+    enqueue_ok: torch.Tensor   # bool[P, T] False = host-stifled job
+    launch_ok: torch.Tensor    # bool[P, T] launch-plugin verdicts
+    tokens: torch.Tensor       # f32[P, T] user launch-rate budget
+    num_considerable: torch.Tensor  # i32[P] backoff cap
+    pool_quota: torch.Tensor   # f32[P, 4]
+    group_quota: torch.Tensor  # f32[P, 4]
+    group_id: torch.Tensor     # i32[P] quota-group id, -1 = none
+    job_res: torch.Tensor      # f32[P, T, 4] (cpus, mem, gpus, disk)
+    cmask: torch.Tensor        # bool[P, T, H]
+    avail: torch.Tensor        # f32[P, H, 4]
+    capacity: torch.Tensor     # f32[P, H, 4]
+
+
+_DENSE_DTYPES = {
+    "usage": torch.float32, "quota": torch.float32, "shares": torch.float32,
+    "first_idx": torch.int32, "user_rank": torch.int32,
+    "pending": torch.bool, "valid": torch.bool, "enqueue_ok": torch.bool,
+    "launch_ok": torch.bool, "tokens": torch.float32,
+    "num_considerable": torch.int32, "pool_quota": torch.float32,
+    "group_quota": torch.float32, "group_id": torch.int32,
+    "job_res": torch.float32, "cmask": torch.bool, "avail": torch.float32,
+    "capacity": torch.float32,
+}
+
+
+def dense_inputs_from_numpy(fields: dict, device="cuda") -> PoolCycleInputs:
+    """The port's PoolCycleInputs from numpy arrays holding the fields of
+    the JAX package's PoolCycleInputs."""
+    dev = resolve_device(device)
+    return PoolCycleInputs(**{
+        k: torch.as_tensor(np.asarray(fields[k])).to(dev, _DENSE_DTYPES[k])
+        for k in PoolCycleInputs._fields})
 
 
 class StructuredPoolCycleInputs(NamedTuple):
@@ -255,6 +309,149 @@ def _pool_cycle_structured(usage, quota, shares, first_idx, user_rank,
     compact = _compact_outputs(order, cr.queue_ok, sel, task_idx, valid_c,
                                assign_c, T)
     return (order, num_ranked, dru) + compact
+
+
+def _pool_cycle_one(usage, quota, shares, first_idx, user_rank, pending,
+                    valid, enqueue_ok, launch_ok, tokens, num_considerable,
+                    pool_quota, group_quota, pool_base, group_base,
+                    job_res, cmask, avail, capacity,
+                    gpu_mode: bool, max_over_quota_jobs: int,
+                    considerable_cap: Optional[int] = None):
+    """One pool's full rank -> considerable -> match with a DENSE
+    bool[T, H] constraint mask.  ``considerable_cap`` bounds the match
+    problem (it must be >= the dynamic ``num_considerable`` or over-cap
+    admitted rows stay unmatched this cycle).  Returns the reference's
+    tuple: (order, num_ranked, dru, assign [T] in rank order,
+    match_valid, queue_ok, accepted, matched_usage) + the compact
+    outputs."""
+    T = pending.shape[0]
+    order, num_ranked, dru, cr = _rank_admit(
+        usage, quota, shares, first_idx, user_rank, pending, valid,
+        enqueue_ok, launch_ok, tokens, num_considerable, pool_quota,
+        group_quota, pool_base, group_base, gpu_mode, max_over_quota_jobs)
+    cap = T if considerable_cap is None else min(considerable_cap, T)
+    sel, task_idx, valid_c, assign_c = _match_tail(
+        order, cr, job_res, lambda ti: cmask[ti], avail, capacity, cap)
+    # scatter back to rank order; sentinel slots (sel == T) drop out
+    assign = torch.full((T + 1,), -1, dtype=torch.int32, device=order.device)
+    assign[sel.long()] = assign_c
+    assign = assign[:T]
+    res_c = job_res[task_idx.long()] * valid_c[:, None]
+    matched = assign_c >= 0
+    matched_usage = window32_sum(res_c * matched[:, None], dim=0)[:4]
+    compact = _compact_outputs(order, cr.queue_ok, sel, task_idx, valid_c,
+                               assign_c, T)
+    return (order, num_ranked, dru, assign, cr.match_valid, cr.queue_ok,
+            cr.accepted, matched_usage) + compact
+
+
+def single_pool_cycle(usage, quota, shares, first_idx, user_rank, pending,
+                      valid, job_res, cmask, avail, capacity,
+                      gpu_mode: bool = False, max_over_quota_jobs: int = 100,
+                      enqueue_ok=None, launch_ok=None, tokens=None,
+                      num_considerable=None, pool_quota=None,
+                      group_quota=None, group_base=None,
+                      considerable_cap: Optional[int] = None):
+    """One pool's fused rank + considerable + match step on the tensors'
+    device, with permissive admission defaults.  Returns (order,
+    num_ranked, dru, assign)."""
+    T = pending.shape[0]
+    dev = pending.device
+    ones = torch.ones((T,), dtype=torch.bool, device=dev)
+    enqueue_ok = ones if enqueue_ok is None else enqueue_ok
+    launch_ok = ones if launch_ok is None else launch_ok
+    tokens = (torch.full((T,), INF, dtype=torch.float32, device=dev)
+              if tokens is None else tokens)
+    num_considerable = (torch.tensor(T, dtype=torch.int32, device=dev)
+                        if num_considerable is None else num_considerable)
+    pool_quota = (torch.full((4,), INF, dtype=torch.float32, device=dev)
+                  if pool_quota is None else pool_quota)
+    group_quota = (torch.full((4,), INF, dtype=torch.float32, device=dev)
+                   if group_quota is None else group_quota)
+    pool_base = window32_sum(usage * (valid & ~pending)[:, None], dim=0)[:4]
+    group_base = pool_base if group_base is None else group_base
+    (order, num_ranked, dru, assign, *_rest) = _pool_cycle_one(
+        usage, quota, shares, first_idx, user_rank, pending, valid,
+        enqueue_ok, launch_ok, tokens, num_considerable, pool_quota,
+        group_quota, pool_base, group_base, job_res, cmask, avail, capacity,
+        gpu_mode, max_over_quota_jobs, considerable_cap)
+    return order, num_ranked, dru, assign
+
+
+class DensePoolCycleResult(NamedTuple):
+    """The reference's PoolCycleResult of the dense cycle."""
+    order: torch.Tensor          # i32[P, T]
+    num_ranked: torch.Tensor     # i32[P]
+    dru: torch.Tensor            # f32[P, T]
+    assign: torch.Tensor         # i32[P, T] host per rank position, -1
+    match_valid: torch.Tensor    # bool[P, T]
+    queue_ok: torch.Tensor       # bool[P, T]
+    accepted: torch.Tensor       # bool[P, T]
+    matched_usage: torch.Tensor  # f32[P, 4]
+    total_matched: torch.Tensor  # i32[]
+    queue_rows: torch.Tensor     # i32[P, T]
+    n_queue: torch.Tensor        # i32[P]
+    cand_row: torch.Tensor       # i32[P, C]
+    cand_assign: torch.Tensor    # i32[P, C]
+    cand_qpos: torch.Tensor      # i32[P, C]
+
+
+def dense_pool_cycle(inp: PoolCycleInputs, *, gpu_mode: bool = False,
+                     max_over_quota_jobs: int = 100,
+                     considerable_cap: Optional[int] = None,
+                     device="cuda") -> DensePoolCycleResult:
+    """The dense cycle over P pools on one device (plain PyTorch): the
+    reference's ``make_pool_cycle(..., structured=False)`` on one
+    device."""
+    dev = resolve_device(device)
+    inp = PoolCycleInputs(*(t.to(dev) for t in inp))
+    pool_base, group_base = pool_bases(inp.usage, inp.pending, inp.valid,
+                                       inp.group_id)
+    outs = []
+    for p in range(inp.pending.shape[0]):
+        outs.append(_pool_cycle_one(
+            inp.usage[p], inp.quota[p], inp.shares[p], inp.first_idx[p],
+            inp.user_rank[p], inp.pending[p], inp.valid[p],
+            inp.enqueue_ok[p], inp.launch_ok[p], inp.tokens[p],
+            inp.num_considerable[p], inp.pool_quota[p], inp.group_quota[p],
+            pool_base[p], group_base[p], inp.job_res[p], inp.cmask[p],
+            inp.avail[p], inp.capacity[p], gpu_mode, max_over_quota_jobs,
+            considerable_cap))
+    cols = [torch.stack(c) for c in zip(*outs)]
+    (order, num_ranked, dru, assign, match_valid, queue_ok, accepted,
+     matched_usage, queue_rows, n_queue, cand_row, cand_assign,
+     cand_qpos) = cols
+    total = (assign >= 0).to(torch.int32).sum()
+    return DensePoolCycleResult(
+        order=order, num_ranked=num_ranked, dru=dru, assign=assign,
+        match_valid=match_valid, queue_ok=queue_ok, accepted=accepted,
+        matched_usage=matched_usage, total_matched=total,
+        queue_rows=queue_rows, n_queue=n_queue.to(torch.int32),
+        cand_row=cand_row, cand_assign=cand_assign, cand_qpos=cand_qpos)
+
+
+def make_pool_cycle(*, gpu_mode: bool = False, max_over_quota_jobs: int = 100,
+                    considerable_cap: Optional[int] = None,
+                    structured: bool = False, compact: bool = False,
+                    device="cuda"):
+    """The cycle function for one device (the reference's
+    ``make_pool_cycle`` without its mesh): ``compact=True`` takes
+    :class:`CompactPoolCycleInputs` (:func:`pool_cycle`), otherwise the
+    dense :class:`PoolCycleInputs` (:func:`dense_pool_cycle`; the
+    structured non-compact form has no caller in either package's
+    drivers and is not offered)."""
+    if compact:
+        if considerable_cap is None:
+            raise ValueError("the compact cycle needs a considerable_cap")
+        return lambda inp: pool_cycle(
+            inp, considerable_cap=considerable_cap, gpu_mode=gpu_mode,
+            max_over_quota_jobs=max_over_quota_jobs, device=device)
+    if structured:
+        raise ValueError("make_pool_cycle: structured=True needs "
+                         "compact=True here")
+    return lambda inp: dense_pool_cycle(
+        inp, gpu_mode=gpu_mode, max_over_quota_jobs=max_over_quota_jobs,
+        considerable_cap=considerable_cap, device=device)
 
 
 def pool_bases(usage, pending, valid, group_id):

@@ -36,12 +36,16 @@ The wire staging as functions:
 
 Every codec is lossless or wide.  ``stage``'s ``exclude`` /
 ``avail_delta`` / ``token_delta`` and ``apply_group``'s ``reconciler``
-are the pipelined driver's hooks (``sched/pipeline.py``).  Not ported:
-the driver's ``warmup``, the entity pack of ``columnar_index=False`` (it
-raises) and the mesh.  A fault in the resident delta (its extraction or
-its scatter) repacks the resident wire, as the reference's does; a failed
-launch, full upload or mirror sync raises (``Scheduler.step_cycle`` then
-degrades that cycle to the split path).
+are the pipelined driver's hooks (``sched/pipeline.py``).  With
+``columnar_index=False`` the pools are packed off the store's entities
+instead (the entity pack: ``build_user_tasks``, a dense bool[T, H]
+constraint mask) and the group runs the dense-mask cycle
+(``ops/pallas_cycle.dense_wire``: the same stage kernels, every task its
+own exception row).  ``warmup`` runs every stage kernel once at the
+configured bucket grid.  Not ported: the mesh.  A fault in the resident
+delta (its extraction or its scatter) repacks the resident wire, as the
+reference's does; a failed launch, full upload or mirror sync raises
+(``Scheduler.step_cycle`` then degrades that cycle to the split path).
 
 Streams: every upload, resident scatter, dispatch and output copy is
 enqueued on the current stream, in program order, so the next cycle's
@@ -62,11 +66,12 @@ import torch
 from .. import resolve_device
 from ..cluster.base import Offer
 from ..config import Config
+from ..native import pack as native_pack
 from ..ops import pallas_cycle, quant, telemetry
 from ..ops.delta import (FLAG_LAUNCH_OK, DeviceBaseMirror,
-                         PackDeltaApplier, pack_diff, resident_buffer)
+                         PackDeltaApplier, resident_buffer)
 from ..ops.gang import GangWire
-from ..ops.padding import bucket
+from ..ops.padding import bucket, pad_to
 from ..ops.pallas_cycle import megacycle
 from ..state.schema import DruMode, Job, Pool, SchedulerKind
 from ..state.store import Store
@@ -305,7 +310,9 @@ def sync_resident(packs: Dict[bool, ResidentPack], gpu_mode: bool, key: Tuple,
     if reason is None:
         try:
             _faults.fire("delta.extract")
-            idx = pack_diff(st.rows_host, rows_p, st.flags_host, flags_p)
+            # the delta extraction (native/pack.cpp when g++ built it)
+            idx = native_pack.pack_diff(st.rows_host, rows_p,
+                                        st.flags_host, flags_p)
         except Exception:
             reason = _delta_fault("delta.extract")
         else:
@@ -367,6 +374,15 @@ class _PackedPool:
 
     def __init__(self, pool: Pool):
         self.pool = pool
+        # entity pack (columnar_index=False): kernel rows map to tasks of
+        # build_user_tasks, task_ids[row] -> id2job; the dense form
+        # carries per-row demands and a dense [T, H] constraint mask
+        self.columnar = True
+        self.task_ids: List[int] = []
+        self.id2job: Dict[int, Job] = {}
+        self.job_res: Optional[np.ndarray] = None       # f32[T, 4]
+        self.cmask: Optional[np.ndarray] = None         # bool[T, H]
+        self.tokens: Optional[np.ndarray] = None        # f32[T]
         # kernel rows map to job uuids: uuid/user/res come as index BASE
         # snapshots plus the sorted absolute rows (rows_s); sorted-position
         # lookups go through base[rows_s[pos]]
@@ -431,11 +447,13 @@ class _StagedGroup:
     synced by the delta scatter or a repack."""
 
     __slots__ = ("gpu_mode", "group", "cap", "T", "H", "stage_ms",
-                 "resident", "mega", "sync")
+                 "resident", "mega", "sync", "dense")
 
     def __init__(self, *, gpu_mode, group, cap, T, H, stage_ms, mega,
-                 resident=False, sync=None):
+                 resident=False, sync=None, dense=False):
         self.gpu_mode = gpu_mode
+        # the entity pack's dense-mask wire (ops/pallas_cycle.dense_wire)
+        self.dense = dense
         self.group = group
         self.cap = cap
         self.T = T
@@ -501,12 +519,13 @@ class FusedCycleDriver:
 
     The reference's ``scheduler`` argument is duck-typed: ``step`` reads
     ``reserved_hosts``, ``clusters``, ``launchable_clusters(pool)`` and
-    ``_stifle_offensive(jobs)`` from it.  Every columnar group goes
-    through ``megacycle`` (the reference picks between it and the fused
-    XLA cycle, which decide identically).  Not ported: ``warmup``, the
-    entity pack of ``columnar_index=False`` and the mesh.  A failed
-    resident delta repacks (:func:`sync_resident`); a failed launch, full
-    upload or mirror sync raises."""
+    ``_stifle_offensive(jobs)`` from it.  Every group goes through
+    ``megacycle`` (the reference picks between it and the fused XLA
+    cycle, which decide identically): a columnar group on the compact
+    wire, an entity-pack group (``columnar_index=False``) on the dense
+    wire.  Not ported: the mesh.  A failed resident delta repacks
+    (:func:`sync_resident`); a failed launch, full upload or mirror sync
+    raises."""
 
     def __init__(self, store: Store, config: Config, matcher: Matcher,
                  plugins, rate_limits, device="cuda", shard_id=None):
@@ -538,6 +557,163 @@ class FusedCycleDriver:
         self.last_pack_ms = 0.0
         # the side stream the lazy queue fetches copy on (a card only)
         self._queue_stream = None
+
+    # --------------------------------------------------------------- warmup
+    def _megacycle_warm_selected(self) -> bool:
+        """Does the warmup run the megacycle's codec variants (the
+        counterpart of the reference's megakernel executables)?  Where
+        the reference does: an explicit ``tpu-megakernel`` pin on any
+        matcher, or ``auto`` on the accelerator (here a card, where the
+        live path is the stage kernels)."""
+        backends = {self.config.default_matcher.backend}
+        backends.update(mc.backend for _rx, mc in self.config.pool_matchers)
+        return "tpu-megakernel" in backends or (
+            "auto" in backends and self.device.type == "cuda")
+
+    def warmup(self, *, tasks: int, hosts: int, users: int = 8,
+               sweep: bool = False, gpu: bool = False) -> int:
+        """Boot-time cold-start killer (config.PipelineConfig): run the
+        cycle once, with zeroed inputs, at the bucket grid the configured
+        design point implies, so the first launch of every stage kernel
+        (K1-K6), the allocator's first blocks and the pinned buffers land
+        at boot — inside the leader's takeover window — and never inside
+        a live cycle.  The port compiles nothing per shape; the kernels'
+        library is built or loaded by the first launch.
+
+        The runs, as the reference counts them: at each (T, H) bucket
+        (``sweep=True``: every bucket up to the targets, else the
+        targets) and each DRU mode (``gpu``), one run a distinct matcher
+        cap bucket of the wide wire (i32 rows, f32 hosts: the reference's
+        compact fused cycle); then, where the reference warms its
+        megakernel (:meth:`_megacycle_warm_selected`), one run a cap of
+        each rows codec the live wire takes (i32 for the resident wire,
+        i8 for the quantized rebuild), with the host columns in the
+        live form (u16 fixed point with ``quantized_wire``).  With
+        ``resident_pack`` the delta scatter runs once at every delta
+        bucket up to the [P, T] buffer, in each value codec (not
+        counted, as the reference does not count them).  Returns the
+        number of runs."""
+        if tasks <= 0 or hosts <= 0:
+            return 0
+        if not self.config.columnar_index:
+            # warmup covers the production compact/columnar wire form
+            # only (the dense wire's exception rows are its own shape)
+            import logging
+            logging.getLogger(__name__).warning(
+                "fused-cycle warmup skipped: columnar_index=False packs "
+                "the dense PoolCycleInputs variant, which warmup does "
+                "not cover")
+            return 0
+        from ..ops.delta import _DELTA_MIN_BUCKET
+
+        def grid(n: int, minimum: int = 64) -> List[int]:
+            top = bucket(n, minimum=minimum)
+            if not sweep:
+                return [top]
+            out, b = [], minimum
+            while b <= top:
+                out.append(b)
+                b *= 2
+            return out
+
+        dev = self.device
+        P = 1  # one device: one pool per zero world, as the reference's
+        U = bucket(max(users, 1), minimum=8)
+        E = 8  # exception bucket floor: no complex jobs in the zero world
+        # the dispatch cap is bucket(max matcher cap over the group's
+        # pools); pool_matchers overrides can bucket differently from the
+        # default, so warm every DISTINCT cap bucket
+        caps = {bucket(self.config.default_matcher.max_jobs_considered)}
+        caps.update(bucket(mc.max_jobs_considered)
+                    for _rx, mc in self.config.pool_matchers)
+        mega = self._megacycle_warm_selected()
+        codecs = [(np.int32, quant.ROWS_WIDE)]
+        if self.config.quantized_wire:
+            codecs.append((np.int8, quant.ROWS_I8))
+        runs = 0
+
+        def run(fields, cap, gm, rows_codec=quant.ROWS_WIDE,
+                avail_scale=0.0, cap_scale=0.0):
+            res = megacycle(
+                pallas_cycle.wire_from_numpy(fields, dev), gpu_mode=gm,
+                max_over_quota_jobs=self.config.max_over_quota_jobs,
+                considerable_cap=cap, rows_codec=rows_codec,
+                avail_scale=avail_scale, cap_scale=cap_scale, device=dev)
+            # wait for the cycle: one read of a result
+            res.n_queue.cpu()
+
+        for gm in ((False, True) if gpu else (False,)):
+            for T in grid(tasks):
+                # the device base mirror's capacity bucket tracks the
+                # index row count (~T at one pool per index row)
+                mir = bucket(T, minimum=1024)
+                for H in grid(hosts):
+                    gang = pallas_cycle.empty_gang_wire(P, T, H)
+                    zero_hosts = np.zeros((P, H, 4), dtype=F32)
+                    fields = dict(
+                        rows=np.zeros((P, T), dtype=np.int32),
+                        flags=np.zeros((P, T), dtype=np.uint8),
+                        res_base=np.zeros((mir, 4), dtype=F32),
+                        disk_base=np.zeros(mir, dtype=F32),
+                        tokens_u=np.full((P, U), INF, dtype=F32),
+                        shares_u=np.full((P, U, 3), INF, dtype=F32),
+                        quota_u=np.full((P, U, 4), INF, dtype=F32),
+                        num_considerable=np.zeros(P, dtype=np.int32),
+                        pool_quota=np.full((P, 4), INF, dtype=F32),
+                        group_quota=np.full((P, 4), INF, dtype=F32),
+                        group_id=np.full(P, -1, dtype=np.int32),
+                        host_bits=pack_host_bits(
+                            np.zeros((P, H), dtype=bool),
+                            np.ones((P, H), dtype=bool)),
+                        exc_rows=np.full((P, E), -1, dtype=np.int32),
+                        exc_mask=np.zeros((P, E, H), dtype=bool),
+                        avail=zero_hosts, capacity=zero_hosts,
+                        gang_id=gang[0], gang_size=gang[1],
+                        gang_attr=gang[2], host_topo=gang[3])
+                    cap_list = sorted({min(c, T) for c in caps})
+                    for cap in cap_list:
+                        run(fields, cap, gm)
+                        runs += 1
+                    if mega:
+                        a_scale = c_scale = 0.0
+                        hosts_f = {}
+                        if self.config.quantized_wire:
+                            qa, qc = quantize_hosts(zero_hosts, zero_hosts,
+                                                    {})
+                            a_scale, c_scale = qa.scale, qc.scale
+                            hosts_f = dict(avail=qa.data, capacity=qc.data)
+                        for rdt, rcodec in codecs:
+                            wf = dict(fields, rows=np.zeros((P, T), rdt),
+                                      **hosts_f)
+                            for cap in cap_list:
+                                run(wf, cap, gm, rcodec, a_scale, c_scale)
+                                runs += 1
+                if self.config.resident_pack:
+                    # the resident delta scatter at every delta bucket up
+                    # to the buffer, into throwaway buffers of the live
+                    # buffers' shape: a wide batch, and with the quantized
+                    # wire an i8 and an i16 one
+                    n_flat = P * T
+                    kbs, k = set(), _DELTA_MIN_BUCKET
+                    while k < n_flat:
+                        kbs.add(k)
+                        k *= 2
+                    kbs.add(n_flat)  # the clamped top bucket
+                    zeros = np.zeros((P, T), dtype=np.int32)
+                    rows_b = resident_buffer(zeros, dev)
+                    flags_b = resident_buffer(zeros.astype(np.uint8), dev)
+                    for k in sorted(kbs):
+                        idx = np.arange(min(k, n_flat), dtype=np.int32)
+                        fl = np.zeros(idx.size, dtype=np.uint8)
+                        self._applier.apply(rows_b, flags_b, (P, T), idx,
+                                            np.zeros(idx.size, np.int32), fl)
+                        if self.config.quantized_wire:
+                            for off in (0, 1000):
+                                self._applier.apply(
+                                    rows_b, flags_b, (P, T), idx,
+                                    idx % T + off, fl, quantize=True)
+                    rows_b[-1:].cpu()
+        return runs
 
     # ------------------------------------------------------- resident pack
     def reset_resident(self) -> None:
@@ -739,8 +915,8 @@ class FusedCycleDriver:
         # conflicts instead (rare: compaction between two packs).
         spec_masked = None
         if exclude is not None:
-            epoch, rows = exclude
-            if epoch == snap.compactions and len(rows):
+            kind, epoch, rows = exclude
+            if kind == "rows" and epoch == snap.compactions and len(rows):
                 masked = pend & np.isin(rows_s, rows)
                 if masked.any():
                     launch_ok = launch_ok & ~masked
@@ -951,8 +1127,8 @@ class FusedCycleDriver:
         launch_ok = np.ones(T, dtype=bool)
         flags = c["flags0"]
         if exclude is not None:
-            epoch, rows = exclude
-            if epoch == c["epoch"] and len(rows):
+            kind, epoch, rows = exclude
+            if kind == "rows" and epoch == c["epoch"] and len(rows):
                 masked = pend & np.isin(rows_s, rows)
                 if masked.any():
                     launch_ok = launch_ok & ~masked
@@ -1135,12 +1311,157 @@ class FusedCycleDriver:
 
     def _pack_pool(self, scheduler, pool: Pool, exclude=None,
                    token_delta=None) -> Optional[_PackedPool]:
-        if not self.config.columnar_index:
-            raise NotImplementedError(
-                "the entity pack (columnar_index=False) is not ported: "
-                "see ROADMAP.md, queue 1, 'the entity pack'")
-        return self._pack_pool_columnar(scheduler, pool, exclude=exclude,
+        if self.config.columnar_index:
+            return self._pack_pool_columnar(scheduler, pool,
+                                            exclude=exclude,
+                                            token_delta=token_delta)
+        return self._pack_pool_entities(scheduler, pool, exclude=exclude,
                                         token_delta=token_delta)
+
+    def _pack_pool_entities(self, scheduler, pool: Pool, exclude=None,
+                            token_delta=None) -> Optional[_PackedPool]:
+        """The entity pack (``columnar_index=False``): the pool's pending
+        jobs and running instances as entities, grouped per user
+        (``build_user_tasks``) into the rank arrays, per-row demands and
+        a DENSE [T, H] constraint mask for the dense-mask cycle."""
+        store, cfg = self.store, self.config
+        from ..ops import host_prep
+        from .ranker import _quota_vec, build_user_tasks
+        pending = store.pending_jobs(pool.name)
+        pp = _PackedPool(pool)
+        pp.columnar = False
+        if not pending:
+            return None
+        running = store.running_instances(pool.name)
+        uts, id2job = build_user_tasks(pending, running)
+        shares = {ut.user: tuple(
+            store.get_share(ut.user, pool.name).get(d, INF)
+            for d in ("cpus", "mem", "gpus")) for ut in uts}
+        quotas = {ut.user: _quota_vec(store.get_quota(ut.user, pool.name))
+                  for ut in uts}
+        arrays, task_ids = host_prep.pack_rank_inputs(
+            uts, shares, quotas, pad=False)
+        T = arrays["usage"].shape[0]
+        pp.task_ids, pp.id2job, pp.arrays, pp.n_tasks = \
+            task_ids, id2job, arrays, T
+
+        # offers from every cluster serving this pool; breaker-filtered:
+        # a tripped cluster contributes no offers, so the cycle routes
+        # demand at healthy clusters
+        offers: List[Offer] = []
+        for cluster in scheduler.launchable_clusters(pool.name):
+            offers.extend(cluster.pending_offers(pool.name))
+        pp.offers = offers
+        pp.n_hosts = len(offers)
+
+        jobs_in_rows = [pp.id2job[t] for t in task_ids]
+        pend_rows = arrays["pending"]
+
+        # per-row match resources (running rows never matched, zeroed)
+        pp.job_res = np.stack(
+            [[j.resources.cpus, j.resources.mem, j.resources.gpus,
+              j.resources.disk] for j in jobs_in_rows]).astype(F32) \
+            * pend_rows[:, None]
+
+        # constraint mask for pending rows (running rows all-False)
+        if offers:
+            pend_idx = np.flatnonzero(pend_rows)
+            pend_jobs = [jobs_in_rows[i] for i in pend_idx]
+            ctx = self.matcher._constraint_context(
+                pend_jobs, scheduler.reserved_hosts)
+            self.matcher._fill_cotask_host_attributes(
+                ctx, pool.name, offers, scheduler.clusters)
+            pp.ctx = ctx
+            sub = build_constraint_mask(pend_jobs, offers, ctx)
+            cmask = np.zeros((T, len(offers)), dtype=bool)
+            cmask[pend_idx] = sub
+            pp.cmask = cmask
+            pp.avail = np.array(
+                [[o.available.cpus, o.available.mem, o.available.gpus,
+                  o.available.disk] for o in offers], dtype=F32)
+            pp.capacity = np.array(
+                [[o.capacity.cpus, o.capacity.mem, o.capacity.gpus,
+                  o.capacity.disk] for o in offers], dtype=F32)
+        else:
+            pp.cmask = np.zeros((T, 1), dtype=bool)
+            pp.avail = np.zeros((1, 4), dtype=F32)
+            pp.capacity = np.zeros((1, 4), dtype=F32)
+            pp.n_hosts = 0
+
+        # offensive-job filter -> enqueue_ok (scheduler.clj:2205-2257)
+        enqueue_ok = np.ones(T, dtype=bool)
+        limits = cfg.offensive_job_limits
+        if limits is not None:
+            max_mem_mb = limits.memory_gb * 1024.0
+            for i, j in enumerate(jobs_in_rows):
+                if pend_rows[i] and (j.resources.mem > max_mem_mb
+                                     or j.resources.cpus > limits.cpus):
+                    enqueue_ok[i] = False
+                    pp.offensive.append(j)
+        pp.enqueue_ok = enqueue_ok
+
+        # plugin launch verdicts -> launch_ok (cached accept/defer)
+        launch_ok = np.ones(T, dtype=bool)
+        for i, j in enumerate(jobs_in_rows):
+            if pend_rows[i] and not self.plugins.launch_allowed(j):
+                launch_ok[i] = False
+        # pipelined-driver speculation mask (entity-pack form: by uuid)
+        spec_masked = None
+        if exclude is not None:
+            kind, _epoch, uuids = exclude
+            if kind == "uuids" and uuids:
+                spec_masked = np.zeros(T, dtype=bool)
+                masked_uuids = []
+                for i, j in enumerate(jobs_in_rows):
+                    if pend_rows[i] and launch_ok[i] and j.uuid in uuids:
+                        launch_ok[i] = False
+                        spec_masked[i] = True
+                        masked_uuids.append(j.uuid)
+                if masked_uuids:
+                    _audit.note_skips(
+                        store.audit,
+                        {"pipeline-speculative": masked_uuids},
+                        pool=pool.name)
+        pp.launch_ok = launch_ok
+
+        # launch-rate token budgets, per user broadcast to tasks
+        launch_rl = self.rate_limits.job_launch
+        user_tokens: Dict[str, float] = {}
+        if launch_rl.enforce:
+            from ..policy import pool_user_key
+            user_tokens = {
+                ut.user: launch_rl.get_token_count(
+                    pool_user_key(pool.name, ut.user)) for ut in uts}
+            if token_delta:
+                # overlapped in-flight spends not yet on the limiter
+                user_tokens = {
+                    u: max(t - token_delta.get(u, 0.0), 0.0)
+                    for u, t in user_tokens.items()}
+            tok = np.array([user_tokens[pp.id2job[t].user]
+                            for t in task_ids], dtype=F32)
+        else:
+            tok = np.full(T, INF, dtype=F32)
+        pp.tokens = tok
+
+        # gang-cohort admission (see the columnar pack / helper doc); the
+        # dense pack stages no gang wire: its gangs take the host
+        # reduction at apply
+        gang_members: Dict[str, List] = {}
+        if offers and pp.ctx is not None:
+            for i, job in zip(pend_idx, pend_jobs):
+                if job.group is not None and getattr(
+                        pp.ctx.groups.get(job.group), "gang", False):
+                    gang_members.setdefault(job.group, []).append(
+                        (int(i), job))
+        self._gang_cohort_admission(
+            pool, pp.ctx.groups if pp.ctx is not None else {},
+            gang_members, launch_ok,
+            (lambda u: user_tokens.get(u, 0.0))
+            if launch_rl.enforce else None,
+            spec_masked=spec_masked)
+
+        self._pack_caps(pp, pool)
+        return pp
 
     # ------------------------------------------------------------------ step
     def stage(self, scheduler, exclude=None, avail_delta=None,
@@ -1152,11 +1473,12 @@ class FusedCycleDriver:
         The optional arguments are the pipelined driver's optimistic-
         concurrency hooks (sched/pipeline.py, Omega-style):
 
-        - ``exclude``: pool name -> (index compaction epoch, task rows) —
-          launch candidates a fetched-but-not-yet-applied overlapped cycle is
-          about to consume; they are withheld from this cycle's
-          launch_ok so back-to-back cycles don't fight over the head of
-          the queue.
+        - ``exclude``: pool name -> ("rows", index compaction epoch, task
+          rows) for a columnar pack, ("uuids", -1, job uuids) for an
+          entity pack — launch candidates a fetched-but-not-yet-applied
+          overlapped cycle is about to consume; they are withheld from
+          this cycle's launch_ok so back-to-back cycles don't fight over
+          the head of the queue.
         - ``avail_delta``: (cluster, hostname) -> f32[4] — the resources
           those candidates will consume, subtracted from the staged offer
           availability so this cycle's speculative placements stay
@@ -1182,20 +1504,21 @@ class FusedCycleDriver:
                                      token_delta=tokd.get(pool.name))
                 if pp is not None:
                     packed.append(pp)
-            # the packs must share ONE index compaction epoch (the base
-            # mirror holds one generation): re-pack stragglers, and drop a
-            # pool whose re-pack is still stale or empty
-            epochs = {pp.base_compactions for pp in packed}
+            # the columnar packs must share ONE index compaction epoch
+            # (the base mirror holds one generation): re-pack stragglers,
+            # and drop a pool whose re-pack is still stale or empty
+            epochs = {pp.base_compactions for pp in packed if pp.columnar}
             if len(epochs) > 1:
                 latest = max(epochs)
                 refreshed = []
                 for pp in packed:
-                    if pp.base_compactions != latest:
+                    if pp.columnar and pp.base_compactions != latest:
                         pp = self._pack_pool(
                             scheduler, pp.pool,
                             exclude=excl.get(pp.pool.name),
                             token_delta=tokd.get(pp.pool.name))
-                        if pp is None or pp.base_compactions != latest:
+                        if pp is None or (pp.columnar and
+                                          pp.base_compactions != latest):
                             continue
                     refreshed.append(pp)
                 packed = refreshed
@@ -1233,11 +1556,17 @@ class FusedCycleDriver:
             m = missing_by_group.get(gname)
             if m is None:
                 m = np.zeros(4, dtype=F32)
-                idx = self.store.ensure_index()
+                idx = (self.store.ensure_index()
+                       if self.config.columnar_index else None)
                 for member, g in self.config.quota_groups.items():
                     if g != gname or member in in_dispatch:
                         continue
-                    m += idx.pool_usage_base(member)
+                    if idx is not None:
+                        m += idx.pool_usage_base(member)
+                        continue
+                    for job, _i in self.store.running_instances(member):
+                        m += [job.resources.cpus, job.resources.mem,
+                              job.resources.gpus, 1.0]
                 missing_by_group[gname] = m
             return m
 
@@ -1264,6 +1593,14 @@ class FusedCycleDriver:
             group_quota=np.stack([pp.group_quota for pp in group]),
             group_id=np.array([pp.group_id for pp in group],
                               dtype=np.int32))
+        # the static match cap: the configured max_jobs_considered (at
+        # least every pool's dynamic num_considerable), bucketed
+        cap = bucket(max(
+            self.config.matcher_for_pool(pp.pool.name).max_jobs_considered
+            for pp in group))
+        if not group[0].columnar:
+            return self._stage_dense(gpu_mode, group, T, H, avail_p, cap_p,
+                                     scalars, cap, stage_t0)
         # every pack of the group shares one compaction epoch (stage
         # re-packs or drops stale pools), so the mirror's rows are valid
         # for all of them
@@ -1318,16 +1655,69 @@ class FusedCycleDriver:
             quantize=bool(self.config.quantized_wire),
             scales=self._mega_scales, rows_dev=rows_dev,
             flags_dev=flags_dev, resident=resident, device=self.device)
-        # the static match cap: the configured max_jobs_considered (at
-        # least every pool's dynamic num_considerable), bucketed
-        cap = bucket(max(
-            self.config.matcher_for_pool(pp.pool.name).max_jobs_considered
-            for pp in group))
         stage_ms = (time.perf_counter() - stage_t0) * 1000.0
         _flight.note_phase_detail("stage", stage_ms)
         return _StagedGroup(gpu_mode=gpu_mode, group=group, cap=cap, T=T,
                             H=H, stage_ms=stage_ms, mega=mega,
                             resident=resident, sync=rs)
+
+    def _stage_dense(self, gpu_mode: bool, group: List[_PackedPool],
+                     T: int, H: int, avail_p: np.ndarray, cap_p: np.ndarray,
+                     scalars: Dict[str, np.ndarray], cap: int,
+                     stage_t0: float) -> "_StagedGroup":
+        """Stage an entity-pack group: the stacked dense PoolCycleInputs
+        arrays (padded as the reference pads them, ``cmask_p`` the dense
+        [P, T, H] mask), recast as the dense wire
+        (``ops/pallas_cycle.dense_wire``) and uploaded by
+        :func:`stage_mega_wire`; the usage rows the wire's identity rows
+        index are uploaded beside it (no base mirror, no resident
+        buffers: the dense form is rebuilt every cycle, as the
+        reference's is)."""
+        P = len(group)
+
+        def stack(fn, fill, dtype):
+            out = []
+            for pp in group:
+                a = np.asarray(fn(pp))
+                out.append(pad_to(a, T, fill=fill))
+            return np.stack(out).astype(dtype)
+
+        arr = lambda k, fill, dt: stack(lambda pp: pp.arrays[k], fill, dt)
+        cmask_p = np.zeros((P, T, H), dtype=bool)
+        for i, pp in enumerate(group):
+            cmask_p[i, :pp.n_tasks, :pp.cmask.shape[1]] = pp.cmask
+        fields = dict(
+            usage=arr("usage", 0, F32), quota=arr("quota", INF, F32),
+            shares=arr("shares", INF, F32),
+            first_idx=arr("first_idx", 0, np.int32),
+            user_rank=arr("user_rank", 2 ** 31 - 1, np.int32),
+            pending=arr("pending", False, bool),
+            valid=arr("valid", False, bool),
+            enqueue_ok=stack(lambda pp: pp.enqueue_ok, False, bool),
+            launch_ok=stack(lambda pp: pp.launch_ok, False, bool),
+            tokens=stack(lambda pp: pp.tokens, 0.0, F32),
+            job_res=stack(lambda pp: pp.job_res, 0.0, F32),
+            cmask=cmask_p, avail=avail_p, capacity=cap_p, **scalars)
+        w = pallas_cycle.dense_wire(fields)
+        dev = self.device
+        res_base = torch.from_numpy(w["res_base"]).to(dev)
+        disk_base = torch.from_numpy(w["disk_base"]).to(dev)
+        mega = stage_mega_wire(
+            rows_p=w["rows"], flags_p=w["flags"], n_tasks=[T] * P,
+            res_base=res_base, disk_base=disk_base,
+            tokens_u_p=w["tokens_u"], shares_u_p=w["shares_u"],
+            quota_u_p=w["quota_u"], scalars=scalars,
+            host_gpu_p=np.zeros((P, H), dtype=bool),
+            host_blocked_p=np.ones((P, H), dtype=bool),
+            exc_rows_p=w["exc_rows"], exc_mask_p=w["exc_mask"],
+            avail_p=avail_p, cap_p=cap_p, gang_wires=[None] * P,
+            quantize=bool(self.config.quantized_wire),
+            scales=self._mega_scales, device=dev)
+        mega["h2d_bytes"] += w["res_base"].nbytes + w["disk_base"].nbytes
+        stage_ms = (time.perf_counter() - stage_t0) * 1000.0
+        _flight.note_phase_detail("stage", stage_ms)
+        return _StagedGroup(gpu_mode=gpu_mode, group=group, cap=cap, T=T,
+                            H=H, stage_ms=stage_ms, mega=mega, dense=True)
 
     def dispatch_group(self, sg: "_StagedGroup") -> "_GroupDispatch":
         """Phase 2: launch the cycle on one staged group (``megacycle``:
@@ -1471,12 +1861,17 @@ class FusedCycleDriver:
         def local_rows_with_drops(drop_qpos) -> np.ndarray:
             rows = fetch_local_rows()
             if drop_qpos is not None and len(drop_qpos):
-                # post-match queue prune
-                from ..ops.delta import prune_rows
-                rows = prune_rows(rows, np.unique(drop_qpos))
+                # post-match queue prune (native/pack.cpp when built)
+                rows = native_pack.prune_rows(rows, np.unique(drop_qpos))
             return rows
 
         def publish_queue(drop_qpos=None):
+            if not pp.columnar:
+                # the entity pack's queue: its jobs in rank order
+                queues[pool_name] = [
+                    pp.id2job[pp.task_ids[r]]
+                    for r in local_rows_with_drops(drop_qpos)]
+                return
             # lazy queue straight over the index BASE snapshots; the row
             # selection itself is DEFERRED (device fetch + drop filter
             # run on first touch), and full-column gathers happen only if
@@ -1502,16 +1897,19 @@ class FusedCycleDriver:
         # wire has all -1 gang ids, which would read as "nothing
         # dropped"
         gang_ok = gang_pre is not None and pp.gang_wire is not None
-        uuid_prefix = pp.uuid_base[pp.rows_s[cand_row[slots]]]
-        fetched = self.store.jobs_bulk([str(u) for u in uuid_prefix])
-        cand_jobs, cand_keep = [], []
-        for s, job in zip(slots, fetched):
-            if job is not None:
-                cand_jobs.append(job)
-                cand_keep.append(s)
-        if len(cand_keep) != len(slots):
-            gang_ok = False
-        slots = np.array(cand_keep, dtype=np.int64)
+        if pp.columnar:
+            uuid_prefix = pp.uuid_base[pp.rows_s[cand_row[slots]]]
+            fetched = self.store.jobs_bulk([str(u) for u in uuid_prefix])
+            cand_jobs, cand_keep = [], []
+            for s, job in zip(slots, fetched):
+                if job is not None:
+                    cand_jobs.append(job)
+                    cand_keep.append(s)
+            if len(cand_keep) != len(slots):
+                gang_ok = False
+            slots = np.array(cand_keep, dtype=np.int64)
+        else:
+            cand_jobs = [pp.id2job[pp.task_ids[r]] for r in cand_row[slots]]
         # per-job rank attribution for the fetched candidate slots
         # (bounded by the considerable cap, never [T]-sized): the
         # device-computed queue position, straight off the compact

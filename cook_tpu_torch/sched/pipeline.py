@@ -75,7 +75,7 @@ class _InFlight:
         self.staged_tx = staged_tx
         self.fetched = False
         # computed at fetch: per-pool candidate footprint for masking the
-        # NEXT stage -- pool name -> (compaction epoch, task rows) -- and
+        # NEXT stage -- pool name -> ("rows"|"uuids", epoch, ids) -- and
         # the per-host resources those candidates will consume
         self.exclude: Dict[str, tuple] = {}
         self.consumed: Dict[tuple, np.ndarray] = {}
@@ -176,13 +176,19 @@ class PipelinedCycleDriver:
             knows.add(e.id)
             # per-pool MERGE (a plain update would keep only the last
             # entry's mask when several fetched entries cover one pool)
-            for pool_name, (epoch, rows) in e.exclude.items():
+            for pool_name, (kind, epoch, ids) in e.exclude.items():
                 cur = exclude.get(pool_name)
-                if cur is not None and cur[0] == epoch:
-                    rows = np.union1d(cur[1], rows)
-                # mismatched epochs: keep the newer mask (reconciliation
-                # absorbs the unmasked remainder)
-                exclude[pool_name] = (epoch, rows)
+                if cur is None:
+                    exclude[pool_name] = (kind, epoch, ids)
+                elif cur[0] == kind == "rows" and cur[1] == epoch:
+                    exclude[pool_name] = (
+                        "rows", epoch, np.union1d(cur[2], ids))
+                elif cur[0] == kind == "uuids":
+                    exclude[pool_name] = ("uuids", -1, cur[2] | ids)
+                # mixed kinds / mismatched epochs: keep the newer mask
+                # (reconciliation absorbs the unmasked remainder)
+                else:
+                    exclude[pool_name] = (kind, epoch, ids)
             for key, vec in e.consumed.items():
                 cur = avail_delta.get(key)
                 avail_delta[key] = vec if cur is None else cur + vec
@@ -218,8 +224,9 @@ class PipelinedCycleDriver:
 
     def _candidate_footprint(self, entry: _InFlight) -> None:
         """From the fetched outputs, the footprint the NEXT stage must
-        speculate around: which queue rows are about to launch, and how
-        much of each host they will consume.
+        speculate around: which queue rows (columnar pack) or job uuids
+        (entity pack) are about to launch, and how much of each host
+        they will consume.
 
         A PARTIAL gang among the candidates will be reset by the
         all-or-nothing reduction at apply — it launches nothing — so
@@ -240,17 +247,35 @@ class PipelinedCycleDriver:
                 sel, hosts = sel[ok], hosts[ok]
                 if not len(sel):
                     continue
-                rows = pp.rows_s[cand_row[i][sel]]
-                uuids = [str(u) for u in pp.uuid_base[rows]]
-                keep = self._whole_gang_mask(pp, uuids)
-                sel, hosts, rows = sel[keep], hosts[keep], rows[keep]
-                if not len(sel):
-                    continue
-                entry.exclude[pp.pool.name] = (pp.base_compactions, rows)
-                res = np.concatenate(
-                    [pp.res_base[rows][:, :3],
-                     pp.disk_base[rows][:, None]], axis=1).astype(F32)
-                users = [str(u) for u in pp.user_base[rows]]
+                if pp.columnar:
+                    rows = pp.rows_s[cand_row[i][sel]]
+                    uuids = [str(u) for u in pp.uuid_base[rows]]
+                    keep = self._whole_gang_mask(pp, uuids)
+                    sel, hosts, rows = sel[keep], hosts[keep], rows[keep]
+                    if not len(sel):
+                        continue
+                    entry.exclude[pp.pool.name] = (
+                        "rows", pp.base_compactions, rows)
+                    res = np.concatenate(
+                        [pp.res_base[rows][:, :3],
+                         pp.disk_base[rows][:, None]], axis=1).astype(F32)
+                    users = [str(u) for u in pp.user_base[rows]]
+                else:
+                    jobs = [pp.id2job[pp.task_ids[r]]
+                            for r in cand_row[i][sel]]
+                    keep = self._whole_gang_mask(
+                        pp, [j.uuid for j in jobs])
+                    sel, hosts = sel[keep], hosts[keep]
+                    jobs = [j for j, k in zip(jobs, keep) if k]
+                    if not len(sel):
+                        continue
+                    entry.exclude[pp.pool.name] = (
+                        "uuids", -1, frozenset(j.uuid for j in jobs))
+                    res = np.array(
+                        [[j.resources.cpus, j.resources.mem,
+                          j.resources.gpus, j.resources.disk]
+                         for j in jobs], dtype=F32)
+                    users = [j.user for j in jobs]
                 spent = entry.tokens_spent.setdefault(pp.pool.name, {})
                 for user in users:
                     spent[user] = spent.get(user, 0.0) + 1.0
@@ -335,9 +360,12 @@ class PipelinedCycleDriver:
             n = len(cand_jobs)
             state_drop = np.zeros(n, dtype=bool)
             res_drop = np.zeros(n, dtype=bool)
-            # state: still WAITING?  (the candidates were just refetched
-            # by _apply_pool's jobs_bulk, so this is current)
-            for i, job in enumerate(cand_jobs):
+            # state: still WAITING?  (columnar candidates were just
+            # refetched by _apply_pool's jobs_bulk, so this is current;
+            # the entity pack's candidates are stale clones — refetch)
+            fresh = cand_jobs if pp.columnar else \
+                self.fused.store.jobs_bulk([j.uuid for j in cand_jobs])
+            for i, job in enumerate(fresh):
                 if job is None or job.state is not JobState.WAITING:
                     state_drop[i] = True
             # resources: replay the kernel's placements against the

@@ -21,12 +21,19 @@ and that cycle runs the split path (``step_rank`` + ``step_match``) on the
 same device, so on a card kernels K2, K3 and K5 still place it.  A failure
 of the split path itself reaches the caller.
 
-``step_resize`` (the elastic resize pass), ``step_reapers`` and the
+``step_resize`` (the elastic resize pass), ``step_reapers``, the
 monitor's ``sweep`` (``sched/monitor.py``, which also feeds the adaptive
 ``AdmissionController`` of ``sched/admission.py`` when
-``config.admission.enabled``) complete the leader's loop, and ``run()``
-drives all of them on wall-clock threads like the reference's chime
-channels.
+``config.admission.enabled``) and ``step_optimize`` (the goodput
+optimizer of ``sched/optimizer.py`` when ``config.optimizer`` is set)
+complete the leader's loop, and ``run()`` drives all of them on
+wall-clock threads like the reference's chime channels.
+
+The constructor takes the pipeline's cold-start knobs as the
+reference's does: ``compilation_cache_dir`` is where the kernels'
+library is built and loaded (``ops/telemetry.enable_compilation_cache``),
+and ``warmup_tasks`` / ``warmup_hosts`` run ``warmup_kernels`` (every
+stage kernel at the configured bucket grid) before the first cycle.
 
 Responsibilities wired here:
  - status updates: cluster backends -> store state machines, optionally
@@ -40,10 +47,6 @@ Responsibilities wired here:
  - reapers: lingering-task killer (max-runtime, scheduler.clj:1888-1953)
    and straggler handler (scheduler.clj:1955-1986, group.clj)
 
-Not ported (each named in ROADMAP.md, queue 1): the optimizer
-(``step_optimize``; the constructor raises when ``config.optimizer`` is
-set) and ``warmup_kernels`` (the constructor raises when the pipeline's
-warmup or compilation-cache knobs are set).
 """
 
 from __future__ import annotations
@@ -55,7 +58,7 @@ from typing import Dict, List, Optional, Tuple
 
 from .. import resolve_device
 from ..cluster.base import ComputeCluster, LaunchSpec
-from ..config import Config, refuse_unported
+from ..config import Config
 from ..state.schema import (
     InstanceStatus,
     Job,
@@ -85,9 +88,6 @@ class Scheduler:
         self.config = config or Config()
         # the device every device path of this scheduler runs on
         self.device = resolve_device(device)
-        # the reference's planes this port does not have raise here (the
-        # node's boot makes the same check) instead of being ignored
-        refuse_unported(self.config)
         # sharded-controller identity (one partition = one process = one
         # mesh shard).  Process-wide, not per-scheduler: a shard worker
         # runs exactly one scheduler, and everything the shard emits —
@@ -131,7 +131,8 @@ class Scheduler:
         if self.config.elastic.enabled:
             self.matcher.elastic = self.elastic
             self.rebalancer.elastic = self.elastic
-        # the optimizer loop is not ported (refuse_unported)
+        # real optimizer loop (sched/optimizer.py GoodputOptimizer):
+        # built lazily by run()/step_optimize when config enables it
         self.optimizer_cycler = None
         from .monitor import Monitor
         self.monitor = Monitor(store, config=self.config)
@@ -170,6 +171,19 @@ class Scheduler:
         # optimistic driver, sched/pipeline.py)
         self._fused = None
         self._pipeline = None
+        # cold-start knobs (config.PipelineConfig): the directory the
+        # kernels' library is built in and loaded from, so a restarted
+        # node reuses it, and the boot-time warmup, so the first
+        # launches of every stage kernel land here, inside the takeover
+        # window, and never inside a live cycle.  Both are opt-in
+        # config; the cpu rank backend has no fused path to warm.
+        if rank_backend != "cpu":
+            pl = self.config.pipeline
+            if pl.compilation_cache_dir:
+                from ..ops.telemetry import enable_compilation_cache
+                enable_compilation_cache(pl.compilation_cache_dir)
+            if pl.warmup_tasks and pl.warmup_hosts:
+                self.warmup_kernels()
         # GC discipline for the production cycle: with 100k+ live entities
         # the interpreter's automatic gen2 collections (full scans of a
         # multi-million-object heap) land mid-cycle and double the p99.
@@ -694,6 +708,34 @@ class Scheduler:
                                float(self.config.pipeline.depth))
         return self._pipeline or self._fused
 
+    def warmup_kernels(self) -> int:
+        """Boot-time warmup of the fused cycle at the configured (T, H)
+        bucket grid (config.PipelineConfig; FusedCycleDriver.warmup):
+        every stage kernel's first launch, the allocator's first blocks
+        and the resident scatter's buckets land here, before the first
+        live cycle.  Returns the number of warmup executions (0 when
+        unconfigured, or when the warmup failed: a failed warmup is a
+        cold start, and the live path still launches the kernels or
+        raises)."""
+        pl = self.config.pipeline
+        if not (pl.warmup_tasks and pl.warmup_hosts):
+            return 0
+        self._ensure_fused()
+        try:
+            with tracing.span("fused.warmup", tasks=pl.warmup_tasks,
+                              hosts=pl.warmup_hosts, sweep=pl.warmup_sweep):
+                return self._fused.warmup(
+                    tasks=pl.warmup_tasks, hosts=pl.warmup_hosts,
+                    users=pl.warmup_users, sweep=pl.warmup_sweep,
+                    gpu=pl.warmup_gpu)
+        except Exception:
+            # a warmup failure is a cold start, not an outage: the live
+            # path launches on first use exactly as before
+            import logging
+            logging.getLogger(__name__).exception(
+                "fused-cycle warmup failed; first cycles start cold")
+            return 0
+
     def step_cycle(self) -> Dict[str, MatchCycleResult]:
         """PRODUCTION cycle: rank + admission + match for every active
         non-direct pool in ONE fused device dispatch
@@ -1096,6 +1138,78 @@ class Scheduler:
                     out[pool.name] = shed
         return out
 
+    # ------------------------------------------------------------- optimizer
+    def _ensure_optimizer(self):
+        """Build the optimizer cycler lazily from ``config.optimizer``
+        (an OptimizerConfig the daemon boot-validated, or None = loop
+        off)."""
+        if self.optimizer_cycler is None and self.config.optimizer is not None:
+            self.optimizer_cycler = self.config.optimizer.build()
+        return self.optimizer_cycler
+
+    def step_optimize(self) -> Dict:
+        """One optimizer cycle (sched/optimizer.py GoodputOptimizer):
+        sim-replay decision pass (on this scheduler's device) + legacy
+        observational schedule, then APPLY the decisions — grow budgets
+        and shrink pressure onto the elastic manager, the preemption
+        budget onto the rebalancer's dynamic-config plane — and journal
+        them durably onto every affected elastic gang member's audit
+        timeline."""
+        cyc = self._ensure_optimizer()
+        if cyc is None:
+            return {}
+        decisions = cyc.run_scheduler_cycle(self)
+        if decisions:
+            self._apply_optimizer_decisions(decisions, cyc)
+        return decisions
+
+    def _apply_optimizer_decisions(self, decisions, cyc) -> None:
+        from ..utils.metrics import registry
+        # pool -> live elastic gang groups, for the audit journaling
+        # (the decision lands on the GANG's timeline: its member jobs)
+        gangs_by_pool: Dict[str, list] = {}
+        for group in self.store.elastic_gang_groups():
+            member = next((self.store.job(u) for u in group.jobs), None)
+            if member is not None:
+                gangs_by_pool.setdefault(member.pool, []).append(group)
+        budgets = []
+        for pool_name, d in decisions.items():
+            if d.grow_budget is None:
+                self.elastic.grow_budget.pop(pool_name, None)
+            else:
+                self.elastic.grow_budget[pool_name] = float(d.grow_budget)
+            if d.shrink_pressure:
+                self.elastic.shrink_pressure[pool_name] = \
+                    int(d.shrink_pressure)
+            else:
+                # a no-shrink decision REVOKES any standing pressure a
+                # previous cycle left unshed — step_resize would
+                # otherwise keep executing a lever the optimizer
+                # already withdrew
+                self.elastic.shrink_pressure.pop(pool_name, None)
+            if d.preemption_budget is not None:
+                budgets.append(int(d.preemption_budget))
+            registry.gauge_set("cook_pool_goodput", d.current_goodput,
+                               {"pool": pool_name})
+            facts = {"optimizer_cycle": cyc.cycles, **d.to_dict()}
+            facts.pop("scores", None)  # debug detail, not timeline fact
+            for group in gangs_by_pool.get(pool_name, ()):
+                for member_uuid in group.jobs:
+                    self.store.audit.record(
+                        member_uuid, "optimizer-decision", facts,
+                        durable=True)
+        if budgets:
+            # the rebalancer re-reads the dynamic document every cycle
+            # (effective_params), so the budget takes effect next cycle
+            # and remains operator-overridable through the same plane
+            self.store.update_dynamic_config(
+                "rebalancer", {"max_preemption": max(budgets)})
+        for pool_name, d in decisions.items():
+            if d.shrink_pressure:
+                self.elastic.apply_pressure(
+                    pool_name, self.clusters,
+                    decision_facts={"optimizer_cycle": cyc.cycles})
+
     # --------------------------------------------------------------- reapers
     def step_reapers(self, current_ms: Optional[int] = None) -> List[str]:
         """Kill tasks over their max runtime (lingering-task killer,
@@ -1275,10 +1389,16 @@ class Scheduler:
         """Start background cycle threads (the chime equivalent)."""
         cfg = self.config
 
-        def loop(interval, fn) -> None:
+        def loop(interval, fn, immediate: bool = False) -> None:
             # interval may be a callable so dynamically-tunable cadences
             # (the rebalancer's no-restart interval-seconds) take effect on
             # the next tick instead of being frozen at startup
+            if immediate and not self._stop.is_set():
+                try:
+                    fn()
+                except Exception:  # pragma: no cover - cycle errors are logged
+                    import logging
+                    logging.getLogger(__name__).exception("cycle failed")
             while not self._stop.wait(interval() if callable(interval)
                                       else interval):
                 try:
@@ -1310,8 +1430,16 @@ class Scheduler:
             t = threading.Thread(target=loop, args=(interval, fn), daemon=True)
             t.start()
             self._threads.append(t)
-        # the optimizer's loop (the reference's last spec) is refused at
-        # construction: see refuse_unported
+        if cfg.optimizer is not None:
+            # immediate first cycle: the debug surface must not read
+            # dead for a full interval after boot (the OptimizerCycler
+            # fix, mirrored here for the scheduler-driven loop)
+            t = threading.Thread(
+                target=loop,
+                args=(cfg.optimizer.interval_seconds, self.step_optimize),
+                kwargs={"immediate": True}, daemon=True)
+            t.start()
+            self._threads.append(t)
 
     def shutdown(self) -> None:
         """Stop the loops ``run`` started and the side-effect worker."""

@@ -611,7 +611,7 @@ class ColumnarIndex:
         else:
             akb = ast = auid = arows = None
             ins = np.zeros(0, dtype=np.int64)
-        from ..ops.delta import order_merge
+        from ..native.pack import order_merge
         e["kb"], e["st"], e["uid"], e["rows"] = order_merge(
             kb, st, uid, rows, del_pos, ins, akb, ast, auid, arows)
 

@@ -5,10 +5,14 @@ cook_tpu_torch``) against the JAX package's on the CPU.
   on the specs of ``tests/test_daemon.py``, on the example configs'
   scheduler sections and on a TOML file, and raises the reference's type
   and message on each config error;
+- the production example's scheduler section (the optimizer, the
+  pipeline's warmup and compilation cache included) builds the
+  reference's ``Config``, the optimizer's factories named in the port;
+  a node boots with each of those planes, and with the whole section;
 - the port's own refusals (a federation section, ``partitions.count >
-  1``, the k8s lease election, the optimizer, the pipeline's warmup, a
-  cluster factory in the JAX package) and the default device without a
-  card each fail the boot before a port binds;
+  1``, the k8s lease election, a cluster or optimizer factory in the
+  JAX package) and the default device without a card each fail the
+  boot before a port binds;
 - both packages' ``CookDaemon`` on one config, with every loop's interval
   at 3,600 s and a pinned store clock, take the same submissions through
   their own ``JobClient``; three hand-driven ``step_cycle``s must launch
@@ -104,12 +108,13 @@ SPECS = {
                             "hygiene_min_age_seconds": 120}},
     "example_cook": json.load(open(os.path.join(
         REPO, "examples", "cook.json")))["scheduler"],
-    # the production example less the planes the port refuses (asserted
-    # by test_production_example_is_refused_by_name)
+    # the production example less its optimizer section, whose factory
+    # defaults name each package's own module
+    # (test_production_example_builds_as_the_reference)
     "example_production": {
         k: v for k, v in json.load(open(os.path.join(
             REPO, "examples", "cook-production.json")))["scheduler"].items()
-        if k not in ("optimizer", "pipeline")},
+        if k != "optimizer"},
 }
 
 REFUSED_SPECS = {
@@ -177,14 +182,21 @@ def test_build_scheduler_config_refusals_equal(name):
     assert out[0][0] == "ValueError"
 
 
-def test_production_example_is_refused_by_name():
+def test_production_example_builds_as_the_reference():
+    """The whole production scheduler section, optimizer and pipeline
+    included: the same Config, but for the optimizer's two factory
+    paths, which name each package's module."""
     spec = json.load(open(os.path.join(
         REPO, "examples", "cook-production.json")))["scheduler"]
-    with pytest.raises(NotImplementedError, match="item 7c"):
-        P.daemon.build_scheduler_config(spec)
-    spec.pop("optimizer")
-    with pytest.raises(NotImplementedError, match="item 7e"):
-        P.daemon.build_scheduler_config(spec)
+    out = [_asdict(p.daemon.build_scheduler_config(
+        json.loads(json.dumps(spec)))) for p in SIDES]
+    for k in ("host_feed_create_fn", "optimizer_create_fn"):
+        ref = out[0]["optimizer"].pop(k)
+        assert out[1]["optimizer"].pop(k) == \
+            "cook_tpu_torch" + ref[len("cook_tpu"):]
+    assert out[0] == out[1]
+    assert out[1]["pipeline"]["warmup_tasks"] == 131072
+    assert out[1]["optimizer"]["interval_seconds"] == 60.0
 
 
 # ------------------------------------------------ refusals at boot
@@ -217,11 +229,10 @@ REFUSALS = {
                    NotImplementedError, "item 11"),
     "k8s_lease": (lambda conf: conf.update(election={"mode": "k8s-lease"}),
                   NotImplementedError, "item 11"),
-    "optimizer": (_sched(optimizer={}), NotImplementedError, "item 7c"),
-    "warmup": (_sched(pipeline={"warmup_tasks": 64, "warmup_hosts": 64}),
-               NotImplementedError, "item 7e"),
-    "compilation_cache": (_sched(pipeline={"compilation_cache_dir": "c"}),
-                          NotImplementedError, "item 7e"),
+    "jax_optimizer_factory": (
+        _sched(optimizer={"optimizer_create_fn":
+                          "cook_tpu.sched.optimizer.GoodputOptimizer"}),
+        ValueError, "cook_tpu_torch.sched.optimizer.GoodputOptimizer"),
     "jax_factory": (
         lambda conf: conf["clusters"][0].update(
             factory="cook_tpu.cluster.fake.factory"),
@@ -243,6 +254,93 @@ def test_port_refusals_fire_before_a_port_binds(name, tmp_path):
         d.start()
     assert d.server is None and d.elector is None
     assert "jax" not in d.__class__.__module__
+
+
+def _wait_leader(d, timeout=60.0):
+    deadline = time.time() + timeout
+    while d.scheduler is None:
+        assert time.time() < deadline, "the node never led"
+        assert d.exit_code == 0, "takeover failed"
+        time.sleep(0.02)
+    return d.scheduler
+
+
+PORTED_PLANES = {
+    "optimizer": _sched(optimizer={
+        "interval_seconds": 3600.0,
+        "optimizer_config": {"max_replay_jobs": 10,
+                             "grow_budgets": [None],
+                             "shrink_pressures": [0]}}),
+    "warmup": _sched(pipeline={"warmup_tasks": 64, "warmup_hosts": 64}),
+    "compilation_cache": _sched(pipeline={"compilation_cache_dir": "c"}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PORTED_PLANES))
+def test_ported_planes_boot(name, tmp_path, monkeypatch):
+    """A node takes each plane it refused before this port had it: the
+    optimizer loop cycles at once and decides (one replay, the pool's
+    decision, as the reference's); the warmup runs at the takeover; the
+    compilation cache becomes the kernels' build directory."""
+    from cook_tpu_torch.ops import cuda_lib
+    monkeypatch.setattr(cuda_lib, "BUILD_DIR", cuda_lib.BUILD_DIR)
+    conf = node_conf(tmp_path)
+    PORTED_PLANES[name](conf)
+    if name == "compilation_cache":
+        conf["scheduler"]["pipeline"]["compilation_cache_dir"] = \
+            str(tmp_path / "kernel-cache")
+    d = P.daemon.CookDaemon(conf, device="cpu")
+    d.start()
+    try:
+        sched = _wait_leader(d)
+        if name == "optimizer":
+            deadline = time.time() + 30.0
+            while sched.optimizer_cycler is None \
+                    or sched.optimizer_cycler.cycles < 1:
+                assert time.time() < deadline, "the optimizer never cycled"
+                time.sleep(0.02)
+            assert sched.optimizer_cycler.last_error is None
+        elif name == "warmup":
+            assert sched._fused is not None
+            assert sched.config.pipeline.warmup_tasks == 64
+        else:
+            assert cuda_lib.BUILD_DIR == (tmp_path / "kernel-cache").resolve()
+    finally:
+        d.shutdown()
+
+
+def test_node_boots_on_the_production_scheduler_section(tmp_path,
+                                                       monkeypatch):
+    """The node on ``examples/cook-production.json``'s scheduler section
+    as it stands, but for what a CPU test cannot hold: the fake
+    cluster and the file election in place of the remote backend and
+    the k8s lease (queue 1, item 11), the compilation cache in a
+    temporary directory, and the warmup at 1,024 tasks x 256 hosts (the
+    file's 131,072 x 8,192 runs on the card, ``chip_smoke.py`` phase T).
+    It leads, warms, and its optimizer cycles."""
+    from cook_tpu_torch.ops import cuda_lib
+    monkeypatch.setattr(cuda_lib, "BUILD_DIR", cuda_lib.BUILD_DIR)
+    prod = json.load(open(os.path.join(
+        REPO, "examples", "cook-production.json")))["scheduler"]
+    prod["pipeline"].update(compilation_cache_dir=str(tmp_path / "cache"),
+                            warmup_tasks=1024, warmup_hosts=256)
+    conf = node_conf(tmp_path)
+    conf["scheduler"] = {**prod, **conf["scheduler"]}
+    d = P.daemon.CookDaemon(conf, device="cpu")
+    d.start()
+    try:
+        sched = _wait_leader(d)
+        assert sched._fused is not None
+        assert sched.config.elastic.enabled
+        deadline = time.time() + 60.0
+        while sched.optimizer_cycler is None \
+                or sched.optimizer_cycler.cycles < 1:
+            assert time.time() < deadline, "the optimizer never cycled"
+            time.sleep(0.05)
+        assert sched.optimizer_cycler.last_error is None
+        assert cuda_lib.BUILD_DIR == (tmp_path / "cache").resolve()
+    finally:
+        d.shutdown()
 
 
 def test_default_device_without_a_card_fails_the_boot(tmp_path):

@@ -513,11 +513,18 @@ def test_driver_device_must_be_the_matchers():
                          PORT.RateLimits(), device="meta")
 
 
-def test_entity_pack_is_not_ported():
-    w = World(PORT, {}, 3)
-    w.cfg.columnar_index = False
-    with pytest.raises(NotImplementedError, match="entity pack"):
-        w.cycle()
+def _entity_pack(w, cfg):
+    cfg.columnar_index = False
+
+
+def test_entity_pack_cycle_matches_the_reference():
+    """``columnar_index=False`` packs off the entities and runs the
+    dense-mask cycle; it launches what the reference's entity pack
+    launches (more worlds in tests/test_torch_dense_cycle.py)."""
+    port = run_parity({"setup": _entity_pack})
+    staged = port.driver.stage(port.sched)
+    assert not staged.groups[0].group[0].columnar
+    assert staged.groups[0].dense
 
 
 def test_resident_wire_takes_the_delta_path():

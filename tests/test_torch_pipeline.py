@@ -234,7 +234,7 @@ def test_stage_hooks_parity(name):
         epoch = w.store.ensure_index().compactions
         plain = drv.stage(w.sched).groups[0].group[0]
         rows = plain.rows_s[:3]
-        exclude = (("rows", epoch, rows) if m is REF else (epoch, rows))
+        exclude = ("rows", epoch, rows)
         hosts = {("fake-1", "h0"): np.array([4.0, 1024.0, 0.0, 0.0],
                                             dtype=np.float32)}
         pp = drv.stage(w.sched, exclude={"default": exclude},

@@ -244,18 +244,43 @@ def test_default_device_without_a_card_raises():
 
 
 @pytest.mark.parametrize("knob", ["optimizer", "warmup", "cache"])
-def test_unported_planes_raise(knob):
-    cfg = PORT.Config()
+def test_configured_planes_construct(knob, tmp_path, monkeypatch):
+    """The three planes the constructor refused before they were ported
+    are taken, and the scheduler decides as the reference's with them:
+    the same steps, and the optimizer's decisions or the warmup's run
+    count equal to the reference's."""
+    import itertools
+    import uuid
+    from cook_tpu_torch.ops import cuda_lib
+    monkeypatch.setattr(cuda_lib, "BUILD_DIR", cuda_lib.BUILD_DIR)
+    # the optimizer's replays shed elastic members by task-id order
+    counter = itertools.count(1)
+    monkeypatch.setattr(uuid, "uuid4",
+                        lambda: uuid.UUID(int=next(counter), version=4))
+
+    def setup(w, cfg):
+        if knob == "optimizer":
+            mod = (cook_tpu.sched.optimizer if w.m is REF
+                   else cook_tpu_torch.sched.optimizer)
+            cfg.optimizer = mod.OptimizerConfig(optimizer_config={
+                "max_replay_jobs": 30, "replay_horizon_seconds": 60.0})
+        elif knob == "warmup":
+            cfg.pipeline.warmup_tasks = 64
+            cfg.pipeline.warmup_hosts = 64
+        else:
+            cfg.pipeline.compilation_cache_dir = str(tmp_path / "cache")
+    import cook_tpu.sched.optimizer  # noqa: F401
+    import cook_tpu_torch.sched.optimizer  # noqa: F401
+    ref, port, _n = drive({"setup": setup}, 0, None, steps=2)
     if knob == "optimizer":
-        # any value: the loop is refused before the config is read
-        cfg.optimizer = object()
+        got = [{p: d.to_dict() for p, d in w.sched.step_optimize().items()}
+               for w in (ref, port)]
+        assert got[0] == got[1] and got[1]
     elif knob == "warmup":
-        cfg.pipeline.warmup_tasks = 64
-        cfg.pipeline.warmup_hosts = 64
+        assert ref.sched.warmup_kernels() == \
+            port.sched.warmup_kernels() > 0
     else:
-        cfg.pipeline.compilation_cache_dir = "cache"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cook_tpu_torch.sched.Scheduler(PORT.Store(), cfg, device="cpu")
+        assert cuda_lib.BUILD_DIR == (tmp_path / "cache").resolve()
 
 
 def _fallbacks(m, kernel):
