@@ -330,7 +330,17 @@ def _csv_rows(path):
                      if i not in (0, 2)) for line in lines]
 
 
-def test_main_parity_pipeline_and_overload_modes(capsys):
+def test_main_parity_pipeline_and_overload_modes(capsys, monkeypatch):
+    # the overload replay's admission ladder reads cycle_p99 from the
+    # flight recorder's host-clock cycle durations
+    # (sched/fleet.compute_saturation): both packages read one fixed
+    # list, so a slow cycle under a loaded worker cannot move either
+    # side's ladder
+    for root in (REF.root, PORT.root):
+        recorder = importlib.import_module(f"{root}.utils.flight").recorder
+        monkeypatch.setattr(
+            recorder, "recent_durations",
+            lambda kinds, limit: [20.0] * max(int(limit), 0))
     for argv in (["--parity-pipeline", "--jobs", "30", "--n-hosts", "6"],
                  ["--overload", "--overload-multiple", "4"]):
         ref = _main(REF, argv, capsys)
