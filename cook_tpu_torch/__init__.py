@@ -11,15 +11,18 @@ a card the default raises; callers that want the CPU ask for it.
 
 from __future__ import annotations
 
-import torch
-
 # the reference's release (cook_tpu/__init__.py); /info and /debug report it
 __version__ = "0.1.0"
 
 
-def resolve_device(device) -> torch.device:
+def resolve_device(device) -> "torch.device":
     """The device an entry point runs on.  ``"cuda"`` without a card is
     an error, never a silent move to the CPU."""
+    # torch is imported here, not at package import: the task executor
+    # (``python -m cook_tpu_torch.agent.executor``) runs on agents that
+    # need no PyTorch
+    import torch
+
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

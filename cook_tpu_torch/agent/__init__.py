@@ -1,5 +1,10 @@
-"""The port's agent package: the sandbox file server alone.  The task
-executor (``cook_tpu/agent/executor.py``) is still to be ported
-(ROADMAP.md, queue 1, item 11)."""
+"""The port's copy of ``cook_tpu/agent/__init__.py``: the task executor
+and the sandbox file server."""
 
+from .executor import (  # noqa: F401
+    DEFAULT_PROGRESS_REGEX,
+    ProgressWatcher,
+    TaskExecutor,
+    rest_progress_publisher,
+)
 from .file_server import SandboxFileServer  # noqa: F401

@@ -5,10 +5,13 @@ boot before the listener binds on every node that may lead, so a node
 without its card exits nonzero and never serves; the elected leader's
 ``Scheduler`` runs on it.  Each branch that needs a module still to be
 ported is refused at boot with the ROADMAP.md item that holds it: a
-``"federation"`` section, ``partitions.count > 1`` and ``election.mode =
-"k8s-lease"`` (queue 1, item 11).  A cluster or optimizer factory in
-the JAX package (``cook_tpu.`` ...) is refused too: importing it would
-load JAX into the node.
+``"federation"`` section (queue 1, item 11d), ``partitions.count > 1``
+(11c) and ``election.mode = "k8s-lease"`` (11b).  A cluster or optimizer
+factory in the JAX package (``cook_tpu.`` ...) is refused too: importing
+it would load JAX into the node.  The clusters a node builds are the
+port's fake backend and its remote backend
+(``cook_tpu_torch.cluster.remote.factory``: ``cook_agentd`` agents over
+the repo-root ``native/transport.cpp``).
 
 Process shell: config file -> store -> election -> clusters -> scheduler
 -> REST, serving until leadership loss.
@@ -35,7 +38,11 @@ Config file is JSON or TOML:
       "device": "cuda",                   # the leader's torch device
       "clusters": [
         {"factory": "cook_tpu_torch.cluster.fake.factory",
-         "kwargs": {"name": "fake-1", "n_hosts": 4}}
+         "kwargs": {"name": "fake-1", "n_hosts": 4}},
+        {"factory": "cook_tpu_torch.cluster.remote.factory",
+         "kwargs": {"name": "native-1",
+                    "endpoints": [["node-a", 7070]],
+                    "progress_url": "http://this-node:12321"}}
       ],
       "plugins": {},                      # PluginRegistry.from_config spec
       "scheduler": {"cycle_mode": "fused", "rank_backend": "tpu", ...}
@@ -416,7 +423,7 @@ class CookDaemon:
             raise NotImplementedError(
                 "partitions.count > 1 (the partitioned write plane, "
                 "state/partition.PartitionedStore) is not ported: see "
-                "ROADMAP.md, queue 1, item 11")
+                "ROADMAP.md, queue 1, item 11c")
         if not self.api_only:
             # a node that may lead runs its Scheduler on this device: a
             # missing card fails the boot here, before the listener binds
@@ -552,12 +559,12 @@ class CookDaemon:
             raise NotImplementedError(
                 "a \"federation\" section (the multi-cell front door, "
                 "federation/) is not ported: see ROADMAP.md, queue 1, "
-                "item 11")
+                "item 11d")
         if (conf.get("election") or {}).get("mode") == "k8s-lease":
             raise NotImplementedError(
                 "election.mode = \"k8s-lease\" needs the Kubernetes "
                 "backend (cluster/k8s/real_api), which is not ported: see "
-                "ROADMAP.md, queue 1, item 11")
+                "ROADMAP.md, queue 1, item 11b")
         for spec in conf.get("clusters") or []:
             check_cluster_factory(spec["factory"])
         for path in conf.get("cluster_factory_allowlist") or []:

@@ -243,6 +243,9 @@ def test_port_imports_neither_jax_nor_cook_tpu():
     files = sorted((REPO / "cook_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 15
+    # the remote backend and the executor, which agents run, included
+    assert {REPO / "cook_tpu_torch/cluster/remote.py",
+            REPO / "cook_tpu_torch/agent/executor.py"} <= set(files)
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]

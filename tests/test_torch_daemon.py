@@ -237,6 +237,10 @@ REFUSALS = {
         lambda conf: conf["clusters"][0].update(
             factory="cook_tpu.cluster.fake.factory"),
         ValueError, "cook_tpu_torch.cluster.fake.factory"),
+    "jax_remote_factory": (
+        lambda conf: conf["clusters"][0].update(
+            factory="cook_tpu.cluster.remote.factory"),
+        ValueError, "cook_tpu_torch.cluster.remote.factory"),
     "jax_factory_allowlisted": (
         lambda conf: conf.update(
             cluster_factory_allowlist=["cook_tpu.cluster.fake.factory"]),
@@ -312,19 +316,31 @@ def test_ported_planes_boot(name, tmp_path, monkeypatch):
 def test_node_boots_on_the_production_scheduler_section(tmp_path,
                                                        monkeypatch):
     """The node on ``examples/cook-production.json``'s scheduler section
-    as it stands, but for what a CPU test cannot hold: the fake
-    cluster and the file election in place of the remote backend and
-    the k8s lease (queue 1, item 11), the compilation cache in a
+    and its ``"clusters"`` entry, which now goes through
+    ``cook_tpu_torch.cluster.remote.factory`` (the file names the JAX
+    package's module) with its endpoints pointed at two local
+    ``cook_agentd`` agents named as the file's, and its ``progress_url``
+    kept.  What a CPU test cannot hold is replaced: the file election
+    for the k8s lease (queue 1, item 11b), the compilation cache in a
     temporary directory, and the warmup at 1,024 tasks x 256 hosts (the
     file's 131,072 x 8,192 runs on the card, ``chip_smoke.py`` phase T).
-    It leads, warms, and its optimizer cycles."""
+    It leads, warms, offers both agents, and its optimizer cycles."""
+    from cook_tpu_torch.cluster.remote import LocalAgentProcess
     from cook_tpu_torch.ops import cuda_lib
     monkeypatch.setattr(cuda_lib, "BUILD_DIR", cuda_lib.BUILD_DIR)
-    prod = json.load(open(os.path.join(
-        REPO, "examples", "cook-production.json")))["scheduler"]
+    example = json.load(open(os.path.join(
+        REPO, "examples", "cook-production.json")))
+    prod = example["scheduler"]
     prod["pipeline"].update(compilation_cache_dir=str(tmp_path / "cache"),
                             warmup_tasks=1024, warmup_hosts=256)
+    [cluster] = example["clusters"]
+    assert cluster["factory"] == "cook_tpu.cluster.remote.factory"
+    cluster["factory"] = "cook_tpu_torch.cluster.remote.factory"
+    agents = [LocalAgentProcess(h, workdir=str(tmp_path / "agents"))
+              for h, _port in cluster["kwargs"]["endpoints"]]
+    cluster["kwargs"]["endpoints"] = [["127.0.0.1", a.port] for a in agents]
     conf = node_conf(tmp_path)
+    conf["clusters"] = [cluster]
     conf["scheduler"] = {**prod, **conf["scheduler"]}
     d = P.daemon.CookDaemon(conf, device="cpu")
     d.start()
@@ -332,6 +348,11 @@ def test_node_boots_on_the_production_scheduler_section(tmp_path,
         sched = _wait_leader(d)
         assert sched._fused is not None
         assert sched.config.elastic.enabled
+        remote = sched.clusters["native-1"]
+        assert type(remote).__module__ == "cook_tpu_torch.cluster.remote"
+        assert remote.progress_url == "http://this-node:12321"
+        assert sorted(o.hostname for o in remote.pending_offers(
+            "default")) == ["node-a", "node-b"]
         deadline = time.time() + 60.0
         while sched.optimizer_cycler is None \
                 or sched.optimizer_cycler.cycles < 1:
@@ -341,6 +362,8 @@ def test_node_boots_on_the_production_scheduler_section(tmp_path,
         assert cuda_lib.BUILD_DIR == (tmp_path / "cache").resolve()
     finally:
         d.shutdown()
+        for a in agents:
+            a.stop()
 
 
 def test_default_device_without_a_card_fails_the_boot(tmp_path):
@@ -439,6 +462,143 @@ def test_in_process_nodes_launch_and_answer_equally(tmp_path):
     assert sum(len(v) for step in out[0][0] for v in step.values()) > 0
     assert out[0][1] == out[1][1]
     assert all(status == 200 for status, _body in out[0][1])
+
+
+REMOTE_JOBS = [
+    # (command, executor, max_retries)
+    ("true", None, 1),
+    ("echo out", None, 1),
+    ("exit 3", None, 2),
+    ('echo "progress: 40 half"; echo "progress: 90 nearly"', "cook", 1),
+    ("echo 'progress: 15 begun'; exit 4", "cook", 1),
+    ("true", "cook", 1),
+    ("sleep 0.2", None, 1),
+    ("echo \"$COOK_INSTANCE_NUM\"; exit 0", None, 1),
+]
+
+
+def remote_conf(tmp_path, root, agents):
+    conf = node_conf(tmp_path / root, root)
+    conf["clusters"] = [{"factory": f"{root}.cluster.remote.factory",
+                         "kwargs": {"name": "node-remote",
+                                    "endpoints": [["127.0.0.1", a.port]
+                                                  for a in agents],
+                                    "kill_grace_ms": 300}}]
+    return conf
+
+
+def drive_remote(p, tmp_path):
+    """Two agents ``r-0``/``r-1`` of 3 cpus; REST submissions from two
+    users (some under ``executor: "cook"``, one long job killed through
+    REST); ``step_cycle`` by hand, each step waiting for its tasks to
+    end.  The launched pairs by step, ``/usage`` while the long job runs,
+    and ``/jobs`` and ``/usage`` once every task ended."""
+    workdir = tmp_path / "agents"  # one path on both sides: the sandboxes
+    remote = importlib.import_module(f"{p.root}.cluster.remote")
+    agents = [remote.LocalAgentProcess(f"r-{i}", cpus=3.0, mem=4096.0,
+                                       workdir=str(workdir))
+              for i in range(2)]
+    try:
+        d = boot(p, remote_conf(tmp_path, p.root, agents))
+        try:
+            now = [T0]
+            d.store.clock = lambda: now[0]
+            cluster = d.scheduler.clusters["node-remote"]
+            cluster.progress_url = d.node_url
+            s = as_stack(p, d)
+            c = p.client.JobClient(d.node_url, user="alice")
+            c.throttle_retries = 0
+            uuids = []
+            for k, (cmd, executor, retries) in enumerate(REMOTE_JOBS):
+                c.user = ("alice", "bob")[k % 2]
+                spec = {"uuid": job_uuid(k), "command": cmd, "cpus": 1.0,
+                        "mem": 128.0 + k, "priority": 50 + k,
+                        "max_retries": retries}
+                if executor:
+                    spec["executor"] = executor
+                uuids += c.submit([spec])
+            c.user = "carol"
+            long_job = c.submit([{"uuid": job_uuid(99),
+                                  "command": "sleep 60", "cpus": 1.0,
+                                  "mem": 64.0, "priority": 99}])[0]
+            uuids.append(long_job)
+
+            def tasks_ended():
+                # every task but the long job's has ended, on the agents
+                # and in the store (whose clock stamps the end time)
+                long_task = d.store.job(long_job).instances[-1:]
+                live = cluster.running_task_ids() or []
+                stored = [i.task_id for _j, i in
+                          d.store.running_instances()]
+                return all(x in ([], long_task) for x in (live, stored))
+
+            launched, usage_running = [], None
+            for _ in range(6):
+                launched.append(s.step())
+                deadline = time.time() + 30
+                while not tasks_ended():
+                    assert time.time() < deadline, "tasks never ended"
+                    time.sleep(0.05)
+                now[0] += 1_000
+                if usage_running is None and d.store.job(long_job).instances:
+                    deadline = time.time() + 30
+                    while d.store.instance(d.store.job(
+                            long_job).instances[-1]).status.value \
+                            != "running":
+                        assert time.time() < deadline
+                        time.sleep(0.05)
+                    usage_running = [
+                        s.call("GET", "/usage", params={"user": u})
+                        for u in ("alice", "bob", "carol")]
+            c.user = "carol"
+            c.kill([long_job])
+            deadline = time.time() + 30
+            while cluster.running_task_ids():
+                assert time.time() < deadline, "the kill never landed"
+                time.sleep(0.05)
+            # every executor job's progress frames have landed
+            deadline = time.time() + 30
+            want = {job_uuid(3): 90, job_uuid(4): 15}
+            while any((d.store.instance(d.store.job(u).instances[-1])
+                       .progress or 0) != v for u, v in want.items()):
+                assert time.time() < deadline, "progress never landed"
+                time.sleep(0.05)
+            slave = {a.hostname: f"{a.hostname}:{a.port}" for a in agents}
+            got = s.call("GET", "/jobs", params={"uuid": sorted(uuids)},
+                         user="admin")
+            text = json.dumps(got)
+            for host, sid in slave.items():
+                text = text.replace(sid, f"{host}:PORT")
+            final_usage = [s.call("GET", "/usage", params={"user": u})
+                           for u in ("alice", "bob", "carol")]
+            return launched, usage_running, json.loads(text), final_usage
+        finally:
+            d.shutdown()
+    finally:
+        for a in agents:
+            a.stop()
+
+
+def test_remote_nodes_launch_real_processes_equally(tmp_path):
+    """Both packages' nodes over their own remote backend and agents:
+    equal launched pairs by step, equal ``/usage`` while a job runs and
+    after, and equal ``/jobs`` bodies once every task ended (states,
+    exit codes, progress, sandboxes)."""
+    out = [drive_remote(p, tmp_path) for p in SIDES]
+    assert out[1][0] == out[0][0]
+    assert out[1][1] == out[0][1]
+    assert out[1][2] == out[0][2]
+    assert out[1][3] == out[0][3]
+    launched, _usage, (status, jobs), _final = out[0]
+    assert status == 200
+    assert sum(len(v) for step in launched for v in step.values()) >= 10
+    by_uuid = {j["uuid"]: j for j in jobs}
+    assert by_uuid[job_uuid(0)]["state"] == "success"
+    assert by_uuid[job_uuid(2)]["state"] == "failed"
+    assert [i["exit_code"] for i in by_uuid[job_uuid(2)]["instances"]] \
+        == [3, 3]
+    assert by_uuid[job_uuid(3)]["instances"][0]["progress"] == 90
+    assert by_uuid[job_uuid(99)]["state"] == "failed"
 
 
 def test_reference_data_dir_boots_the_port_node(tmp_path):
