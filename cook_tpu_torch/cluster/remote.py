@@ -2,8 +2,17 @@
 It builds the repo-root ``native/transport.cpp`` into ``build/native/``
 (the reference builds the same source into ``native/build/``), and the
 "cook" executor it wraps a task in is ``cook_tpu_torch.agent.executor``.
-The pump threads call the status callback with host values only; no
-tensor is touched on the status path.
+
+One difference in threads: each agent's pump thread hands its events to
+one delivery thread, which runs ``_on_status`` and ``_on_agent_lost`` in
+arrival order; the reference runs them on the pump threads.  With 64
+agents, 64 pumps each applying status transactions contend for the
+store's lock and the interpreter lock until a node's REST requests
+wait past the executor's 10 s progress timeout and its drain falls to
+about 20 jobs a second (``PERF.md``, PR 16).  Each task's events keep
+their order, so the decisions and the callbacks a caller sees are the
+reference's.  The status path runs on the host only; no tensor is
+touched there.
 
 Remote compute cluster over the native C++ transport.
 
@@ -34,6 +43,7 @@ from __future__ import annotations
 import ctypes
 import logging
 from collections import OrderedDict
+import queue
 import subprocess
 import threading
 from pathlib import Path
@@ -326,10 +336,18 @@ class RemoteComputeCluster(ComputeCluster):
         # task ids already seen terminal: a late replayed "running" frame
         # must not re-adopt them into consumption tracking
         self._terminal_seen: "OrderedDict[str, None]" = OrderedDict()
+        # the pumps' events, (method, args, kwargs), in arrival order; one
+        # delivery thread runs them (see the module docstring)
+        self._events: "queue.SimpleQueue" = queue.SimpleQueue()
+        self._delivery: Optional[threading.Thread] = None
 
     # -- lifecycle ----------------------------------------------------------
     def initialize(self, status_callback: Callable) -> None:
         super().initialize(status_callback)
+        self._delivery = threading.Thread(
+            target=self._deliver, daemon=True,
+            name=f"agent-delivery-{self.name}")
+        self._delivery.start()
         for host, port in self._endpoints:
             # one dead node must not prevent scheduling on healthy ones
             try:
@@ -398,16 +416,31 @@ class RemoteComputeCluster(ComputeCluster):
                 ev = conn.poll(timeout_ms=200)
             except ConnectionError:
                 if not self._stopping.is_set():
-                    self._on_agent_lost(conn)
+                    self._events.put((self._on_agent_lost, (conn,), {}))
                 return
             if ev is None or not ev:
                 continue
             if ev[0] == "STATUS" and len(ev) >= 5:
                 ports = ([int(p) for p in ev[5].split(",") if p]
                          if len(ev) >= 6 and ev[5] else [])
-                self._on_status(conn, task_id=ev[1], state=ev[2],
-                                exit_code=int(ev[3] or 0), sandbox=ev[4],
-                                ports=ports)
+                self._events.put((self._on_status, (conn,), dict(
+                    task_id=ev[1], state=ev[2], exit_code=int(ev[3] or 0),
+                    sandbox=ev[4], ports=ports)))
+
+    def _deliver(self) -> None:
+        """The delivery thread: every pump's events in arrival order,
+        until ``shutdown`` queues None after the pumps have stopped."""
+        while True:
+            item = self._events.get()
+            if item is None:
+                return
+            fn, args, kw = item
+            try:
+                fn(*args, **kw)
+            except Exception:
+                # one event's fault must not stop every agent's delivery
+                logging.getLogger(__name__).exception(
+                    "agent event delivery failed: %s", kw or args)
 
     def _on_status(self, conn: AgentConnection, task_id: str, state: str,
                    exit_code: int, sandbox: str,
@@ -655,6 +688,10 @@ class RemoteComputeCluster(ComputeCluster):
                     conn.hostname)
             else:
                 closable.append(conn)
+        if self._delivery is not None:
+            # what the pumps handed over is delivered first
+            self._events.put(None)
+            self._delivery.join(timeout=5)
         with self._lock:
             self._agents.clear()
         for conn in closable:

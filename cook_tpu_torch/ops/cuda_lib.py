@@ -26,6 +26,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Callable, List, NamedTuple, Optional
@@ -175,8 +176,9 @@ def call(name: str, kernel: str, *args, plan=None) -> None:
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
     telemetry.counter(kernel).add()
-    if plan is not None and _PLANS is not None:
-        _PLANS.append(plan)
+    plans = getattr(_LOCAL, "plans", None)
+    if plan is not None and plans is not None:
+        plans.append(plan)
 
 
 class Launch(NamedTuple):
@@ -189,7 +191,9 @@ class Launch(NamedTuple):
 
 
 _RECORDER: Optional[list] = None
-_PLANS: Optional[list] = None
+# the plans of the wrapper call this thread is making: a node launches
+# from more than one thread (the match loop, the rebalancer)
+_LOCAL = threading.local()
 
 
 @contextlib.contextmanager
@@ -222,7 +226,6 @@ def stage(kernel: str, plain: Callable, dtypes=()):
 
         @functools.wraps(launch)
         def wrapper(*args, **kw):
-            global _PLANS
             dev = _device_of(args)
             if dev.type == "cpu":
                 return plain(*args, **kw)
@@ -238,12 +241,16 @@ def stage(kernel: str, plain: Callable, dtypes=()):
                 if want is not None and a.dtype != want:
                     raise ValueError(f"{name}: tensor argument {i} must be "
                                      f"{want}, got {a.dtype}")
-            _PLANS = [] if _RECORDER is not None else None
-            with torch.cuda.device(dev):
-                out = launch(*args, **kw)
-            if _RECORDER is not None:
-                _RECORDER.append(Launch(wrapper, args, kw, tuple(_PLANS)))
-            _PLANS = None
+            # the launch goes to the recording open when it began
+            recorder = _RECORDER
+            _LOCAL.plans = plans = [] if recorder is not None else None
+            try:
+                with torch.cuda.device(dev):
+                    out = launch(*args, **kw)
+            finally:
+                _LOCAL.plans = None
+            if recorder is not None:
+                recorder.append(Launch(wrapper, args, kw, tuple(plans)))
             return out
         wrapper.plain = plain
         wrapper.launch = launch

@@ -2,7 +2,7 @@
 transactional ``Store`` and its columnar index, and the HA plane the
 node uses (``replication``, ``read_replica``, ``repair``).  The
 partitioned write plane (``partition.PartitionedStore``) is not copied
-(ROADMAP queue 1, item 11)."""
+(ROADMAP queue 1, item 11c)."""
 
 from .schema import (  # noqa: F401
     Application,

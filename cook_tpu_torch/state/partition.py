@@ -4,7 +4,7 @@ controller iterate the write plane's shards with, and the commit-token
 parsers the follower read view reads tokens with.  The partitioned write
 plane itself (``PartitionedStore``, ``PartitionMap``, the summary
 exchange and the partitioned read view) stays in ROADMAP queue 1,
-item 11; until then every store of the port is one shard."""
+item 11c; until then every store of the port is one shard."""
 
 from __future__ import annotations
 

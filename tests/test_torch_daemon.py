@@ -260,6 +260,18 @@ def test_port_refusals_fire_before_a_port_binds(name, tmp_path):
     assert "jax" not in d.__class__.__module__
 
 
+@pytest.mark.parametrize("path", ["cook_tpu.cluster.fake.factory",
+                                  "cook_tpu.cluster.remote.factory"])
+def test_refused_factory_names_a_counterpart_that_imports(path):
+    with pytest.raises(ValueError) as e:
+        P.daemon.check_cluster_factory(path)
+    counterpart = "cook_tpu_torch" + path[len("cook_tpu"):]
+    assert repr(counterpart) in str(e.value)
+    P.daemon.check_cluster_factory(counterpart)
+    module, _, attr = counterpart.rpartition(".")
+    assert callable(getattr(importlib.import_module(module), attr))
+
+
 def _wait_leader(d, timeout=60.0):
     deadline = time.time() + timeout
     while d.scheduler is None:

@@ -10,7 +10,9 @@ capacities, and compares what a caller sees: each task's status sequence
 count), ``running_task_ids``, the sandbox and port writeback, the
 ``\\x1e``/NUL refusal, ``compile_fetch_prelude``'s string and
 ``_task_command``'s command and environment, equal but for the
-executor's module name.  The cases that schedule run the port's
+executor's module name.  One difference is held as such: the port's
+callbacks come from one delivery thread, the reference's from each
+agent's pump thread.  The cases that schedule run the port's
 ``Scheduler(device="cpu")`` and give the reference's launched (job uuid,
 hostname) pairs and final job states.  The multi-user REST case of
 ``tests/test_multi_user.py`` runs on both too.
@@ -447,6 +449,36 @@ def test_offers_track_consumption(tmp_path):
     assert [o[1] for o in got[4]] == [4.0, 4.0]
 
 
+def test_callbacks_come_from_one_delivery_thread(tmp_path):
+    """The port delivers every agent's events on one thread, in arrival
+    order; the reference calls back on each agent's pump thread."""
+    def scenario(p):
+        agents = Agents(p, tmp_path / p.root, ("nodeA", {}), ("nodeB", {}))
+        names, updates = [], []
+        rec = recorder(updates)
+
+        def cb(*a, **kw):
+            names.append(threading.current_thread().name)
+            rec(*a, **kw)
+        cluster = p.remote.RemoteComputeCluster("remote-1", agents.endpoints)
+        try:
+            cluster.initialize(cb)
+            cluster.launch_tasks("default", [
+                _spec(p, f"t-{i}", f"j{i}", ("nodeA", "nodeB")[i % 2])
+                for i in range(6)])
+            assert wait_for(lambda: len(updates) == 12)
+            return (sorted(set(names)),
+                    {f"t-{i}": seq_of(updates, f"t-{i}") for i in range(6)})
+        finally:
+            cluster.shutdown()
+            agents.stop()
+    (ref_names, ref_seqs), (port_names, port_seqs) = [
+        scenario(p) for p in SIDES]
+    assert port_seqs == ref_seqs
+    assert ref_names == ["agent-pump-nodeA", "agent-pump-nodeB"]
+    assert port_names == ["agent-delivery-remote-1"]
+
+
 def test_agent_loss_is_node_lost(tmp_path):
     def scenario(p):
         agents = Agents(p, tmp_path / p.root, ("nodeB", {}))
@@ -648,13 +680,13 @@ def test_late_running_replay_after_terminal_is_dropped(tmp_path):
 # --------------------------------------------------------- the scheduler
 def test_end_to_end_real_processes(tmp_path):
     """submit -> rank -> match -> native launch -> real /bin/sh -> status
-    -> completed, with sandbox writeback; the port's pump threads never
-    enter torch."""
+    -> completed, with sandbox writeback; the port's pump and delivery
+    threads never enter torch."""
     entered = []
 
     def watch(frame, event, arg):
         if event == "call" and threading.current_thread().name.startswith(
-                "agent-pump-"):
+                ("agent-pump-", "agent-delivery-")):
             mod = frame.f_globals.get("__name__", "")
             if mod.split(".")[0] == "torch":
                 entered.append(mod)
