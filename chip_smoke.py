@@ -217,7 +217,7 @@ cycle, and the native pack (``native/pack.cpp``) on phase S's arrays.
      through the same sequence on the card and with ``device="cpu"``,
      the same pairs every step;
   6i. phase X: the reduced world at depth 2 (the default; depth 0 was
-     cut for the run's time in PR 16), on the card and
+     cut for the run's time), on the card and
      with ``device="cpu"`` (the same pairs every step), nothing topped
      up: a step on the delta path, one with ``delta.extract`` armed and
      one with ``delta.apply`` armed (each repacks with reason ``fault``,
@@ -3539,8 +3539,8 @@ def phase_x(v) -> dict:
 # drains at most max_jobs_considered (1,000) a cycle.  Cut from 20,000
 # jobs to 8,000: at 20,000 the run took 307 s on an H100 (700 W), most of
 # it the rebalancer's host-side search setup every 30 s of virtual time
-# over about 1,000 pending jobs; then to 5,000 for the run's time (PR
-# 16); users and hosts are not cut
+# over about 1,000 pending jobs; then to 5,000 for the run's time, when
+# phase G was added; users and hosts are not cut
 Y_JOBS, Y_USERS, Y_HOSTS = 5_000, 200, 1_000
 Y_SPAN_MS = Y_DURATION_MS = 10_000
 Y_SMALL = {"n_jobs": 500, "n_users": 50, "hosts": 100}  # card = CPU
@@ -4048,8 +4048,8 @@ def phase_z(device="cuda", n_jobs=Z_JOBS, writers=Z_WRITERS, batch=Z_BATCH,
 # but for match_interval_seconds 1.0, the fake cluster at 1,000 hosts
 # of 64 cpus and 65,536 MB (tasks of 3 s, auto-advanced); 4 JobClient
 # writers submit 3,200 jobs from 200 users in batches of 20 (cut from
-# 8,000 for the run's time in PR 16, when phase G took over the node's
-# launch path on real agents).  Phase O: two ``python -m cook_tpu_torch`` nodes with
+# 8,000 for the run's time when phase G took over the node's launch
+# path on real agents).  Phase O: two ``python -m cook_tpu_torch`` nodes with
 # socket replication on 200 hosts.
 N_JOBS, N_USERS, N_HOSTS, N_WRITERS, N_BATCH = 3_200, 200, 1_000, 4, 20
 N_TIMEOUT_S = 180.0
@@ -4294,10 +4294,9 @@ def phase_n(device="cuda", n_jobs=N_JOBS, n_users=N_USERS, hosts=N_HOSTS,
 # its progress_url the node's own URL.  1,200 jobs of 1 cpu and 256 MB
 # from 60 users; the job kinds and their commands are G_KINDS.  g-00
 # holds 16 cpus, so 16 jobs fill it before it is SIGKILLed.  Cut from
-# 6,000 jobs (5,400 uuid, 500 executor) for the run's time: the node
-# applies each status update on its agent's pump thread, and 64 pumps
-# contending for the store and the interpreter lock drain about 25 jobs
-# a second (PERF.md section 5).
+# 6,000 jobs (5,400 uuid, 500 executor) for the run's time: a launching
+# step of up to 1,000 real launches holds the node's host for seconds,
+# and the statuses apply after it (PERF.md sections 5 and 6).
 G_AGENTS, G_CPUS, G_MEM = 64, 16.0, 32_768.0
 G_USERS, G_WRITERS, G_BATCH = 60, 4, 20
 G_KINDS = {
@@ -5018,9 +5017,9 @@ FULL_WORLDS = (
     # bench_placement_quality
     ("greedy_1k", 1_000, 50_000, 1, "throughput"),
     ("waterfill_10k", 10_000, 50_000, 3, "throughput"),
-    # auction_10k (10,000 x 50,000, tight) was cut for the run's time in
-    # PR 16: its dispatch took 11.8-12.6 s; the auction still runs on
-    # the card and the CPU in the reduced split world
+    # auction_10k (10,000 x 50,000, tight) was cut for the run's time:
+    # its dispatch took 11.8-12.6 s; the auction still runs on the card
+    # and the CPU in the reduced split world
 )
 BACKENDS = ("auto", "tpu-greedy", "tpu-auction", "tpu-waterfill",
             "tpu-megakernel", "cpu")
@@ -6046,7 +6045,7 @@ def phase_t() -> dict:
 
 
 # ------------------------------ phase U: the dense cycle and the native pack
-# 2 cycles (3 until PR 16, cut for the run's time)
+# 2 cycles (cut from 3 for the run's time)
 U_JOBS, U_USERS, U_HOSTS, U_CYCLES = 100_000, 200, 8_192, 2
 U_SMALL = {"n_jobs": 3_000, "n_users": 20, "hosts": 300}  # card = CPU
 

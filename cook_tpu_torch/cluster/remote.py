@@ -8,8 +8,9 @@ one delivery thread, which runs ``_on_status`` and ``_on_agent_lost`` in
 arrival order; the reference runs them on the pump threads.  With 64
 agents, 64 pumps each applying status transactions contend for the
 store's lock and the interpreter lock until a node's REST requests
-wait past the executor's 10 s progress timeout and its drain falls to
-about 20 jobs a second (``PERF.md``, PR 16).  Each task's events keep
+wait past the executor's 10 s progress timeout
+(``scripts/status_contention.py`` measures the contention; ``PERF.md``
+has the node's numbers).  Each task's events keep
 their order, so the decisions and the callbacks a caller sees are the
 reference's.  The status path runs on the host only; no tensor is
 touched there.
