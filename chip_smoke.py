@@ -187,7 +187,7 @@ cycle, and the native pack (``native/pack.cpp``) on phase S's arrays.
      (its wait against a current-stream copy's), one profiled depth-2
      step (busy time, idle share, the next cycle's kernels against the
      host apply's window); and a reduced world (10,000 jobs, 500 hosts)
-     4 steps at depth 0 and 4 at depth 2 on the card and with
+     4 steps at depth 2 on the card and with
      ``device="cpu"``, the same (job uuid, hostname) pairs every step;
   6g. phase V: ``step_rebalance`` on a full cluster (5,000 hosts, 200
      users of 100 jobs of 16 cpus and 16,384 MB filled by
@@ -265,7 +265,7 @@ cycle, and the native pack (``native/pack.cpp``) on phase S's arrays.
      "cuda"``, the port's fake cluster of 1,000 hosts of 64 cpus and
      65,536 MB (tasks of 3 s, auto-advanced), a scheduler section that
      sets only ``match_interval_seconds`` 1.0 (fused, depth 2,
-     resident, columnar); 4 ``JobClient`` writers submit 3,200 jobs
+     resident, columnar); 4 ``JobClient`` writers submit 1,600 jobs
      from 200 users in batches of 20 (cut from 8,000 for the run's
      time) and the daemon's own loops place and complete them;
      every launch of its cycles recorded and replayed against its plain
@@ -298,7 +298,7 @@ cycle, and the native pack (``native/pack.cpp``) on phase S's arrays.
      waiting one placed by it; the new leader on the list;
      ``cook_tpu_torch.sim.system``'s command line (in process: it is a
      client of the node) generates, simulates
-     (20 users x 10 jobs over 10 s) and reports against it (wait and
+     (10 users x 10 jobs over 5 s) and reports against it (wait and
      turnaround p50); SIGTERM ends it with exit code 0;
   6p. phase G: the node over the remote backend: one ``CookDaemon`` in
      process on the card (phase N's scheduler section: fused, depth 2,
@@ -375,7 +375,8 @@ cycle, and the native pack (``native/pack.cpp``) on phase S's arrays.
      checked against oversubscription and the mask; the K5 route held
      against the plain greedy on the card; and every backend on a
      reduced split world, on the card and on the CPU, equal bit for
-     bit;
+     bit (each distinct dispatch once: ``auto`` with tight packing is
+     the auction's, ``tpu-megakernel`` the greedy's);
   9. prints the card line again, the ``{"kernels": [...]}`` line (each
      stage kernel's launches on every path in ``launches_by_path``,
      phase Q's legs as ``scheduler_sync`` and ``scheduler_pipelined``,
@@ -2875,10 +2876,11 @@ def profile_pipelined_step(s, tries: int = 3) -> dict:
 
 def q_card_against_cpu() -> dict:
     """The reduced world (10,000 jobs, 500 hosts, seed 13, uuids from a
-    counter) 4 steps at depth 0 and 4 at depth 2, on the card and with
-    ``device="cpu"``: every step launches the same pairs on both."""
+    counter) 4 steps at depth 2 (depth 0 was cut for the run's time), on
+    the card and with ``device="cpu"``: every step launches the same
+    pairs on both."""
     out = {}
-    for depth in (0, 2):
+    for depth in (2,):
         runs = {}
         for device in ("cuda", "cpu"):
             s = sched_world(device, depth, counted=True, **Q_SMALL)
@@ -4047,14 +4049,15 @@ def phase_z(device="cuda", n_jobs=Z_JOBS, writers=Z_WRITERS, batch=Z_BATCH,
 # Phase N: one CookDaemon in process on a journaled data dir, Config()
 # but for match_interval_seconds 1.0, the fake cluster at 1,000 hosts
 # of 64 cpus and 65,536 MB (tasks of 3 s, auto-advanced); 4 JobClient
-# writers submit 3,200 jobs from 200 users in batches of 20 (cut from
+# writers submit 1,600 jobs from 200 users in batches of 20 (cut from
 # 8,000 for the run's time when phase G took over the node's launch
 # path on real agents).  Phase O: two ``python -m cook_tpu_torch`` nodes with
 # socket replication on 200 hosts.
-N_JOBS, N_USERS, N_HOSTS, N_WRITERS, N_BATCH = 3_200, 200, 1_000, 4, 20
+N_JOBS, N_USERS, N_HOSTS, N_WRITERS, N_BATCH = 1_600, 200, 1_000, 4, 20
 N_TIMEOUT_S = 180.0
 O_HOSTS, O_FIRST, O_WAITING = 200, 200, 500
-O_SIM = {"users": 20, "jobs_per_user": 10, "duration_s": 10.0}
+# cut from 20 users over 10 s for the run's time
+O_SIM = {"users": 10, "jobs_per_user": 10, "duration_s": 5.0}
 O_TIMEOUT_S = 120.0
 
 
@@ -5116,12 +5119,23 @@ def phase_e():
     if not np.array_equal(got[0].cpu().numpy()[:len(args[0])], assign):
         raise AssertionError("dispatch differs from the K5 route")
 
-    # every backend on the reduced split world: card against CPU
+    # every backend on the reduced split world: card against CPU, each
+    # distinct dispatch once: ``auto`` with tight packing runs the
+    # auction and ``tpu-megakernel`` the greedy, as those backends do
+    # (the resolution is CPU-tested); ``auto``'s waterfill is its own
+    # dispatch, since it splits off the sparse rows
     args = split_world()
-    same = {}
+    same, done = {}, {}
     for backend in BACKENDS:
         for packing in ("throughput", "tight"):
             mc = MatcherConfig(backend=backend, auto_packing=packing)
+            resolved = resolve_backend(mc, len(args[0]))
+            key = (backend if resolved == "tpu-waterfill" else resolved,
+                   packing)
+            if key in done:
+                same[f"{backend}/{packing}"] = {**done[key],
+                                                "same_dispatch_as": key[0]}
+                continue
             t0 = time.perf_counter()
             on_card = dispatch(mc, *args, device="cuda")
             card_ms = (time.perf_counter() - t0) * 1e3
@@ -5130,7 +5144,7 @@ def phase_e():
                 raise AssertionError(f"{backend}/{packing}: card != CPU in "
                                      f"{int((on_card != on_cpu).sum())} jobs")
             check_placement(on_card, *args[:3])
-            same[f"{backend}/{packing}"] = {
+            same[f"{backend}/{packing}"] = done[key] = {
                 "placed": int((on_card >= 0).sum()), "card_ms": card_ms}
     print(json.dumps({"phase": "E", "world": "split_2500x4000",
                       "identical_card_cpu": same}))
