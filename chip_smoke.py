@@ -178,7 +178,7 @@ cycle, and the native pack (``native/pack.cpp``) on phase S's arrays.
      sync waits by site, the pack / stage / apply split, the launch
      counts of each leg, and one more step under cProfile (the main
      thread's largest own times); the depth-0 leg again without
-     status shards (cut from one leg a depth for the run's time); after
+     status shards (one leg, for the run's time); after
      every step no host oversubscribed and no
      job with two live instances; on each shard leg's store three steps
      whose every dispatched wire is cloned and run through
@@ -187,7 +187,7 @@ cycle, and the native pack (``native/pack.cpp``) on phase S's arrays.
      (its wait against a current-stream copy's), one profiled depth-2
      step (busy time, idle share, the next cycle's kernels against the
      host apply's window); and a reduced world (10,000 jobs, 500 hosts)
-     4 steps at depth 2 on the card and with
+     4 steps at depth 0 and 4 at depth 2 on the card and with
      ``device="cpu"``, the same (job uuid, hostname) pairs every step;
   6g. phase V: ``step_rebalance`` on a full cluster (5,000 hosts, 200
      users of 100 jobs of 16 cpus and 16,384 MB filled by
@@ -216,8 +216,7 @@ cycle, and the native pack (``native/pack.cpp``) on phase S's arrays.
      back to stage 0; then the reduced world (10,000 jobs, 500 hosts)
      through the same sequence on the card and with ``device="cpu"``,
      the same pairs every step;
-  6i. phase X: the reduced world at depth 2 (the default; depth 0 was
-     cut for the run's time), on the card and
+  6i. phase X: the reduced world at depths 0 and 2, on the card and
      with ``device="cpu"`` (the same pairs every step), nothing topped
      up: a step on the delta path, one with ``delta.extract`` armed and
      one with ``delta.apply`` armed (each repacks with reason ``fault``,
@@ -233,7 +232,7 @@ cycle, and the native pack (``native/pack.cpp``) on phase S's arrays.
   6j. phase Y: the simulator (``cook_tpu_torch.sim``). Y1: one
      ``Simulator.run`` with ``Config()`` defaults (fused, depth 2) of
      ``generate_example_trace(n_jobs=5_000, n_users=200, span_ms=
-     10_000, duration_ms=10_000)`` (cut from 20,000 for the run's time)
+     10_000, duration_ms=10_000)`` (5,000 jobs for the run's time)
      with fixed uuids over
      ``generate_example_hosts(1_000)``, counted (``simulator``); at every
      tick no host over its capacity and no job live twice, and every
@@ -266,8 +265,8 @@ cycle, and the native pack (``native/pack.cpp``) on phase S's arrays.
      65,536 MB (tasks of 3 s, auto-advanced), a scheduler section that
      sets only ``match_interval_seconds`` 1.0 (fused, depth 2,
      resident, columnar); 4 ``JobClient`` writers submit 1,600 jobs
-     from 200 users in batches of 20 (cut from 8,000 for the run's
-     time) and the daemon's own loops place and complete them;
+     from 200 users in batches of 20 (a size for the run's time) and
+     the daemon's own loops place and complete them;
      every launch of its cycles recorded and replayed against its plain
      version after its step (path ``daemon``), no host oversubscribed
      and no job live twice after every step; a fault in a step, the
@@ -305,12 +304,13 @@ cycle, and the native pack (``native/pack.cpp``) on phase S's arrays.
      1 s match interval) whose one cluster is
      ``cook_tpu_torch.cluster.remote.factory`` over 64
      ``LocalAgentProcess`` agents (``g-00`` ... ``g-63``, 16 cpus and
-     32,768 MB each; ``progress_url`` the node's own URL); 6,000 jobs
-     of 1 cpu and 256 MB from 60 users: 16 that fill ``g-00``, its only
+     32,768 MB each; ``progress_url`` the node's own URL); 1,200 jobs
+     of 1 cpu and 256 MB from 60 users (a size for the run's time;
+     ``phase_g(kinds=...)`` takes more): 16 that fill ``g-00``, its only
      agent at first, and run ``[ "$COOK_INSTANCE_NUM" = 0 ] && sleep 60
      || true``; then the other 63 agents register (``add_agent``) and 4
-     ``JobClient`` writers submit in batches of 20 the rest: 5,404 that
-     write ``$COOK_INSTANCE_UUID`` into their sandbox, 500 under
+     ``JobClient`` writers submit in batches of 20 the rest: 1,004 that
+     write ``$COOK_INSTANCE_UUID`` into their sandbox, 100 under
      ``executor: "cook"`` printing two progress lines, 60 ``exit 7``
      with ``max_retries`` 2, 20 ``sleep 60`` killed through REST once
      they run; ``g-00`` is SIGKILLed after the last acknowledgement.
@@ -319,7 +319,10 @@ cycle, and the native pack (``native/pack.cpp``) on phase S's arrays.
      NON_ZERO_EXIT twice, KILLED_BY_USER, NODE_LOST then SUCCESS on
      another agent); after every step no agent over its capacity (the
      backend's tracked consumption, the store's live instances a
-     host) and no job live twice; every launch replayed against its
+     host) and no job live twice, and no cycle degraded to the split
+     path (the ``fused.pool_cycle`` fallback counter and the flight
+     records' ``fused.dispatch-fallback`` notes unmoved); every launch
+     replayed against its
      plain version after its step (path ``remote_node``), the path's
      launches equal to the replays'; seconds from the last
      acknowledgement to every job placed and completed, launch to
@@ -366,10 +369,10 @@ cycle, and the native pack (``native/pack.cpp``) on phase S's arrays.
      (counted from the plain scores); then the eight
      ``TOPK_CHECKS`` worlds for the paths those leave idle, held the
      same way;
-  8. phase E: ``dispatch`` on the card for two full-width worlds
-     (auto: greedy at 1,000 jobs; waterfill at 10,000; the third, the
-     auction at 10,000 with tight packing, was cut for the run's time),
-     counted and recorded; every recorded
+  8. phase E: ``dispatch`` on the card for the three full-width worlds
+     at H = 50,000 (auto: greedy at 1,000 jobs; waterfill at 10,000;
+     the auction and its tail at 2,500 with tight packing, J cut for
+     the run's time), counted and recorded; every recorded
      launch (K2 scans, K5) replayed against its plain version bit for
      bit, each K2 call's CUDA launches counted (at most 2); placements
      checked against oversubscription and the mask; the K5 route held
@@ -394,8 +397,10 @@ CUDA card, nvcc and g++): it builds every kernel and native library it
 needs, the kernels into ./build/cuda (the ptxas report in
 build/cuda/ptxas.log; phase T builds them once more into
 ./build/cuda-cache) and the replication carrier, the native pack, the
-transport library and ``cook_agentd`` into ./build/native.
-Any failure raises.
+transport library and ``cook_agentd`` into ./build/native.  The CPU
+sides of phases Q, X, T, U1 and E's card = CPU comparisons run in two
+spawned worker processes (no CUDA in them) beside the card phases, and
+are shut down at the end.  Any failure raises.
 """
 
 from __future__ import annotations
@@ -2874,30 +2879,37 @@ def profile_pipelined_step(s, tries: int = 3) -> dict:
     return {"busy_ms": "not measured", "tries": tries}
 
 
+def q_small_run(depth: int, device: str) -> list:
+    """Q_SMALL's world at ``depth`` on ``device``: the launched pairs of
+    each of ``Q_SMALL_STEPS`` steps, each topped up."""
+    s = sched_world(device, depth, counted=True, **Q_SMALL)
+    steps = []
+    for i in range(Q_SMALL_STEPS):
+        res = s.sched.step_cycle()
+        s.sched.flush_status_updates()
+        check_live(s, f"phase Q small d{depth} {device}")
+        steps.append(launched_pairs(s, res))
+        q_top_up(s, len(steps[-1]))
+    s.sched.shutdown()
+    return steps
+
+
 def q_card_against_cpu() -> dict:
     """The reduced world (10,000 jobs, 500 hosts, seed 13, uuids from a
-    counter) 4 steps at depth 2 (depth 0 was cut for the run's time), on
-    the card and with ``device="cpu"``: every step launches the same
-    pairs on both."""
+    counter) 4 steps at depth 0 and 4 at depth 2, on the card and with
+    ``device="cpu"``: every step launches the same pairs on both."""
     out = {}
-    for depth in (2,):
-        runs = {}
-        for device in ("cuda", "cpu"):
-            s = sched_world(device, depth, counted=True, **Q_SMALL)
-            steps = []
-            for i in range(Q_SMALL_STEPS):
-                res = s.sched.step_cycle()
-                s.sched.flush_status_updates()
-                check_live(s, f"phase Q small d{depth} {device}")
-                steps.append(launched_pairs(s, res))
-                q_top_up(s, len(steps[-1]))
-            runs[device] = steps
+    for depth in (0, 2):
+        t0 = time.perf_counter()
+        runs = {"cuda": q_small_run(depth, "cuda"),
+                "cpu": cpu_side("q_small", depth)}
         for i, (a, b) in enumerate(zip(runs["cuda"], runs["cpu"])):
             if a != b:
                 raise AssertionError(f"phase Q small world depth {depth} "
                                      f"step {i}: card and CPU launched "
                                      f"different pairs")
         out[f"depth{depth}"] = [len(x) for x in runs["cuda"]]
+        out[f"depth{depth}_wall_s"] = time.perf_counter() - t0
     return out
 
 
@@ -2907,8 +2919,8 @@ def phase_q() -> dict:
     on its own; on the depth-2 leg's store the checked steps, the
     queue-fetch check and a profiled step; then one leg without
     status shards (the updates applied on the cycle thread as they
-    arrive) at depth 0, to read the shards' cost (the depth-2 leg
-    without them was cut for the run's time); then the reduced world
+    arrive) at depth 0 only (for the run's time), to read the shards'
+    cost; then the reduced world
     on card and CPU.  Each leg's world is dropped before the next is
     built."""
     import gc
@@ -3392,6 +3404,43 @@ def fallbacks(kernel: str) -> float:
                if labels.get("kernel") == kernel)
 
 
+def guard_rebalancer(sched, guard) -> list:
+    """The rebalancer's pool passes (its own loop's thread) hold ``guard``,
+    the lock a replaying step holds from its drain to its checks: no
+    launch of the rebalancer falls in a drain, where the recording is
+    closed and the replays' launches are counted, so each is recorded
+    and replayed at the next drain.  Returns the passes' list, one entry
+    a pass."""
+    passes, rebalance_pool = [], sched.rebalancer.rebalance_pool
+
+    def guarded(*a, **kw):
+        with guard:
+            passes.append(time.perf_counter())
+            return rebalance_pool(*a, **kw)
+
+    sched.rebalancer.rebalance_pool = guarded
+    return passes
+
+
+def flight_seq() -> int:
+    from cook_tpu_torch.utils.flight import recorder
+    return recorder.last_seq()
+
+
+def degraded_since(seq0: int, counter0: float) -> dict:
+    """The cycles degraded from the fused path to the split path since
+    flight record ``seq0``: the rise of the ``fused.pool_cycle``
+    fallback counter from ``counter0`` and the ``fused.dispatch-fallback``
+    notes on the flight records after ``seq0`` (``Scheduler.step_cycle``
+    makes both when it catches a failed fused cycle)."""
+    from cook_tpu_torch.utils.flight import recorder
+    summary = recorder.summary(seq0)
+    return {"fallback_counter": fallbacks("fused.pool_cycle") - counter0,
+            "flight_notes": summary.get("faults", {}).get(
+                "fused.dispatch-fallback", 0),
+            "flight_records": summary.get("cycles", 0)}
+
+
 def x_leg(depth: int, device: str):
     """The reduced world (10,000 jobs, 500 hosts, uuids from a counter)
     at ``depth`` on ``device``, nothing topped up (each step's change is
@@ -3506,13 +3555,13 @@ def x_reapers(v) -> dict:
 
 
 def phase_x(v) -> dict:
-    """Faults on the reduced world at depth 2, on the card and with
-    ``device="cpu"`` (the same pairs every step), then the reapers on
-    phase V's full cluster ``v``."""
+    """Faults on the reduced world at depths 0 and 2, on the card and
+    with ``device="cpu"`` (the same pairs every step), then the reapers
+    on phase V's full cluster ``v``."""
     t0 = time.perf_counter()
     out, counts = {"phase": "X"}, {}
-    for depth in (2,):
-        card, cpu = x_leg(depth, "cuda"), x_leg(depth, "cpu")
+    for depth in (0, 2):
+        card, cpu = x_leg(depth, "cuda"), cpu_side("x_leg", depth)
         for i, (a, b) in enumerate(zip(card.pairs, cpu.pairs,
                                        strict=True)):
             if a != b:
@@ -3530,7 +3579,8 @@ def phase_x(v) -> dict:
     out["reapers"] = x_reapers(v)
     out["wall_s"] = time.perf_counter() - t0
     print(json.dumps(out))
-    return counts[2]
+    return {k: counts[0].get(k, 0) + counts[2].get(k, 0)
+            for k in set(counts[0]) | set(counts[2])}
 
 
 # ------------------------------------------ phase Y: the simulator
@@ -3538,11 +3588,8 @@ def phase_x(v) -> dict:
 # duration_ms=10_000) over generate_example_hosts(1_000), uuids fixed as
 # run_pipeline_parity fixes them, Config() defaults (fused, depth 2):
 # the burst lands pending behind 1,000 hosts within the first cycles and
-# drains at most max_jobs_considered (1,000) a cycle.  Cut from 20,000
-# jobs to 8,000: at 20,000 the run took 307 s on an H100 (700 W), most of
-# it the rebalancer's host-side search setup every 30 s of virtual time
-# over about 1,000 pending jobs; then to 5,000 for the run's time, when
-# phase G was added; users and hosts are not cut
+# drains at most max_jobs_considered (1,000) a cycle.  5,000 jobs for
+# the run's time (PERF.md section 4); users and hosts are not cut
 Y_JOBS, Y_USERS, Y_HOSTS = 5_000, 200, 1_000
 Y_SPAN_MS = Y_DURATION_MS = 10_000
 Y_SMALL = {"n_jobs": 500, "n_users": 50, "hosts": 100}  # card = CPU
@@ -4049,14 +4096,13 @@ def phase_z(device="cuda", n_jobs=Z_JOBS, writers=Z_WRITERS, batch=Z_BATCH,
 # Phase N: one CookDaemon in process on a journaled data dir, Config()
 # but for match_interval_seconds 1.0, the fake cluster at 1,000 hosts
 # of 64 cpus and 65,536 MB (tasks of 3 s, auto-advanced); 4 JobClient
-# writers submit 1,600 jobs from 200 users in batches of 20 (cut from
-# 8,000 for the run's time when phase G took over the node's launch
-# path on real agents).  Phase O: two ``python -m cook_tpu_torch`` nodes with
+# writers submit 1,600 jobs from 200 users in batches of 20 (a size for
+# the run's time).  Phase O: two ``python -m cook_tpu_torch`` nodes with
 # socket replication on 200 hosts.
 N_JOBS, N_USERS, N_HOSTS, N_WRITERS, N_BATCH = 1_600, 200, 1_000, 4, 20
 N_TIMEOUT_S = 180.0
 O_HOSTS, O_FIRST, O_WAITING = 200, 200, 500
-# cut from 20 users over 10 s for the run's time
+# 10 users over 5 s, for the run's time
 O_SIM = {"users": 10, "jobs_per_user": 10, "duration_s": 5.0}
 O_TIMEOUT_S = 120.0
 
@@ -4179,20 +4225,28 @@ def phase_n(device="cuda", n_jobs=N_JOBS, n_users=N_USERS, hosts=N_HOSTS,
         guard = threading.Lock()
         steps, calls, faults = [], [0], []
         step_cycle = sched.step_cycle
+        seq0, counter0 = flight_seq(), fallbacks("fused.pool_cycle")
+        rebalances = guard_rebalancer(sched, guard)
 
         def counted_step(*a, **kw):
             # the match loop logs a failed cycle and carries on: a fault
             # here, the cycle's own or a check's, is kept for the phase
-            # to raise
+            # to raise; so is a cycle that degraded to the split path,
+            # which step_cycle catches itself
             with guard:
                 calls[0] += 1
             try:
                 t1 = time.perf_counter()
+                before = fallbacks("fused.pool_cycle")
                 res = step_cycle(*a, **kw)
                 with guard:
                     t2 = time.perf_counter()
                     if rec is not None and rec._ctx is not None:
                         rec.drain()
+                    if fallbacks("fused.pool_cycle") != before:
+                        raise AssertionError(
+                            f"phase N step {len(steps)} degraded to the "
+                            f"split path")
                     check_live(node, f"phase N step {len(steps)}")
                     steps.append((t1, sum(len(r.launched_task_ids)
                                           for r in res.values()),
@@ -4258,6 +4312,12 @@ def phase_n(device="cuda", n_jobs=N_JOBS, n_users=N_USERS, hosts=N_HOSTS,
         if len(steps) != calls[0]:
             raise AssertionError(f"phase N: {calls[0]} step_cycle calls, "
                                  f"{len(steps)} checked")
+        degraded = degraded_since(seq0, counter0)
+        out["n2"]["degraded_cycles"] = degraded
+        out["n2"]["rebalancer_pool_passes"] = len(rebalances)
+        if degraded["fallback_counter"] or degraded["flight_notes"]:
+            raise AssertionError(f"phase N: cycles degraded to the split "
+                                 f"path: {degraded}")
         if card:
             missing = [k for k in SOURCES if counts.get(k, 0) <= 0]
             if missing:
@@ -4296,10 +4356,11 @@ def phase_n(device="cuda", n_jobs=N_JOBS, n_users=N_USERS, hosts=N_HOSTS,
 # agents (LocalAgentProcess, g-00 ... g-63, 16 cpus and 32,768 MB each),
 # its progress_url the node's own URL.  1,200 jobs of 1 cpu and 256 MB
 # from 60 users; the job kinds and their commands are G_KINDS.  g-00
-# holds 16 cpus, so 16 jobs fill it before it is SIGKILLed.  Cut from
-# 6,000 jobs (5,400 uuid, 500 executor) for the run's time: a launching
-# step of up to 1,000 real launches holds the node's host for seconds,
-# and the statuses apply after it (PERF.md sections 5 and 6).
+# holds 16 cpus, so 16 jobs fill it before it is SIGKILLed.  1,200 jobs
+# for the run's time: a launching step of up to 1,000 real launches
+# holds the node's host for seconds, and the statuses apply after it
+# (PERF.md section 5).  G_KINDS_6000 is the 6,000-job world, run alone
+# (``phase_g(kinds=G_KINDS_6000)``).
 G_AGENTS, G_CPUS, G_MEM = 64, 16.0, 32_768.0
 G_USERS, G_WRITERS, G_BATCH = 60, 4, 20
 G_KINDS = {
@@ -4312,6 +4373,8 @@ G_KINDS = {
     "lost": (16, 'echo $$ > pid; [ "$COOK_INSTANCE_NUM" = 0 ] && sleep 60 '
                  '|| true', None, 1),
 }
+G_KINDS_6000 = {**G_KINDS, "uuid": (5_404,) + G_KINDS["uuid"][1:],
+                "executor": (500,) + G_KINDS["executor"][1:]}
 G_TIMEOUT_S = 150.0
 G_SMALL = {"agents": 8, "jobs": 200, "users": 10}  # card against CPU
 
@@ -4569,19 +4632,28 @@ def phase_g(device="cuda", n_agents=G_AGENTS, kinds=G_KINDS, users=G_USERS,
         guard = threading.Lock()
         steps, calls, faults = [], [0], []
         step_cycle = sched.step_cycle
+        seq0, counter0 = flight_seq(), fallbacks("fused.pool_cycle")
+        rebalances = guard_rebalancer(sched, guard)
 
         def counted_step(*a, **kw):
             # a fault here, the cycle's own or a check's, is kept for the
-            # main thread to raise (the match loop logs and carries on)
+            # main thread to raise (the match loop logs and carries on);
+            # so is a cycle that degraded to the split path, which
+            # step_cycle catches itself
             with guard:
                 calls[0] += 1
             try:
                 t1 = time.perf_counter()
+                before = fallbacks("fused.pool_cycle")
                 res = step_cycle(*a, **kw)
                 with guard:
                     t2 = time.perf_counter()
                     if rec is not None and rec._ctx is not None:
                         rec.drain()
+                    if fallbacks("fused.pool_cycle") != before:
+                        raise AssertionError(
+                            f"phase G step {len(steps)} degraded to the "
+                            f"split path")
                     g_check(node, cluster, f"phase G step {len(steps)}")
                     steps.append((t1, sum(len(r.launched_task_ids)
                                           for r in res.values()),
@@ -4675,6 +4747,12 @@ def phase_g(device="cuda", n_agents=G_AGENTS, kinds=G_KINDS, users=G_USERS,
         if len(steps) != calls[0]:
             raise AssertionError(f"phase G: {calls[0]} step_cycle calls, "
                                  f"{len(steps)} checked")
+        degraded = degraded_since(seq0, counter0)
+        out["g2"]["degraded_cycles"] = degraded
+        out["g2"]["rebalancer_pool_passes"] = len(rebalances)
+        if degraded["fallback_counter"] or degraded["flight_notes"]:
+            raise AssertionError(f"phase G: cycles degraded to the split "
+                                 f"path: {degraded}")
         insts = [store.instance(t) for u in everyone
                  for t in store.job(u).instances]
         lat = [i.mesos_start_time_ms - i.start_time_ms for i in insts
@@ -4894,8 +4972,10 @@ def phase_o(device="cuda", hosts=O_HOSTS, first=O_FIRST, waiting=O_WAITING,
         # both boot at once; whichever takes the lock leads (a), the
         # other follows its journal (b)
         nodes += [NodeProc(node_conf(tmp, n, device, hosts,
-                                     replication=repl), tmp, n).serving()
+                                     replication=repl), tmp, n)
                   for n in ("a", "b")]
+        for n in nodes:
+            n.serving()
         a = wait_for(lambda: next((n for n in nodes if n.leads()), None),
                      90.0, "phase O: a node leads", every=0.1)
         b = nodes[1] if a is nodes[0] else nodes[0]
@@ -5020,9 +5100,9 @@ FULL_WORLDS = (
     # bench_placement_quality
     ("greedy_1k", 1_000, 50_000, 1, "throughput"),
     ("waterfill_10k", 10_000, 50_000, 3, "throughput"),
-    # auction_10k (10,000 x 50,000, tight) was cut for the run's time:
-    # its dispatch took 11.8-12.6 s; the auction still runs on the card
-    # and the CPU in the reduced split world
+    # the auction with its waterfill tail at the bench's H; J below
+    # bench_match_large's 10,000 for the run's time
+    ("auction_2500", 2_500, 50_000, 11, "tight"),
 )
 BACKENDS = ("auto", "tpu-greedy", "tpu-auction", "tpu-waterfill",
             "tpu-megakernel", "cpu")
@@ -5055,8 +5135,40 @@ def split_world(J=2_500, H=4_000, seed=21):
     return job_res, cmask, avail, cap
 
 
+def split_dispatches(n_jobs: int) -> list:
+    """(backend, packing, key) for every backend and packing; ``key`` names
+    the dispatch that runs: ``auto`` with tight packing is the auction's
+    and ``tpu-megakernel`` the greedy's (the resolution is CPU-tested);
+    ``auto``'s waterfill is its own, since it splits off the sparse
+    rows."""
+    from cook_tpu_torch.config import MatcherConfig
+    from cook_tpu_torch.sched.matcher import resolve_backend
+    out = []
+    for backend in BACKENDS:
+        for packing in ("throughput", "tight"):
+            resolved = resolve_backend(MatcherConfig(
+                backend=backend, auto_packing=packing), n_jobs)
+            out.append((backend, packing, (
+                backend if resolved == "tpu-waterfill" else resolved,
+                packing)))
+    return out
+
+
+def split_on_cpu() -> dict:
+    """Each distinct dispatch of the reduced split world on the CPU, by
+    its key."""
+    from cook_tpu_torch.config import MatcherConfig
+    from cook_tpu_torch.sched.matcher import dispatch
+    args, out = split_world(), {}
+    for backend, packing, key in split_dispatches(len(args[0])):
+        if key not in out:
+            out[key] = dispatch(MatcherConfig(
+                backend=backend, auto_packing=packing), *args, device="cpu")
+    return out
+
+
 def phase_e():
-    """The split matcher on the card: the full-width worlds
+    """The split matcher on the card: the three full-width worlds
     (counted), the K5 route against the plain greedy, and the reduced
     split world for every backend, card against CPU."""
     from cook_tpu_torch.config import MatcherConfig
@@ -5079,7 +5191,7 @@ def phase_e():
     for k in ("greedy", "scan"):
         if counts.get(k, 0) <= 0:
             raise AssertionError(f"{k} was not launched by the split path")
-    # every launch of the worlds again, against its plain version
+    # every launch of the three worlds again, against its plain version
     # on the same inputs, at the split path's own shapes
     faults, held, worst = [], {}, 0
     t0 = time.perf_counter()
@@ -5120,32 +5232,26 @@ def phase_e():
         raise AssertionError("dispatch differs from the K5 route")
 
     # every backend on the reduced split world: card against CPU, each
-    # distinct dispatch once: ``auto`` with tight packing runs the
-    # auction and ``tpu-megakernel`` the greedy, as those backends do
-    # (the resolution is CPU-tested); ``auto``'s waterfill is its own
-    # dispatch, since it splits off the sparse rows
+    # distinct dispatch once (``split_dispatches``)
     args = split_world()
+    cpu = cpu_side("e_split")
     same, done = {}, {}
-    for backend in BACKENDS:
-        for packing in ("throughput", "tight"):
-            mc = MatcherConfig(backend=backend, auto_packing=packing)
-            resolved = resolve_backend(mc, len(args[0]))
-            key = (backend if resolved == "tpu-waterfill" else resolved,
-                   packing)
-            if key in done:
-                same[f"{backend}/{packing}"] = {**done[key],
-                                                "same_dispatch_as": key[0]}
-                continue
-            t0 = time.perf_counter()
-            on_card = dispatch(mc, *args, device="cuda")
-            card_ms = (time.perf_counter() - t0) * 1e3
-            on_cpu = dispatch(mc, *args, device="cpu")
-            if not np.array_equal(on_card, on_cpu):
-                raise AssertionError(f"{backend}/{packing}: card != CPU in "
-                                     f"{int((on_card != on_cpu).sum())} jobs")
-            check_placement(on_card, *args[:3])
-            same[f"{backend}/{packing}"] = done[key] = {
-                "placed": int((on_card >= 0).sum()), "card_ms": card_ms}
+    for backend, packing, key in split_dispatches(len(args[0])):
+        mc = MatcherConfig(backend=backend, auto_packing=packing)
+        if key in done:
+            same[f"{backend}/{packing}"] = {**done[key],
+                                            "same_dispatch_as": key[0]}
+            continue
+        t0 = time.perf_counter()
+        on_card = dispatch(mc, *args, device="cuda")
+        card_ms = (time.perf_counter() - t0) * 1e3
+        on_cpu = cpu[key]
+        if not np.array_equal(on_card, on_cpu):
+            raise AssertionError(f"{backend}/{packing}: card != CPU in "
+                                 f"{int((on_card != on_cpu).sum())} jobs")
+        check_placement(on_card, *args[:3])
+        same[f"{backend}/{packing}"] = done[key] = {
+            "placed": int((on_card >= 0).sum()), "card_ms": card_ms}
     print(json.dumps({"phase": "E", "world": "split_2500x4000",
                       "identical_card_cpu": same}))
     return counts
@@ -6048,7 +6154,7 @@ def phase_t() -> dict:
     print(json.dumps({"phase": "T2", "world": {
         "jobs": Q_JOBS, "users": Q_USERS, "hosts": Q_HOSTS,
         "elastic_gangs": T_GANGS, "after_steps": 1 + T_STEPS}, **opt}))
-    card, cpu = t_small("cuda"), t_small("cpu")
+    card, cpu = t_small("cuda"), cpu_side("t_small")
     if card != cpu:
         raise AssertionError(f"phase T: Q_SMALL decisions differ:\n"
                              f"card {card}\ncpu  {cpu}")
@@ -6059,7 +6165,7 @@ def phase_t() -> dict:
 
 
 # ------------------------------ phase U: the dense cycle and the native pack
-# 2 cycles (cut from 3 for the run's time)
+# 2 cycles, for the run's time
 U_JOBS, U_USERS, U_HOSTS, U_CYCLES = 100_000, 200, 8_192, 2
 U_SMALL = {"n_jobs": 3_000, "n_users": 20, "hosts": 300}  # card = CPU
 
@@ -6191,7 +6297,8 @@ def phase_u1(device="cuda", **size) -> dict:
         raise AssertionError(f"phase U: kernels not launched: {missing}")
     if not sum(x["placements"] for x in lines):
         raise AssertionError("phase U: no placement")
-    card, cpu = u_small(device), u_small("cpu")
+    card = u_small(device)
+    cpu = cpu_side("u_small") if device == "cuda" else u_small("cpu")
     if card != cpu:
         raise AssertionError("phase U: U_SMALL pairs differ, card and CPU")
     print(json.dumps({"phase": "U1", "launches_per_kernel": counts,
@@ -6287,7 +6394,69 @@ def copy_args(args) -> tuple:
     return tuple(a.copy() if isinstance(a, np.ndarray) else a for a in args)
 
 
+# ------------------------------------------ the CPU sides, in workers
+# The CPU side of a card = CPU comparison is a function of its world's
+# seed and size alone.  main() starts the longest ones in worker
+# processes (spawned: no CUDA in them) before phase F, so they run on
+# the host's other cores beside the card phases; a phase takes its
+# side's result from there, or computes it in process when nothing was
+# started (a phase run alone).
+CPU_SIDES = (("e_split",), ("x_leg", 0), ("x_leg", 2), ("t_small",),
+             ("q_small", 0), ("q_small", 2), ("u_small",))
+CPU_SIDE_WORKERS, CPU_SIDE_THREADS = 2, 2
+_SIDES = {"pool": None, "futures": {}}
+
+
+def cpu_side_run(key: tuple):
+    name, *args = key
+    if name == "x_leg":
+        return x_leg(args[0], "cpu")
+    if name == "q_small":
+        return q_small_run(args[0], "cpu")
+    if name == "t_small":
+        return t_small("cpu")
+    if name == "u_small":
+        return u_small("cpu")
+    if name == "e_split":
+        return split_on_cpu()
+    raise KeyError(key)
+
+
+def cpu_side(*key):
+    future = _SIDES["futures"].pop(key, None)
+    return cpu_side_run(key) if future is None else future.result()
+
+
+def _cpu_worker_init() -> None:
+    torch.set_num_threads(CPU_SIDE_THREADS)
+
+
+def start_cpu_sides() -> None:
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    pool = ProcessPoolExecutor(
+        CPU_SIDE_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+        initializer=_cpu_worker_init)
+    _SIDES["pool"] = pool
+    for key in CPU_SIDES:
+        _SIDES["futures"][key] = pool.submit(cpu_side_run, key)
+
+
+def stop_cpu_sides() -> None:
+    pool = _SIDES["pool"]
+    _SIDES["pool"], _SIDES["futures"] = None, {}
+    if pool is not None:
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
 def main() -> int:
+    try:
+        return run()
+    finally:
+        stop_cpu_sides()
+
+
+def run() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available", file=sys.stderr)
         return 2
@@ -6320,6 +6489,7 @@ def main() -> int:
                       "native_build_s": time.perf_counter() - t0}))
 
     mark("build")
+    start_cpu_sides()
     phase_f()
     mark("F")
     rng = np.random.default_rng(SEED)

@@ -72,6 +72,9 @@ HYGIENE = {p.root: p.integrity.HYGIENE_MIN_AGE_S for p in SIDES}
 
 def fresh_planes():
     for p in SIDES:
+        # a node's cycles leave host-clock durations in the package's
+        # flight recorder, which the admission ladder reads as cycle_p99
+        importlib.import_module(f"{p.root}.utils.flight").recorder.reset()
         fresh_request_log(p)
         p.metrics.registry.reset()
         p.retry.breakers.reset()

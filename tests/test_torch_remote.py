@@ -51,17 +51,22 @@ SIDES = (side("cook_tpu"), side("cook_tpu_torch"))
 R, P = SIDES
 
 
+def fresh_planes():
+    # launches go through each package's process-wide breaker of the
+    # cluster's name, and the fault point is process-wide too; a
+    # scheduler's cycles leave host-clock durations in the package's
+    # flight recorder, which the admission ladder reads as cycle_p99
+    for p in SIDES:
+        p.retry.breakers.reset()
+        p.faults.injector.clear()
+        importlib.import_module(f"{p.root}.utils.flight").recorder.reset()
+
+
 @pytest.fixture(autouse=True)
 def _fresh_planes():
-    # launches go through each package's process-wide breaker of the
-    # cluster's name, and the fault point is process-wide too
-    for p in SIDES:
-        p.retry.breakers.reset()
-        p.faults.injector.clear()
+    fresh_planes()
     yield
-    for p in SIDES:
-        p.retry.breakers.reset()
-        p.faults.injector.clear()
+    fresh_planes()
 
 
 def both(scenario, *args, **kw):
