@@ -6297,8 +6297,7 @@ def phase_u1(device="cuda", **size) -> dict:
         raise AssertionError(f"phase U: kernels not launched: {missing}")
     if not sum(x["placements"] for x in lines):
         raise AssertionError("phase U: no placement")
-    card = u_small(device)
-    cpu = cpu_side("u_small") if device == "cuda" else u_small("cpu")
+    card, cpu = u_small(device), cpu_side("u_small")
     if card != cpu:
         raise AssertionError("phase U: U_SMALL pairs differ, card and CPU")
     print(json.dumps({"phase": "U1", "launches_per_kernel": counts,
