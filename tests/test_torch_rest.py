@@ -490,8 +490,19 @@ def _http_obs(s, log):
     log.append(s.call("GET", "/jobs", params={"user": "alice",
                                               "token": "sekrit"}))
     snap = s.call("GET", "/debug/requests", params={"limit": 50})
+    # The slow ring holds the requests whose host-clock duration reached
+    # the threshold, so which requests it holds is a host-clock reading
+    # (under load either side's may hold one the other's does not).  Its
+    # rule is held on each side: it is the recent requests at or over the
+    # threshold, in order.  Then it leaves the comparison.
+    body = snap[1]
+    slow = body.pop("slow")
+    threshold = body["slow_threshold_ms"]
+    assert all(r["duration_ms"] >= threshold for r in slow)
+    assert all(r in slow for r in body["recent"]
+               if r["duration_ms"] >= threshold)
     # durations are host-clock times; the rest of each record is equal
-    for rec in snap[1]["recent"] + snap[1]["slow"]:
+    for rec in body["recent"]:
         for k in ("ts", "duration_ms", "phases_ms", "trace_id"):
             rec.pop(k, None)
     snap[1]["totals"].pop("requests_s")
