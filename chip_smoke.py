@@ -330,6 +330,33 @@ cycle, and the native pack (``native/pack.cpp``) on phase S's arrays.
      ``step_cycle`` p50/p99, progress frames received; then one cycle
      (depth 0) over 8 fresh agents with every job submitted before it,
      the same launched pairs on the card and with ``device="cpu"``;
+  6q. phase L: the node over the Kubernetes backend: one ``CookDaemon``
+     in process on the card (phase N's scheduler section with
+     ``autoscaling_enabled``) under ``election.mode = "k8s-lease"``,
+     whose one cluster is
+     ``cook_tpu_torch.cluster.k8s.compute_cluster.factory``, both over
+     the port's ``MockApiServer`` in process (plain HTTP) with 64 nodes
+     ``k-00`` ... ``k-63`` of 16 cpus and 32,768 MB; a kubelet thread
+     steps the mock every 100 ms and finishes each running pod 300 ms
+     after it saw it run, with its job's exit code, never on ``k-00``;
+     1,200 jobs from 40 users by 4 ``JobClient`` writers in batches of
+     20 (1,112 exit 0, 60 exit 7 with ``max_retries`` 2, 20 killed
+     through REST once they run, 8 of 24 cpus that fit no node); once
+     16 pods run on ``k-00`` the mock loses it; once the big jobs'
+     synthetic pods are up, 4 nodes of 32 cpus join.  Every job must
+     end in the reference's state and reason (the lost ones NODE_LOST
+     on ``k-00`` first); after every step no node over its capacity
+     (the mock's live pods, and the pods ``pending_offers`` lists over
+     HTTP), no job live twice; no synthetic pod left; the lease held by
+     the node from the first sample to the last at one transition, its
+     ``renewTime`` moving, its holder empty after ``shutdown()``; no
+     kernel launched from a watch thread; no cycle degraded; every
+     launch replayed against its plain version (path ``k8s_node``);
+     seconds to placed and completed, pod creation to ``running``
+     p50/p99, ``step_cycle`` and ``pending_offers`` p50/p99, synthetic
+     pods made and reaped, lease renewals; then one cycle (depth 0)
+     over 8 fresh nodes, the pods' (job, node) pairs equal on the card
+     and with ``device="cpu"``;
   6n. phase T: the production scheduler section through
      ``daemon.build_scheduler_config``, with the fake cluster in place
      of its remote backend (phase G drives that backend) and its
@@ -388,6 +415,7 @@ cycle, and the native pack (``native/pack.cpp``) on phase S's arrays.
      ``admission_split``, phase X's degraded cycles as
      ``scheduler_degraded``, phase Y1 as ``simulator``, phase Z2 as
      ``rest``, phase N as ``daemon``, phase G as ``remote_node``,
+     phase L as ``k8s_node``,
      phase T's warmup as ``warmup`` and its replays as ``optimizer``,
      phase U1 as ``dense_cycle``)
      and last ``{"ok": true, "device": {...}}``.
@@ -398,7 +426,7 @@ needs, the kernels into ./build/cuda (the ptxas report in
 build/cuda/ptxas.log; phase T builds them once more into
 ./build/cuda-cache) and the replication carrier, the native pack, the
 transport library and ``cook_agentd`` into ./build/native.  The CPU
-sides of phases Q, X, T, U1 and E's card = CPU comparisons run in two
+sides of phases Q, X, T, U1, L and E's card = CPU comparisons run in two
 spawned worker processes (no CUDA in them) beside the card phases, and
 are shut down at the end.  Any failure raises.
 """
@@ -4184,6 +4212,46 @@ def n_submit(url, n_jobs, n_users, writers, batch, seed) -> dict:
           for k in range(k0, k0 + batch)]) for k0 in ks] for ks in starts])
 
 
+def checked_steps(sched, rec, guard, check, what: str, faults: list):
+    """Wrap ``sched.step_cycle`` for a node whose match loop steps on
+    its own thread: each step, under ``guard``, drains ``rec`` (the
+    replays), fails if the cycle degraded to the split path, and calls
+    ``check(label)``.  The match loop logs a failed cycle and carries
+    on, so a fault here, the cycle's own or a check's, is appended to
+    ``faults`` for the phase to raise from its main thread; so is a
+    cycle that degraded, which ``step_cycle`` catches itself.  Returns
+    the steps' list, one (start, launched, step s, replay and check s)
+    a step, and the calls' count in a one-element list."""
+    steps, calls = [], [0]
+    step_cycle = sched.step_cycle
+
+    def counted_step(*a, **kw):
+        with guard:
+            calls[0] += 1
+        try:
+            t1 = time.perf_counter()
+            before = fallbacks("fused.pool_cycle")
+            res = step_cycle(*a, **kw)
+            with guard:
+                t2 = time.perf_counter()
+                if rec is not None and rec._ctx is not None:
+                    rec.drain()
+                if fallbacks("fused.pool_cycle") != before:
+                    raise AssertionError(f"{what} step {len(steps)} "
+                                         f"degraded to the split path")
+                check(f"{what} step {len(steps)}")
+                steps.append((t1, sum(len(r.launched_task_ids)
+                                      for r in res.values()),
+                              t2 - t1, time.perf_counter() - t2))
+        except BaseException as e:
+            faults.append(e)
+            raise
+        return res
+
+    sched.step_cycle = counted_step
+    return steps, calls
+
+
 def phase_n(device="cuda", n_jobs=N_JOBS, n_users=N_USERS, hosts=N_HOSTS,
             writers=N_WRITERS, batch=N_BATCH) -> dict:
     """The node in process: ``CookDaemon.start()`` leads, 4 writers
@@ -4223,38 +4291,9 @@ def phase_n(device="cuda", n_jobs=N_JOBS, n_users=N_USERS, hosts=N_HOSTS,
         # recorder starts (and zeroes the counts) before any launch
         rec = ReplayingRecorder("phase N") if card else None
         guard = threading.Lock()
-        steps, calls, faults = [], [0], []
-        step_cycle = sched.step_cycle
+        faults = []
         seq0, counter0 = flight_seq(), fallbacks("fused.pool_cycle")
         rebalances = guard_rebalancer(sched, guard)
-
-        def counted_step(*a, **kw):
-            # the match loop logs a failed cycle and carries on: a fault
-            # here, the cycle's own or a check's, is kept for the phase
-            # to raise; so is a cycle that degraded to the split path,
-            # which step_cycle catches itself
-            with guard:
-                calls[0] += 1
-            try:
-                t1 = time.perf_counter()
-                before = fallbacks("fused.pool_cycle")
-                res = step_cycle(*a, **kw)
-                with guard:
-                    t2 = time.perf_counter()
-                    if rec is not None and rec._ctx is not None:
-                        rec.drain()
-                    if fallbacks("fused.pool_cycle") != before:
-                        raise AssertionError(
-                            f"phase N step {len(steps)} degraded to the "
-                            f"split path")
-                    check_live(node, f"phase N step {len(steps)}")
-                    steps.append((t1, sum(len(r.launched_task_ids)
-                                          for r in res.values()),
-                                  t2 - t1, time.perf_counter() - t2))
-            except BaseException as e:
-                faults.append(e)
-                raise
-            return res
 
         def no_fault():
             if faults:
@@ -4263,7 +4302,9 @@ def phase_n(device="cuda", n_jobs=N_JOBS, n_users=N_USERS, hosts=N_HOSTS,
 
         if rec is not None:
             rec.start()
-        sched.step_cycle = counted_step
+        steps, calls = checked_steps(
+            sched, rec, guard, lambda label: check_live(node, label),
+            "phase N", faults)
         sub = n_submit(node.node_url, n_jobs, n_users, writers, batch,
                        SEED + 11)
         acked, last_ack = sub.pop("acked"), sub.pop("last_ack")
@@ -4630,38 +4671,9 @@ def phase_g(device="cuda", n_agents=G_AGENTS, kinds=G_KINDS, users=G_USERS,
         node.api.progress = counted_progress
         rec = ReplayingRecorder("phase G") if card else None
         guard = threading.Lock()
-        steps, calls, faults = [], [0], []
-        step_cycle = sched.step_cycle
+        faults = []
         seq0, counter0 = flight_seq(), fallbacks("fused.pool_cycle")
         rebalances = guard_rebalancer(sched, guard)
-
-        def counted_step(*a, **kw):
-            # a fault here, the cycle's own or a check's, is kept for the
-            # main thread to raise (the match loop logs and carries on);
-            # so is a cycle that degraded to the split path, which
-            # step_cycle catches itself
-            with guard:
-                calls[0] += 1
-            try:
-                t1 = time.perf_counter()
-                before = fallbacks("fused.pool_cycle")
-                res = step_cycle(*a, **kw)
-                with guard:
-                    t2 = time.perf_counter()
-                    if rec is not None and rec._ctx is not None:
-                        rec.drain()
-                    if fallbacks("fused.pool_cycle") != before:
-                        raise AssertionError(
-                            f"phase G step {len(steps)} degraded to the "
-                            f"split path")
-                    g_check(node, cluster, f"phase G step {len(steps)}")
-                    steps.append((t1, sum(len(r.launched_task_ids)
-                                          for r in res.values()),
-                                  t2 - t1, time.perf_counter() - t2))
-            except BaseException as e:
-                faults.append(e)
-                raise
-            return res
 
         def no_fault():
             if faults:
@@ -4670,7 +4682,9 @@ def phase_g(device="cuda", n_agents=G_AGENTS, kinds=G_KINDS, users=G_USERS,
 
         if rec is not None:
             rec.start()
-        sched.step_cycle = counted_step
+        steps, calls = checked_steps(
+            sched, rec, guard, lambda label: g_check(node, cluster, label),
+            "phase G", faults)
         store = node.store
 
         def live_on(uuids, host=None):
@@ -4799,6 +4813,535 @@ def phase_g(device="cuda", n_agents=G_AGENTS, kinds=G_KINDS, users=G_USERS,
                     "jobs": sum(len(v) for v in specs.values()),
                     "users": users, "writers": writers, "batch": batch,
                     "kinds": {k: len(v) for k, v in specs.items()}}
+    out["wall_s"] = time.perf_counter() - t0
+    print(json.dumps(out))
+    return counts
+
+
+# -------------------------------------- phase L: the Kubernetes node
+# One CookDaemon in process on the card (phase N's scheduler section:
+# fused, depth 2, 1 s match interval, and autoscaling on) electing over
+# the k8s lease and placing through cook_tpu_torch.cluster.k8s, both
+# over the port's MockApiServer in this process (plain HTTP: the card's
+# machine lists no openssl; the tests hold TLS).  64 nodes k-00 ...
+# k-63 of 16 cpus and 32,768 MB in pool "default"; a kubelet thread
+# steps the mock every L_TICK_S and finishes each Running pod L_RUN_S
+# after it saw it run, with its kind's exit code, never on k-00 and
+# never a "killed" job's.  The mock's kube-scheduler stand-in binds no
+# unbound pod: synthetic pods stay pending demand, placeholders a real
+# cluster would preempt (the mock has no priorities), so they never
+# take a node from a job.  1,200 jobs of 1 cpu and 256 MB but the big
+# ones, from 40 users; L_KINDS gives each kind's count, exit code,
+# max_retries and cpus.  The jobs on k-00 once 16 pods run there fail
+# NODE_LOST when the phase loses it, whatever their kind.  1,200 jobs for
+# the run's time: every pod is an HTTP POST under the controller's lock,
+# and at 2,400 (L_KINDS_2400, run alone) the phase took 151 s on the
+# card's host (PERF.md section 6).
+L_NODES, L_CPUS, L_MEM = 64, 16.0, 32_768.0
+L_USERS, L_WRITERS, L_BATCH = 40, 4, 20
+L_KINDS = {
+    # kind: (count, exit code, max_retries, cpus)
+    "ok": (1_112, 0, 1, 1.0),
+    "exit7": (60, 7, 2, 1.0),
+    "killed": (20, None, 1, 1.0),
+    "big": (8, 0, 1, 24.0),
+}
+L_KINDS_2400 = {**L_KINDS, "ok": (2_312,) + L_KINDS["ok"][1:]}
+L_BIG_NODES, L_BIG_CPUS, L_BIG_MEM = 4, 32.0, 65_536.0
+L_LOST_AT = 16
+L_TICK_S, L_RUN_S = 0.1, 0.3
+L_LEASE = "cook-scheduler-leader"
+L_TIMEOUT_S = 150.0
+L_SMALL = {"nodes": 8, "jobs": 200, "users": 10}  # card against CPU
+
+
+def l_mock(nodes: int, prefix: str = "k"):
+    """The port's mock apiserver with ``nodes`` nodes of L_CPUS and
+    L_MEM, ``k-00`` ... ."""
+    from cook_tpu_torch.cluster.k8s.fake_api import FakeNode
+    from cook_tpu_torch.cluster.k8s.mock_apiserver import MockApiServer
+    mock = MockApiServer().start()
+    mock.fake.auto_schedule = False
+    for i in range(nodes):
+        mock.fake.add_node(FakeNode(name=f"{prefix}-{i:02d}", cpus=L_CPUS,
+                                    mem=L_MEM))
+    return mock
+
+
+def l_specs(kinds=L_KINDS, users=L_USERS) -> dict:
+    """Each kind's submissions: uuids from a counter, users in turn."""
+    out, k = {}, 0
+    for kind, (count, _code, retries, cpus) in kinds.items():
+        specs = []
+        for _ in range(count):
+            specs.append({"uuid": f"00000000-0000-4000-8000-{k:012d}",
+                          "command": "true", "cpus": cpus, "mem": 256.0,
+                          "max_retries": retries,
+                          "user": f"user{k % users:02d}"})
+            k += 1
+        out[kind] = specs
+    return out
+
+
+def l_check(node, cluster, mock, what: str) -> dict:
+    """No node over its capacity, by the mock's live pods a node and by
+    what ``pending_offers`` subtracts (the pods it lists over HTTP); no
+    job live twice, by the store's live instances and by the mock's
+    live pods.  Returns the live counts."""
+    caps = {n.name: np.array([n.cpus, n.mem]) for n in mock.fake.nodes()}
+    for source, pods in (("mock", mock.fake.pods()),
+                         ("pending_offers", cluster.api.pods())):
+        used, per_job = {}, {}
+        for pod in pods:
+            if pod.synthetic or not pod.node_name \
+                    or pod.phase not in ("Pending", "Running"):
+                continue
+            used.setdefault(pod.node_name, np.zeros(2))[:] += (pod.cpus,
+                                                               pod.mem)
+            job = pod.labels.get("cook/job")
+            per_job[job] = per_job.get(job, 0) + 1
+        over = [h for h, u in used.items()
+                if h in caps and (u > caps[h]).any()]
+        if over:
+            raise AssertionError(f"{what}: {source} pods over capacity on "
+                                 f"{over[:5]}")
+        twice = [u for u, n in per_job.items() if n > 1]
+        if twice:
+            raise AssertionError(f"{what}: {source} jobs live twice: "
+                                 f"{twice[:5]}")
+    per_job = {}
+    live = node.store.running_instances(clone=False)
+    for job, _inst in live:
+        per_job[job.uuid] = per_job.get(job.uuid, 0) + 1
+    twice = [u for u, n in per_job.items() if n > 1]
+    if twice:
+        raise AssertionError(f"{what}: jobs live twice in the store: "
+                             f"{twice[:5]}")
+    return len(live)
+
+
+def l_outcomes(node, specs, lost: set) -> dict:
+    """Each job against the reference's end state for its kind; a job
+    whose pod was on k-00 when it was lost first fails NODE_LOST there
+    (mea culpa), then follows its kind elsewhere.  Raises on the first
+    kind with a job elsewhere."""
+    from cook_tpu_torch.state.schema import InstanceStatus, Reasons
+    store, out, bad = node.store, {}, {}
+    for kind, ss in specs.items():
+        n_ok = 0
+        for s in ss:
+            job = store.job(s["uuid"])
+            st = [(i.status, i.reason_code, i.exit_code, i.hostname)
+                  for i in (store.instance(t) for t in job.instances)]
+            ok = job.state.value == "completed"
+            if s["uuid"] in lost:
+                ok = ok and bool(st) and st[0][:2] == (
+                    InstanceStatus.FAILED, Reasons.NODE_LOST.code) \
+                    and st[0][3] == "k-00" and Reasons.NODE_LOST.mea_culpa
+                st = st[1:]
+            ok = ok and all(x[3] != "k-00" for x in st)
+            if kind in ("ok", "big"):
+                ok = ok and len(st) == 1 and st[0][0] is \
+                    InstanceStatus.SUCCESS
+                if kind == "big":
+                    ok = ok and st[0][3].startswith("k-big-")
+            elif kind == "exit7":
+                ok = ok and len(st) == 2 and all(
+                    x[:3] == (InstanceStatus.FAILED,
+                              Reasons.NON_ZERO_EXIT.code, 7) for x in st)
+            else:  # killed through REST once it ran
+                ok = ok and len(st) == 1 and st[0][:2] == (
+                    InstanceStatus.FAILED, Reasons.KILLED_BY_USER.code)
+            if ok:
+                n_ok += 1
+            else:
+                bad.setdefault(kind, []).append((s["uuid"], [
+                    (x[0].value, x[1], x[2], x[3]) for x in st]))
+        out[kind] = n_ok
+    if bad:
+        raise AssertionError(f"phase L: jobs not in their expected end "
+                             f"state: { {k: v[:3] for k, v in bad.items()} }")
+    return out
+
+
+def l_small(device: str, nodes=L_SMALL["nodes"], jobs=L_SMALL["jobs"],
+            users=L_SMALL["users"]) -> list:
+    """One ``step_cycle`` (depth 0) of the port's ``Scheduler`` on
+    ``device`` over a fresh mock of ``nodes`` nodes through
+    ``RealKubernetesApi``, every job submitted before it; the (job uuid,
+    node) pairs of the pods it created on the mock."""
+    from cook_tpu_torch.cluster.k8s.compute_cluster import KubernetesCluster
+    from cook_tpu_torch.cluster.k8s.real_api import RealKubernetesApi
+    from cook_tpu_torch.config import Config
+    from cook_tpu_torch.sched import Scheduler
+    from cook_tpu_torch.state import Job, Resources, Store
+    mock = l_mock(nodes)
+    api = RealKubernetesApi(base_url=mock.base_url)
+    store = Store()
+    store.clock = lambda: 1_700_000_000_000
+    store.create_jobs([Job(
+        uuid=f"00000000-0000-4000-8000-{k:012d}",
+        user=f"user{k % users:02d}", command="true",
+        priority=1 + (k * 37) % 100,
+        resources=Resources(cpus=1.0 + k % 3, mem=256.0))
+        for k in range(jobs)])
+    cluster = KubernetesCluster("l-small", api, store=store)
+    cfg = Config()
+    cfg.pipeline.depth = 0
+    sched = Scheduler(store, cfg, [cluster], device=device)
+    try:
+        sched.step_cycle()
+        return sorted((p.labels["cook/job"], p.node_name)
+                      for p in mock.fake.pods())
+    finally:
+        sched.shutdown()
+        cluster.shutdown()
+        api._stop.set()
+        mock.close()
+
+
+def phase_l(device="cuda", n_nodes=L_NODES, kinds=L_KINDS, users=L_USERS,
+            writers=L_WRITERS, batch=L_BATCH) -> dict:
+    """The node over the Kubernetes backend: ``CookDaemon.start()``
+    campaigns under ``election.mode = "k8s-lease"`` on the mock and
+    leads on ``device``; 4 writers submit every kind; once 16 pods run
+    on k-00 it is lost (``lose_node``); the killed jobs are killed
+    through REST once they run; once the big jobs' synthetic pods are
+    up, 4 nodes of 32 cpus are added; the daemon's own loops place and
+    complete every job.  Every step is checked (``l_check``) and every
+    launch of its cycles replayed against its plain version after its
+    step (path ``k8s_node``); the lease is sampled throughout; every job
+    ends in its kind's state and no synthetic pod is left; then card
+    against CPU on a small world (``l_small``)."""
+    import shutil
+    import tempfile
+    import threading
+
+    from cook_tpu_torch.client import JobClient
+    from cook_tpu_torch.cluster.k8s.fake_api import FakeNode
+    from cook_tpu_torch.cluster.k8s.real_api import RealKubernetesApi
+    from cook_tpu_torch.daemon import CookDaemon
+    from cook_tpu_torch.ops import cuda_lib
+    from cook_tpu_torch.state import JobState
+    card = device == "cuda"
+    out = {"phase": "L"}
+    tmp = Path(tempfile.mkdtemp(prefix="cook_k8s"))
+    t0 = time.perf_counter()
+    specs = l_specs(kinds, users)
+    kind_of = {s["uuid"]: k for k, ss in specs.items() for s in ss}
+    code_of = {k: v[1] for k, v in kinds.items()}
+    mock = l_mock(n_nodes)
+    port = free_port()
+    url = f"http://127.0.0.1:{port}"
+    conf = node_conf(tmp, "l", device, 0, port=port)
+    conf["scheduler"]["autoscaling_enabled"] = True
+    conf["election"] = {"mode": "k8s-lease", "base_url": mock.base_url,
+                        "lease_name": L_LEASE, "duration_seconds": 15}
+    conf["clusters"] = [{
+        "factory": "cook_tpu_torch.cluster.k8s.compute_cluster.factory",
+        "kwargs": {"name": "k8s-1", "api_url": mock.base_url,
+                   "rest_url": url}}]
+    node = CookDaemon(conf)
+    stop, sampled = threading.Event(), threading.Event()
+    threads, faults, lease_seen = [], [], []
+    running, rec, call = True, None, cuda_lib.call
+    launch_threads = set()
+
+    def counted_call(*a, **kw):
+        launch_threads.add(threading.current_thread().name)
+        return call(*a, **kw)
+
+    def kubelet():
+        ran = {}
+        try:
+            while not stop.is_set():
+                mock.fake.step()
+                now = time.perf_counter()
+                for pod in mock.fake.pods():
+                    if pod.phase != "Running" or pod.synthetic \
+                            or pod.node_name == "k-00":
+                        continue
+                    kind = kind_of.get(pod.labels.get("cook/job"))
+                    if kind is None or kind == "killed":
+                        continue
+                    if now - ran.setdefault(pod.name, now) >= L_RUN_S:
+                        mock.fake.finish_pod(pod.name,
+                                             exit_code=code_of[kind])
+                stop.wait(L_TICK_S)
+        except BaseException as e:
+            faults.append(e)
+            raise
+
+    reader = RealKubernetesApi(base_url=mock.base_url)
+
+    def lease_sampler():
+        try:
+            while not sampled.is_set():
+                x = reader.get_lease(L_LEASE)
+                if x is not None:
+                    lease_seen.append((x.holder, x.renew_time_s,
+                                       x.transitions))
+                sampled.wait(0.25)
+        except BaseException as e:
+            faults.append(e)
+            raise
+
+    def leader():
+        if node.exit_code != 0:
+            raise AssertionError("phase L: the takeover failed")
+        return node.scheduler
+
+    try:
+        cuda_lib.call = counted_call
+        for target in (kubelet, lease_sampler):
+            threads.append(threading.Thread(target=target, daemon=True,
+                                            name=f"phase-l-{target.__name__}"))
+            threads[-1].start()
+        node.start()
+        sched = wait_for(leader, 60.0, "phase L: leadership")
+        out["lead_s"] = time.perf_counter() - t0
+        if sched.device.type != torch.device(device).type:
+            raise AssertionError(f"phase L: the leader runs on "
+                                 f"{sched.device}")
+        cluster = sched.clusters["k8s-1"]
+        offers_ms, synth = [], {"created": 0, "reaped": 0}
+        pending_offers = cluster.pending_offers
+        autoscale, reap = cluster.autoscale, cluster.reap_synthetic_pods
+
+        def timed_offers(pool):
+            t1 = time.perf_counter()
+            try:
+                return pending_offers(pool)
+            finally:
+                offers_ms.append((time.perf_counter() - t1) * 1e3)
+
+        def counted_autoscale(*a, **kw):
+            n = autoscale(*a, **kw)
+            synth["created"] += n
+            return n
+
+        def counted_reap(*a, **kw):
+            n = reap(*a, **kw)
+            synth["reaped"] += n
+            return n
+
+        cluster.pending_offers = timed_offers
+        cluster.autoscale = counted_autoscale
+        cluster.reap_synthetic_pods = counted_reap
+        rec = ReplayingRecorder("phase L") if card else None
+        guard = threading.Lock()
+        seq0, counter0 = flight_seq(), fallbacks("fused.pool_cycle")
+        rebalances = guard_rebalancer(sched, guard)
+
+        def no_fault():
+            if faults:
+                raise AssertionError(f"phase L: {len(faults)} faults in "
+                                     f"the steps or the phase's threads"
+                                     ) from faults[0]
+
+        if rec is not None:
+            rec.start()
+        steps, calls = checked_steps(
+            sched, rec, guard,
+            lambda label: l_check(node, cluster, mock, label), "phase L",
+            faults)
+        store = node.store
+
+        def running_jobs(uuids):
+            no_fault()
+            n = 0
+            for u in uuids:
+                job = store.job(u)
+                inst = store.instance(job.instances[-1]) \
+                    if job and job.instances else None
+                n += inst is not None and inst.status.value == "running"
+            return n == len(uuids)
+
+        everyone = [s for ss in specs.values() for s in ss]
+        sub = g_submit(url, everyone, writers, batch)
+        acked, last_ack = sub.pop("acked"), sub.pop("last_ack")
+        out["l1"] = sub
+
+        def on_k00():
+            no_fault()
+            pods = [p for p in mock.fake.pods() if p.node_name == "k-00"
+                    and p.phase in ("Pending", "Running")]
+            return pods if sum(p.phase == "Running"
+                               for p in pods) >= L_LOST_AT else None
+
+        lost = {p.labels["cook/job"] for p in wait_for(
+            on_k00, L_TIMEOUT_S, "phase L: 16 pods running on k-00",
+            every=0.05)}
+        mock.fake.lose_node("k-00")
+        t_lost = time.time()
+
+        def lost_applied():
+            # every lost job's k-00 instance has taken its failure, so a
+            # REST kill below never races the NODE_LOST status
+            no_fault()
+            return all(any(i.hostname == "k-00"
+                           and i.status.value == "failed"
+                           for i in (store.instance(x)
+                                     for x in store.job(u).instances))
+                       for u in lost)
+
+        wait_for(lost_applied, L_TIMEOUT_S,
+                 "phase L: the lost pods failed in the store", every=0.05)
+        killed = [s["uuid"] for s in specs["killed"]]
+        wait_for(lambda: running_jobs(killed), L_TIMEOUT_S,
+                 "phase L: the killed jobs running", every=0.1)
+        by_user = {}
+        for s in specs["killed"]:
+            by_user.setdefault(s["user"], []).append(s["uuid"])
+        for user, uuids in sorted(by_user.items()):
+            JobClient(url, user=user).kill(uuids)
+        big = {s["uuid"] for s in specs["big"]}
+
+        def big_demand():
+            no_fault()
+            return {p.labels.get("cook/job") for p in mock.fake.pods()
+                    if p.synthetic} >= big
+
+        wait_for(big_demand, L_TIMEOUT_S,
+                 "phase L: the big jobs' synthetic pods", every=0.1)
+        t_big = time.time()
+        for i in range(L_BIG_NODES):
+            mock.fake.add_node(FakeNode(name=f"k-big-{i}", cpus=L_BIG_CPUS,
+                                        mem=L_BIG_MEM))
+
+        def count(state):
+            no_fault()
+            return len(store.jobs_where(lambda j: j.state is state,
+                                        clone=False))
+
+        wait_for(lambda: count(JobState.WAITING) == 0, L_TIMEOUT_S,
+                 "phase L: every job placed", every=0.1)
+        placed_s = time.perf_counter() - last_ack
+        wait_for(lambda: count(JobState.COMPLETED) == len(acked),
+                 L_TIMEOUT_S, "phase L: every job completed", every=0.1)
+        completed_s = time.perf_counter() - last_ack
+        big_s = max(store.instance(store.job(u).instances[-1]).end_time_ms
+                    or 0 for u in big) / 1e3
+        lost_back_s = max(
+            store.instance(store.job(u).instances[-1]).end_time_ms or 0
+            for u in lost) / 1e3 - t_lost
+        with guard:
+            left = [p.name for p in mock.fake.pods() if p.synthetic]
+            out["l2"] = {
+                "placed_after_last_ack_s": placed_s,
+                "completed_after_last_ack_s": completed_s,
+                "lost_completed_after_loss_s": lost_back_s,
+                "big_completed_after_nodes_added_s": big_s - t_big,
+                "step_cycles": len(steps),
+                "dispatching_cycles": sum(1 for s in steps if s[1]),
+                "launched": sum(s[1] for s in steps),
+                "step_ms_p50": float(np.percentile(
+                    [s[2] * 1e3 for s in steps], 50)),
+                "step_ms_p99": float(np.percentile(
+                    [s[2] * 1e3 for s in steps], 99)),
+                "steps": [[round(t - last_ack, 3), n, s * 1e3, r * 1e3]
+                          for t, n, s, r in steps],
+                "replay_and_check_s": sum(s[3] for s in steps),
+                "pending_offers_calls": len(offers_ms),
+                "pending_offers_ms_p50": float(np.percentile(offers_ms, 50)),
+                "pending_offers_ms_p99": float(np.percentile(offers_ms, 99)),
+                "synthetic_created": synth["created"],
+                "synthetic_reaped": synth["reaped"],
+                "synthetic_left": len(left),
+                "lost_jobs": len(lost),
+                "lost_by_kind": {k: sum(kind_of[u] == k for u in lost)
+                                 for k in kinds}}
+        if left:
+            raise AssertionError(f"phase L: synthetic pods left: "
+                                 f"{left[:5]}")
+        if synth["created"] < len(big) or synth["reaped"] < len(big):
+            raise AssertionError(f"phase L: synthetic pods {synth}")
+        identity = node.node_url
+        sampled.set()
+        threads[1].join(timeout=10)
+        node.shutdown()
+        running = False
+        stop.set()
+        threads[0].join(timeout=10)
+        released = reader.get_lease(L_LEASE)
+        counts = rec.stop() if rec is not None else {}
+        no_fault()
+        if len(steps) != calls[0]:
+            raise AssertionError(f"phase L: {calls[0]} step_cycle calls, "
+                                 f"{len(steps)} checked")
+        holders = {h for h, _t, _n in lease_seen}
+        renewals = len({t for _h, t, _n in lease_seen})
+        transitions = {n for _h, _t, n in lease_seen}
+        out["lease"] = {"samples": len(lease_seen),
+                        "renewals_seen": renewals,
+                        "holders": sorted(holders),
+                        "transitions": sorted(transitions),
+                        "holder_after_shutdown": released.holder}
+        if holders != {identity} or transitions != {1} or renewals < 2 \
+                or released.holder != "":
+            raise AssertionError(f"phase L: the lease {out['lease']} "
+                                 f"(the node is {identity})")
+        degraded = degraded_since(seq0, counter0)
+        out["l2"]["degraded_cycles"] = degraded
+        out["l2"]["rebalancer_pool_passes"] = len(rebalances)
+        if degraded["fallback_counter"] or degraded["flight_notes"]:
+            raise AssertionError(f"phase L: cycles degraded to the split "
+                                 f"path: {degraded}")
+        insts = [store.instance(t) for u in acked
+                 for t in store.job(u).instances]
+        lat = [i.mesos_start_time_ms - i.start_time_ms for i in insts
+               if i.mesos_start_time_ms is not None]
+        out["l2"]["pod_created_to_running_ms_p50"] = float(
+            np.percentile(lat, 50))
+        out["l2"]["pod_created_to_running_ms_p99"] = float(
+            np.percentile(lat, 99))
+        out["l2"]["instances"] = len(insts)
+        watchers = sorted(n for n in launch_threads
+                          if n.startswith("k8s-watch"))
+        out["l3"] = {"end_states": l_outcomes(node, specs, lost),
+                     "no_node_over_capacity_no_job_live_twice_steps":
+                         len(steps),
+                     "launch_threads": sorted(launch_threads)}
+        if watchers:
+            raise AssertionError(f"phase L: kernels launched from the "
+                                 f"watch threads {watchers}")
+        if card:
+            missing = [k for k in SOURCES if counts.get(k, 0) <= 0]
+            if missing:
+                raise AssertionError(f"phase L: kernels not launched: "
+                                     f"{missing}")
+            skipped = rec.unreplayed(counts)
+            if skipped:
+                raise AssertionError(f"phase L: launches not replayed "
+                                     f"(path, replays): {skipped}")
+            out["l3"]["launches_per_kernel"] = counts
+            out["l3"]["replayed_equal_to_plain"] = rec.replayed
+    finally:
+        cuda_lib.call = call
+        stop.set()
+        sampled.set()
+        if running:
+            node.shutdown()
+        if rec is not None and rec._ctx is not None:
+            rec._ctx.__exit__(None, None, None)
+        reader._stop.set()
+        mock.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    t1 = time.perf_counter()
+    pairs = [l_small(device), cpu_side("l_small")]
+    if not pairs[0] or pairs[0] != pairs[1]:
+        raise AssertionError(f"phase L small: {device} placed "
+                             f"{len(pairs[0])} pods and cpu "
+                             f"{len(pairs[1])}, not the same pairs")
+    out["l4"] = {**L_SMALL, "pods": len(pairs[0]),
+                 "devices": [device, "cpu"], "equal": True,
+                 "wall_s": time.perf_counter() - t1}
+    out["world"] = {"nodes": n_nodes, "cpus": L_CPUS, "mem": L_MEM,
+                    "big_nodes": L_BIG_NODES, "big_cpus": L_BIG_CPUS,
+                    "jobs": len(everyone), "users": users,
+                    "writers": writers, "batch": batch,
+                    "kinds": {k: len(v) for k, v in specs.items()},
+                    "kubelet_tick_s": L_TICK_S, "pod_run_s": L_RUN_S}
     out["wall_s"] = time.perf_counter() - t0
     print(json.dumps(out))
     return counts
@@ -6401,7 +6944,7 @@ def copy_args(args) -> tuple:
 # side's result from there, or computes it in process when nothing was
 # started (a phase run alone).
 CPU_SIDES = (("e_split",), ("x_leg", 0), ("x_leg", 2), ("t_small",),
-             ("q_small", 0), ("q_small", 2), ("u_small",))
+             ("q_small", 0), ("q_small", 2), ("u_small",), ("l_small",))
 CPU_SIDE_WORKERS, CPU_SIDE_THREADS = 2, 2
 _SIDES = {"pool": None, "futures": {}}
 
@@ -6418,6 +6961,8 @@ def cpu_side_run(key: tuple):
         return u_small("cpu")
     if name == "e_split":
         return split_on_cpu()
+    if name == "l_small":
+        return l_small("cpu")
     raise KeyError(key)
 
 
@@ -6636,6 +7181,8 @@ def run() -> int:
     mark("O")
     remote_counts = phase_g()
     mark("G")
+    k8s_counts = phase_l()
+    mark("L")
     prod_counts = phase_t()
     mark("T")
     dense_counts = phase_u1()
@@ -6676,6 +7223,7 @@ def run() -> int:
                 "rest": rest_counts.get(k, 0),
                 "daemon": node_counts.get(k, 0),
                 "remote_node": remote_counts.get(k, 0),
+                "k8s_node": k8s_counts.get(k, 0),
                 "warmup": prod_counts["warmup"].get(k, 0),
                 "optimizer": prod_counts["optimizer"].get(k, 0),
                 "dense_cycle": dense_counts.get(k, 0)},

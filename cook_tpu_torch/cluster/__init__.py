@@ -1,6 +1,6 @@
-"""The port's copy of ``cook_tpu/cluster``'s base, fake and remote
-backends.  The Kubernetes backend is not copied (ROADMAP queue 1, item
-11b)."""
+"""The port's copy of ``cook_tpu/cluster``: the base, fake and remote
+backends here, the Kubernetes backend in ``cluster.k8s`` (imported on
+its own, as the reference's is)."""
 
 from .base import ComputeCluster, LaunchSpec, Offer, ReadWriteLock  # noqa: F401
 from .fake import FakeCluster, FakeHost  # noqa: F401

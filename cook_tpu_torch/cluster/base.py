@@ -89,6 +89,15 @@ class ReadWriteLock:
             if self._readers == 0:
                 self._cond.notify_all()
 
+    def try_acquire_write(self) -> bool:
+        """Take the write side only if no reader or writer holds the lock
+        now; never waits."""
+        with self._cond:
+            if self._writer or self._readers:
+                return False
+            self._writer = True
+            return True
+
     def acquire_write(self) -> None:
         with self._cond:
             self._writers_waiting += 1

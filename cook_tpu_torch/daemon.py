@@ -5,13 +5,15 @@ boot before the listener binds on every node that may lead, so a node
 without its card exits nonzero and never serves; the elected leader's
 ``Scheduler`` runs on it.  Each branch that needs a module still to be
 ported is refused at boot with the ROADMAP.md item that holds it: a
-``"federation"`` section (queue 1, item 11d), ``partitions.count > 1``
-(11c) and ``election.mode = "k8s-lease"`` (11b).  A cluster or optimizer
-factory in the JAX package (``cook_tpu.`` ...) is refused too: importing
-it would load JAX into the node.  The clusters a node builds are the
-port's fake backend and its remote backend
-(``cook_tpu_torch.cluster.remote.factory``: ``cook_agentd`` agents over
-the repo-root ``native/transport.cpp``).
+``"federation"`` section (queue 1, item 11d) and ``partitions.count > 1``
+(11c).  A cluster or optimizer factory in the JAX package
+(``cook_tpu.`` ...) is refused too: importing it would load JAX into the
+node.  The clusters a node builds are the port's fake backend, its
+remote backend (``cook_tpu_torch.cluster.remote.factory``:
+``cook_agentd`` agents over the repo-root ``native/transport.cpp``) and
+its Kubernetes backend (``cook_tpu_torch.cluster.k8s.compute_cluster.
+factory``); ``election.mode = "k8s-lease"`` elects over a Lease object
+through the port's ``RealKubernetesApi``.
 
 Process shell: config file -> store -> election -> clusters -> scheduler
 -> REST, serving until leadership loss.
@@ -42,8 +44,11 @@ Config file is JSON or TOML:
         {"factory": "cook_tpu_torch.cluster.remote.factory",
          "kwargs": {"name": "native-1",
                     "endpoints": [["node-a", 7070]],
-                    "progress_url": "http://this-node:12321"}}
+                    "progress_url": "http://this-node:12321"}},
+        {"factory": "cook_tpu_torch.cluster.k8s.compute_cluster.factory",
+         "kwargs": {"name": "k8s-1", "api_url": "https://apiserver"}}
       ],
+      "election": {"mode": "k8s-lease", "base_url": "https://apiserver"},
       "plugins": {},                      # PluginRegistry.from_config spec
       "scheduler": {"cycle_mode": "fused", "rank_backend": "tpu", ...}
     }
@@ -471,22 +476,40 @@ class CookDaemon:
         tracing.set_process_identity(self._node_id)
         self.api.instance = self._node_id
 
-        # election.mode "k8s-lease" is refused at boot
-        # (_refuse_unported_roles): the file elector is the one medium
-        election_dir = conf.get("election_dir") or self.data_dir
-        if not election_dir:
-            # no explicit election_dir and no data_dir: a
-            # single-process election with nothing to share.  The
-            # old fallback was the cwd, which littered
-            # cook-leader.lock{,.epoch,.leader} into whatever
-            # directory the process (or a test) started from; a
-            # per-process tempdir keeps the same semantics with no
-            # droppings
-            import tempfile
-            election_dir = tempfile.mkdtemp(prefix="cook-election-")
-        self.elector = FileLeaderElector(
-            str(Path(election_dir) / "cook-leader.lock"), self.node_url,
-            on_leadership=self._on_leadership, on_loss=self._on_loss)
+        election = conf.get("election", {})
+        if election.get("mode") == "k8s-lease":
+            # distributed election over the cluster backend's Lease object
+            # (the ZK/Curator slot; no extra infrastructure needed)
+            from .cluster.k8s.real_api import RealKubernetesApi
+            from .sched.election import LeaseLeaderElector
+            api = RealKubernetesApi(
+                namespace=election.get("namespace", "cook"),
+                kubeconfig=election.get("kubeconfig"),
+                base_url=election.get("base_url"),
+                token=election.get("token"),
+                verify_tls=election.get("verify_tls", True))
+            self.elector = LeaseLeaderElector(
+                api, identity=election.get("identity") or self.node_url,
+                node_url=self.node_url,
+                lease_name=election.get("lease_name",
+                                        "cook-scheduler-leader"),
+                duration_s=float(election.get("duration_seconds", 15.0)),
+                on_leadership=self._on_leadership, on_loss=self._on_loss)
+        else:
+            election_dir = conf.get("election_dir") or self.data_dir
+            if not election_dir:
+                # no explicit election_dir and no data_dir: a
+                # single-process election with nothing to share.  The
+                # old fallback was the cwd, which littered
+                # cook-leader.lock{,.epoch,.leader} into whatever
+                # directory the process (or a test) started from; a
+                # per-process tempdir keeps the same semantics with no
+                # droppings
+                import tempfile
+                election_dir = tempfile.mkdtemp(prefix="cook-election-")
+            self.elector = FileLeaderElector(
+                str(Path(election_dir) / "cook-leader.lock"), self.node_url,
+                on_leadership=self._on_leadership, on_loss=self._on_loss)
         self.api.elector = self.elector
         self.api.node_url = self.node_url
         if self.sched_config.fleet.enabled:
@@ -514,6 +537,15 @@ class CookDaemon:
                     "replication requires an explicit election_dir "
                     "(a path shared by every scheduler host — the "
                     "election authority)")
+            if not hasattr(self.elector, "lock_path"):
+                # the replication address is published through the file
+                # elector's directory; proceeding would mean standbys
+                # never mirror while sync commits pass vacuously — the
+                # operator believes in durability that does not exist
+                raise ValueError(
+                    "replication requires the file-based elector "
+                    "(election_dir); the k8s-lease elector does not "
+                    "publish a replication address")
             # build the native library NOW, outside any lock: the first
             # ReplicationFollower/Server construction otherwise triggers
             # a g++ compile (up to ~3 min) inside _lock, stalling a
@@ -560,11 +592,6 @@ class CookDaemon:
                 "a \"federation\" section (the multi-cell front door, "
                 "federation/) is not ported: see ROADMAP.md, queue 1, "
                 "item 11d")
-        if (conf.get("election") or {}).get("mode") == "k8s-lease":
-            raise NotImplementedError(
-                "election.mode = \"k8s-lease\" needs the Kubernetes "
-                "backend (cluster/k8s/real_api), which is not ported: see "
-                "ROADMAP.md, queue 1, item 11b")
         for spec in conf.get("clusters") or []:
             check_cluster_factory(spec["factory"])
         for path in conf.get("cluster_factory_allowlist") or []:

@@ -243,9 +243,14 @@ def test_port_imports_neither_jax_nor_cook_tpu():
     files = sorted((REPO / "cook_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 15
-    # the remote backend and the executor, which agents run, included
+    # the remote backend, the executor, which agents run, and each of the
+    # Kubernetes backend's modules included
     assert {REPO / "cook_tpu_torch/cluster/remote.py",
             REPO / "cook_tpu_torch/agent/executor.py"} <= set(files)
+    k8s = {f.name for f in (REPO / "cook_tpu/cluster/k8s").glob("*.py")}
+    assert len(k8s) == 9
+    assert {REPO / "cook_tpu_torch/cluster/k8s" / n for n in k8s} \
+        <= set(files)
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
@@ -253,6 +258,23 @@ def test_port_imports_neither_jax_nor_cook_tpu():
         text = f.read_text()
         assert not re.search(r"^\s*(import|from)\s+(jax|cook_tpu)\b", text,
                              re.M), f
+
+
+def test_k8s_backend_loads_neither_jax_nor_cook_tpu():
+    """Importing every module of the port's Kubernetes backend, and the
+    node that builds its lease elector, loads no ``jax`` and no
+    ``cook_tpu`` module."""
+    code = ("import sys, cook_tpu_torch.cluster.k8s, "
+            "cook_tpu_torch.cluster.k8s.real_api, "
+            "cook_tpu_torch.cluster.k8s.mock_apiserver, "
+            "cook_tpu_torch.cluster.k8s.testcerts, "
+            "cook_tpu_torch.cluster.k8s.pod_spec, cook_tpu_torch.daemon\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'cook_tpu')))")
+    run = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert run.returncode == 0, run.stderr
+    assert run.stdout.strip() == "[]"
 
 
 def test_ctypes_signatures_match_cuda_sources():

@@ -10,9 +10,15 @@ cook_tpu_torch``) against the JAX package's on the CPU.
   reference's ``Config``, the optimizer's factories named in the port;
   a node boots with each of those planes, and with the whole section;
 - the port's own refusals (a federation section, ``partitions.count >
-  1``, the k8s lease election, a cluster or optimizer factory in the
-  JAX package) and the default device without a card each fail the
-  boot before a port binds;
+  1``, a cluster or optimizer factory in the JAX package) and the
+  default device without a card each fail the boot before a port binds;
+- a node under ``election.mode = "k8s-lease"`` against the port's
+  ``MockApiServer`` leads and holds the lease, and refuses replication
+  with the reference's message; the production example boots with its
+  own election section; a node whose cluster is the port's Kubernetes
+  backend places jobs as pods, the reference node's pairs; and two
+  node processes of each package over one mock take the lease over
+  from a SIGKILLed leader alike;
 - both packages' ``CookDaemon`` on one config, with every loop's interval
   at 3,600 s and a pinned store clock, take the same submissions through
   their own ``JobClient``; three hand-driven ``step_cycle``s must launch
@@ -230,8 +236,6 @@ REFUSALS = {
                    NotImplementedError, "item 11"),
     "partitions": (_sched(partitions={"count": 2}),
                    NotImplementedError, "item 11"),
-    "k8s_lease": (lambda conf: conf.update(election={"mode": "k8s-lease"}),
-                  NotImplementedError, "item 11"),
     "jax_optimizer_factory": (
         _sched(optimizer={"optimizer_create_fn":
                           "cook_tpu.sched.optimizer.GoodputOptimizer"}),
@@ -244,6 +248,10 @@ REFUSALS = {
         lambda conf: conf["clusters"][0].update(
             factory="cook_tpu.cluster.remote.factory"),
         ValueError, "cook_tpu_torch.cluster.remote.factory"),
+    "jax_k8s_factory": (
+        lambda conf: conf["clusters"][0].update(
+            factory="cook_tpu.cluster.k8s.compute_cluster.factory"),
+        ValueError, "cook_tpu_torch.cluster.k8s.compute_cluster.factory"),
     "jax_factory_allowlisted": (
         lambda conf: conf.update(
             cluster_factory_allowlist=["cook_tpu.cluster.fake.factory"]),
@@ -263,8 +271,9 @@ def test_port_refusals_fire_before_a_port_binds(name, tmp_path):
     assert "jax" not in d.__class__.__module__
 
 
-@pytest.mark.parametrize("path", ["cook_tpu.cluster.fake.factory",
-                                  "cook_tpu.cluster.remote.factory"])
+@pytest.mark.parametrize("path", [
+    "cook_tpu.cluster.fake.factory", "cook_tpu.cluster.remote.factory",
+    "cook_tpu.cluster.k8s.compute_cluster.factory"])
 def test_refused_factory_names_a_counterpart_that_imports(path):
     with pytest.raises(ValueError) as e:
         P.daemon.check_cluster_factory(path)
@@ -335,11 +344,14 @@ def test_node_boots_on_the_production_scheduler_section(tmp_path,
     ``cook_tpu_torch.cluster.remote.factory`` (the file names the JAX
     package's module) with its endpoints pointed at two local
     ``cook_agentd`` agents named as the file's, and its ``progress_url``
-    kept.  What a CPU test cannot hold is replaced: the file election
-    for the k8s lease (queue 1, item 11b), the compilation cache in a
+    kept, and the file's own ``election`` section, the k8s lease, with
+    its ``base_url`` pointed at the port's ``MockApiServer``.  What a
+    CPU test cannot hold is replaced: the compilation cache in a
     temporary directory, and the warmup at 1,024 tasks x 256 hosts (the
     file's 131,072 x 8,192 runs on the card, ``chip_smoke.py`` phase T).
-    It leads, warms, offers both agents, and its optimizer cycles."""
+    It leads, holds the file's lease, warms, offers both agents, and its
+    optimizer cycles."""
+    from cook_tpu_torch.cluster.k8s.mock_apiserver import MockApiServer
     from cook_tpu_torch.cluster.remote import LocalAgentProcess
     from cook_tpu_torch.ops import cuda_lib
     monkeypatch.setattr(cuda_lib, "BUILD_DIR", cuda_lib.BUILD_DIR)
@@ -354,13 +366,22 @@ def test_node_boots_on_the_production_scheduler_section(tmp_path,
     agents = [LocalAgentProcess(h, workdir=str(tmp_path / "agents"))
               for h, _port in cluster["kwargs"]["endpoints"]]
     cluster["kwargs"]["endpoints"] = [["127.0.0.1", a.port] for a in agents]
+    mock = MockApiServer().start()
+    election = dict(example["election"], base_url=mock.base_url)
+    assert election["mode"] == "k8s-lease"
     conf = node_conf(tmp_path)
     conf["clusters"] = [cluster]
+    conf["election"] = election
     conf["scheduler"] = {**prod, **conf["scheduler"]}
     d = P.daemon.CookDaemon(conf, device="cpu")
     d.start()
     try:
         sched = _wait_leader(d)
+        lease = d.elector.api.get_lease(election["lease_name"])
+        assert (lease.holder, lease.holder_url, lease.transitions,
+                lease.duration_s) == (d.node_url, d.node_url, 1,
+                                      election["duration_seconds"])
+        assert d.elector.api.namespace == election["namespace"]
         assert sched._fused is not None
         assert sched.config.elastic.enabled
         remote = sched.clusters["native-1"]
@@ -379,6 +400,7 @@ def test_node_boots_on_the_production_scheduler_section(tmp_path,
         d.shutdown()
         for a in agents:
             a.stop()
+        mock.close()
 
 
 def test_default_device_without_a_card_fails_the_boot(tmp_path):
@@ -614,6 +636,191 @@ def test_remote_nodes_launch_real_processes_equally(tmp_path):
         == [3, 3]
     assert by_uuid[job_uuid(3)]["instances"][0]["progress"] == 90
     assert by_uuid[job_uuid(99)]["state"] == "failed"
+
+
+def mock_of(p, n_nodes=0, cpus=4.0, mem=4096.0):
+    """``p``'s own ``MockApiServer`` with nodes ``k-0`` ... over plain
+    HTTP."""
+    mock_mod = importlib.import_module(
+        f"{p.root}.cluster.k8s.mock_apiserver")
+    fake_mod = importlib.import_module(f"{p.root}.cluster.k8s.fake_api")
+    mock = mock_mod.MockApiServer().start()
+    for i in range(n_nodes):
+        mock.fake.add_node(fake_mod.FakeNode(name=f"k-{i}", cpus=cpus,
+                                             mem=mem))
+    return mock
+
+
+def lease_conf(mock, **extra):
+    return {"mode": "k8s-lease", "base_url": mock.base_url,
+            "lease_name": "cook-scheduler-leader", **extra}
+
+
+def lease_of(p, mock, name="cook-scheduler-leader"):
+    real = importlib.import_module(f"{p.root}.cluster.k8s.real_api")
+    api = real.RealKubernetesApi(base_url=mock.base_url)
+    return api.get_lease(name)
+
+
+def test_node_leads_and_holds_the_k8s_lease(tmp_path):
+    """Each package's node under ``election.mode = "k8s-lease"`` against
+    its own package's ``MockApiServer``: it leads, the lease names it
+    with the reference's transitions rule, its renewals move
+    ``renewTime``, and a clean shutdown empties the holder."""
+    def scenario(p):
+        mock = mock_of(p)
+        try:
+            conf = node_conf(tmp_path / p.root, p.root,
+                             election=lease_conf(mock,
+                                                 duration_seconds=15))
+            d = boot(p, conf)
+            try:
+                assert type(d.elector).__name__ == "LeaseLeaderElector"
+                assert type(d.elector.api).__module__ == \
+                    f"{p.root}.cluster.k8s.real_api"
+                first = lease_of(p, mock)
+                deadline = time.time() + 15
+                while lease_of(p, mock).renew_time_s <= first.renew_time_s:
+                    assert time.time() < deadline, "no renewal"
+                    time.sleep(0.1)
+                renewed = lease_of(p, mock)
+                held = [(x.holder == d.node_url, x.holder_url == d.node_url,
+                         x.transitions, x.duration_s)
+                        for x in (first, renewed)]
+                leader = d.elector.is_leader, d.elector.epoch
+            finally:
+                d.shutdown()
+            after = lease_of(p, mock)
+            return held, leader, (after.holder, after.holder_url,
+                                  after.transitions)
+        finally:
+            mock.close()
+    out = [scenario(p) for p in SIDES]
+    assert out[1] == out[0]
+    assert out[0] == ([(True, True, 1, 15.0)] * 2, (True, 1), ("", "", 1))
+
+
+def test_k8s_lease_refuses_replication_as_the_reference(tmp_path):
+    """Replication publishes its address through the file elector: a
+    node under the k8s lease with a ``"replication"`` section fails its
+    boot with the reference's error."""
+    def scenario(p, tmp):
+        mock = mock_of(p)
+        d = None
+        try:
+            conf = node_conf(tmp / p.root, p.root,
+                             election=lease_conf(mock),
+                             replication={"listen_port": 0, "sync": True})
+            kw = {"device": "cpu"} if p is P else {}
+            d = p.daemon.CookDaemon(conf, **kw)
+            got = _outcome(d.start)
+            return got, d.scheduler is None
+        finally:
+            if d is not None and d.server is not None:
+                d.server.stop()
+            mock.close()
+    out = [scenario(p, tmp_path) for p in SIDES]
+    assert out[1] == out[0]
+    assert out[0][0][0] == "ValueError"
+    assert "file-based elector" in out[0][0][1]
+
+
+K8S_NODES, K8S_JOBS = 3, 10
+
+
+def k8s_conf(tmp_path, root, mock, **extra):
+    conf = node_conf(tmp_path / root, root, **extra)
+    conf["clusters"] = [{
+        "factory": f"{root}.cluster.k8s.compute_cluster.factory",
+        "kwargs": {"name": "node-k8s", "api_url": mock.base_url,
+                   "rest_url": "http://this-node:12321"}}]
+    return conf
+
+
+def drive_k8s(p, tmp_path):
+    """A node whose one cluster is ``p``'s Kubernetes backend over ``p``'s
+    mock with 3 nodes of 4 cpus: REST submissions from two users, then
+    three hand-driven ``step_cycle``s, the mock's kubelet stepping and
+    finishing every running pod between them.  The launched pairs by
+    step, the pods' (job, node) pairs on the mock, and ``/jobs`` once
+    every job ended."""
+    mock = mock_of(p, K8S_NODES)
+    try:
+        d = boot(p, k8s_conf(tmp_path, p.root, mock))
+        try:
+            now = [T0]
+            d.store.clock = lambda: now[0]
+            s = as_stack(p, d)
+            c = p.client.JobClient(d.node_url, user="alice")
+            c.throttle_retries = 0
+            uuids = []
+            for k in range(K8S_JOBS):
+                c.user = ("alice", "bob")[k % 2]
+                uuids += c.submit([{"uuid": job_uuid(k), "command": "true",
+                                    "cpus": 1.0 + k % 3, "mem": 256.0,
+                                    "priority": 50 + k,
+                                    "max_retries": 2}])
+            store = d.store
+
+            def settled(want):
+                insts = [store.instance(t) for u in uuids
+                         for t in store.job(u).instances]
+                return all(i.status.value in want for i in insts)
+
+            launched, pods = [], []
+            for step in range(3):
+                launched.append(s.step())
+                pods.append(sorted((x.labels.get("cook/job"), x.node_name)
+                                   for x in mock.fake.pods()))
+                mock.fake.step()
+                mock.fake.step()
+                deadline = time.time() + 30
+                while not settled(("running", "success", "failed")):
+                    assert time.time() < deadline, "pods never ran"
+                    time.sleep(0.05)
+                for x in mock.fake.pods():
+                    if x.phase == "Running":
+                        k = int(x.labels["cook/job"][-12:])
+                        mock.fake.finish_pod(x.name,
+                                             exit_code=3 if k == 4 else 0)
+                # the controller writes a status back before it deletes
+                # the pod: wait for both, so each step's pods are its own
+                deadline = time.time() + 30
+                while not settled(("success", "failed")) or any(
+                        x.phase not in ("Pending", "Running")
+                        for x in mock.fake.pods()):
+                    assert time.time() < deadline, "pods never ended"
+                    time.sleep(0.05)
+                now[0] += 1_000
+            body = s.call("GET", "/jobs", params={"uuid": sorted(uuids)},
+                          user="admin")
+            return launched, pods, body, sorted(
+                x.name for x in mock.fake.pods())
+        finally:
+            d.shutdown()
+    finally:
+        mock.close()
+
+
+def test_k8s_cluster_nodes_place_jobs_as_pods_equally(tmp_path):
+    """Both packages' nodes over their own Kubernetes backend and mock:
+    equal launched pairs by step, equal pods on the mock, and equal
+    ``/jobs`` once every pod ended (one job's pods exit 3: it retries
+    once and fails)."""
+    out = [drive_k8s(p, tmp_path) for p in SIDES]
+    assert out[1] == out[0]
+    launched, pods, (status, jobs), left = out[0]
+    assert status == 200 and left == []
+    assert sum(len(v) for step in launched for v in step.values()) \
+        == K8S_JOBS + 1
+    assert {x[1] for step in pods for x in step} <= {
+        f"k-{i}" for i in range(K8S_NODES)}
+    by_uuid = {j["uuid"]: j for j in jobs}
+    assert [i["exit_code"] for i in by_uuid[job_uuid(4)]["instances"]] \
+        == [3, 3]
+    assert by_uuid[job_uuid(4)]["state"] == "failed"
+    assert all(j["state"] == "success" for u, j in by_uuid.items()
+               if u != job_uuid(4))
 
 
 def test_reference_data_dir_boots_the_port_node(tmp_path):
@@ -907,3 +1114,108 @@ def test_kill9_mid_flight_restart_resumes(tmp_path, procs):
             {"command": "sleep 999", "cpus": 1, "mem": 64}]}) as r:
         [fresh] = json.load(r)["jobs"]
     assert wait_state(url2, fresh, "running") == "running"
+
+
+TAKEOVER_JOBS = 6
+
+
+def spawn_node(root, config_path):
+    """``python -m <root> --config ...``: the port's on the CPU, the
+    reference's with JAX on the CPU."""
+    env = dict(os.environ, PYTHONPATH=REPO, PYTHONUNBUFFERED="1")
+    argv = [sys.executable, "-m", root, "--config", config_path]
+    if root == "cook_tpu_torch":
+        env.pop("JAX_PLATFORMS", None)
+        argv += ["--device", "cpu"]
+    else:
+        env["JAX_PLATFORMS"] = "cpu"
+    return subprocess.Popen(argv, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, cwd=REPO,
+                            env=env)
+
+
+def takeover(p, tmp_path, procs):
+    """Two nodes of ``p`` as processes over one shared data dir, each
+    under the k8s lease (2 s) on ``p``'s own mock: ``node-a`` leads and
+    ``node-b`` stands by; the leader's fake cluster is drained and
+    ``TAKEOVER_JOBS`` jobs wait; ``node-a`` is SIGKILLed.  Who holds the
+    lease and at which transition, the shared journal's epoch after
+    each takeover, who leads by ``/info``, and the jobs' final states."""
+    mock = mock_of(p)
+    try:
+        home = tmp_path / p.root
+        home.mkdir()
+        shared = home / "shared"
+
+        def config(name):
+            conf = {"host": "127.0.0.1", "port": 0,
+                    "shared_data_dir": str(shared), "admins": ["admin"],
+                    "election": lease_conf(mock, identity=f"node-{name}",
+                                           duration_seconds=2),
+                    "clusters": [{
+                        "factory": f"{p.root}.cluster.fake.factory",
+                        "kwargs": {"name": "node-fake", "n_hosts": 2,
+                                   "default_task_duration_ms": 200,
+                                   "auto_advance": True}}],
+                    "scheduler": {"match_interval_seconds": 0.1,
+                                  "rank_interval_seconds": 0.1}}
+            path = home / f"cook-{name}.json"
+            path.write_text(json.dumps(conf))
+            return str(path)
+
+        def lease():
+            x = lease_of(p, mock)
+            return (x.holder, x.transitions) if x is not None else None
+
+        def epoch():
+            return (shared / "epoch").read_text().strip()
+
+        a = spawn_node(p.root, config("a"))
+        procs.append(a)
+        url_a = wait_serving(a, timeout=120)
+        assert wait_leader(url_a, timeout=60), f"{p.root}: a never led"
+        out = {"a_leads": (lease(), epoch())}
+        b = spawn_node(p.root, config("b"))
+        procs.append(b)
+        url_b = wait_serving(b, timeout=120)
+        with get(f"{url_b}/info") as r:
+            out["b_standby"] = json.load(r)["leader"]
+        with post(f"{url_a}/compute-clusters/node-fake",
+                  {"state": "draining"}) as r:
+            assert r.status in (200, 201)
+        uuids = [job_uuid(500 + k) for k in range(TAKEOVER_JOBS)]
+        with post(f"{url_a}/jobs", {"jobs": [
+                {"uuid": u, "command": "true", "cpus": 1.0, "mem": 64.0}
+                for u in uuids]}) as r:
+            assert r.status in (200, 201)
+        time.sleep(0.5)
+        out["waiting"] = [wait_state(url_a, u, "waiting", timeout=5)
+                          for u in uuids]
+        a.send_signal(signal.SIGKILL)
+        a.wait(timeout=10)
+        assert wait_leader(url_b, timeout=60), f"{p.root}: b never led"
+        out["b_leads"] = (lease(), epoch())
+        out["final"] = [wait_state(url_b, u, "completed", timeout=60)
+                        for u in uuids]
+        b.send_signal(signal.SIGTERM)
+        b.wait(timeout=30)
+        out["b_exit"] = b.returncode
+        out["released"] = lease()
+        return out
+    finally:
+        mock.close()
+
+
+def test_k8s_lease_takeover_after_sigkill_as_the_reference(tmp_path, procs):
+    """Each package's node pair over its own mock: the standby leads once
+    the SIGKILLed leader's lease expires and places every waiting job;
+    who leads, the lease transitions, the journal epochs and the final
+    job states are equal for the two packages."""
+    out = [takeover(p, tmp_path, procs) for p in SIDES]
+    assert out[1] == out[0]
+    assert out[0]["a_leads"] == (("node-a", 1), "1")
+    assert out[0]["b_standby"] is False
+    assert out[0]["waiting"] == ["waiting"] * TAKEOVER_JOBS
+    assert out[0]["b_leads"] == (("node-b", 2), "2")
+    assert out[0]["final"] == ["completed"] * TAKEOVER_JOBS
+    assert out[0]["released"] == ("", 2)

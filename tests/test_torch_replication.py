@@ -21,8 +21,6 @@ import types
 
 import pytest
 
-from cook_tpu.cluster.k8s.fake_api import FakeKubernetesApi
-
 
 def pkg(root):
     ns = types.SimpleNamespace(root=root)
@@ -33,6 +31,7 @@ def pkg(root):
                       ("integrity", "state.integrity"),
                       ("election", "sched.election"),
                       ("crashpoint", "sim.crashpoint"),
+                      ("k8s_fake", "cluster.k8s.fake_api"),
                       ("faults", "utils.faults")):
         setattr(ns, name, importlib.import_module(f"{root}.{mod}"))
     return ns
@@ -393,12 +392,12 @@ def test_file_elector_sidecars_round_trip(tmp_path):
 
 
 def test_lease_electors_over_the_reference_fake_api():
-    """The port's and the reference's lease electors take turns on one
+    """Each package's lease electors take turns on its own package's
     fake Kubernetes API under one pinned clock, and each step's outcome
     (won, epoch, leader url, candidates) is equal for the two packages
     run separately."""
     def script(m):
-        api = FakeKubernetesApi()
+        api = m.k8s_fake.FakeKubernetesApi()
         now = [1000.0]
         events = []
         mk = lambda ident: m.election.LeaseLeaderElector(  # noqa: E731
