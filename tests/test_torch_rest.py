@@ -22,6 +22,7 @@ import http.client
 import importlib
 import json
 import re
+import time
 import types
 import urllib.parse
 
@@ -159,6 +160,19 @@ class Stack:
         if "json" in ctype and data:
             return status, self.norm(json.loads(data))
         return status, self.norm(data.decode(errors="replace"))
+
+    def settle(self, timeout_s=10.0):
+        """Wait until this package's request log holds no request in
+        flight.  A handler writes its response before it records the
+        request (``RequestObserver.end`` runs after ``_respond``), so the
+        client can read a reply while the server's thread has not yet
+        counted it; a snapshot taken then holds one request more in
+        flight and one fewer in ``recent``, a host-scheduling reading."""
+        log = self.p.instrument.request_log
+        deadline = time.monotonic() + timeout_s
+        while log.snapshot(0)["totals"]["inflight"] > 0:
+            assert time.monotonic() < deadline, "a request stayed in flight"
+            time.sleep(0.002)
 
     def client(self, user="alice", **kw):
         c = self.p.client.JobClient(self.server.url, user=user, **kw)
@@ -489,6 +503,7 @@ def _http_obs(s, log):
     log.append(s.call("POST", "/jobs", {"jobs": [spec(0)]}))
     log.append(s.call("GET", "/jobs", params={"user": "alice",
                                               "token": "sekrit"}))
+    s.settle()
     snap = s.call("GET", "/debug/requests", params={"limit": 50})
     # The slow ring holds the requests whose host-clock duration reached
     # the threshold, so which requests it holds is a host-clock reading
@@ -514,6 +529,7 @@ def _http_obs(s, log):
     plain = s.raw("GET", f"/jobs/{job_uuid(0)}",
                   headers={"Accept-Encoding": "gzip;q=0"})
     log.append((plain[0], plain[1].get("Content-Encoding"), plain[2]))
+    s.settle()
     status, health = s.call("GET", "/debug/health")
     # Each package's process-wide planes hold what every earlier test on
     # the same worker left there, so they are left out: the lock monitor
