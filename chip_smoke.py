@@ -357,6 +357,32 @@ cycle, and the native pack (``native/pack.cpp``) on phase S's arrays.
      pods made and reaped, lease renewals; then one cycle (depth 0)
      over 8 fresh nodes, the pods' (job, node) pairs equal on the card
      and with ``device="cpu"``;
+  6r. phase H: the partitioned write plane: one ``CookDaemon`` in
+     process on the card (phase N's scheduler section) with
+     ``"partitions": {"count": 4, "pools": {"prod": 0, "research": 1,
+     "batch": 2}, "summary_max_age_seconds": 1.0}`` (docs/DEPLOY.md's
+     deployment; ``default`` hashes to p3) on a journaled data dir, so
+     ``p0`` ... ``p3`` and the entity pack's dense-mask K1-K6 cycle; one
+     fake cluster a pool, 250 hosts of 64 cpus and 65,536 MB each; 4
+     ``JobClient`` writers submit 1,600 jobs of 1 cpu and 256 MB in
+     batches of 20, writer i to pool i only.  Every job must land in its
+     pool's partition, each writer's token carry its partition's entry,
+     every job be placed and completed, no host over capacity and no job
+     live twice after any step; "capped" with a count quota of 8 on
+     ``"*"`` submits 6 jobs to prod and 6 to research one by one: 8
+     admitted, the rest and the next to each pool refused with 422 once
+     the summaries must sweep anew, at most 8 live; ``/debug/replication``
+     has four partition blocks at each partition's journal head, the
+     monitor one head series a partition; no cycle degraded; every
+     launch replayed against its plain version (path
+     ``partitioned_node``); after ``shutdown()`` each journal scans
+     clean, the reopened plane holds every job in its state and another
+     map is refused; drain seconds, ``step_cycle`` p50/p99 with the
+     flight records' pack, stage and apply, each partition's journal
+     bytes and group commits, the summary exchange's ``stats()``; then
+     one cycle (depth 0) over four pools of 8 hosts and 200 jobs, the
+     same (job uuid, hostname) pairs on the card and with
+     ``device="cpu"``;
   6n. phase T: the production scheduler section through
      ``daemon.build_scheduler_config``, with the fake cluster in place
      of its remote backend (phase G drives that backend) and its
@@ -415,7 +441,7 @@ cycle, and the native pack (``native/pack.cpp``) on phase S's arrays.
      ``admission_split``, phase X's degraded cycles as
      ``scheduler_degraded``, phase Y1 as ``simulator``, phase Z2 as
      ``rest``, phase N as ``daemon``, phase G as ``remote_node``,
-     phase L as ``k8s_node``,
+     phase L as ``k8s_node``, phase H as ``partitioned_node``,
      phase T's warmup as ``warmup`` and its replays as ``optimizer``,
      phase U1 as ``dense_cycle``)
      and last ``{"ok": true, "device": {...}}``.
@@ -426,7 +452,7 @@ needs, the kernels into ./build/cuda (the ptxas report in
 build/cuda/ptxas.log; phase T builds them once more into
 ./build/cuda-cache) and the replication carrier, the native pack, the
 transport library and ``cook_agentd`` into ./build/native.  The CPU
-sides of phases Q, X, T, U1, L and E's card = CPU comparisons run in two
+sides of phases Q, X, T, U1, L, H and E's card = CPU comparisons run in two
 spawned worker processes (no CUDA in them) beside the card phases, and
 are shut down at the end.  Any failure raises.
 """
@@ -435,6 +461,7 @@ from __future__ import annotations
 
 import cProfile
 import json
+import os
 import pstats
 import re
 import statistics
@@ -4165,18 +4192,20 @@ def wait_for(pred, timeout: float, what: str, every: float = 0.05):
         time.sleep(every)
 
 
-def submit_batches(url, per_writer: list) -> dict:
+def submit_batches(url, per_writer: list, clients=None) -> dict:
     """One ``JobClient`` writer a thread for each list of ``per_writer``,
     each submitting its (user, specs) batches in turn; the acknowledged
-    uuids, the last acknowledgement, submissions a second and the
-    requests' p50 and p99."""
+    uuids (writer by writer), the last acknowledgement, submissions a
+    second and the requests' p50 and p99.  ``clients``, a list, gets
+    each writer's clients (user -> ``JobClient``)."""
     from cook_tpu_torch.client import JobClient
     last = [0.0] * len(per_writer)
+    mine = [{} for _ in per_writer]
 
     def writer(i, lats):
-        clients, acked = {}, []
+        acked = []
         for user, specs in per_writer[i]:
-            client = clients.setdefault(user, JobClient(url, user=user))
+            client = mine[i].setdefault(user, JobClient(url, user=user))
             t0 = time.perf_counter()
             acked += client.submit(specs)
             last[i] = time.perf_counter()
@@ -4189,6 +4218,8 @@ def submit_batches(url, per_writer: list) -> dict:
     if len(acked) != want:
         raise AssertionError(f"{len(acked)} of {want} submissions "
                              f"acknowledged")
+    if clients is not None:
+        clients[:] = mine
     return {"acked": acked, "last_ack": max(last),
             "jobs_per_s": len(acked) / wall,
             "request_p50_ms": float(np.percentile(lats, 50)),
@@ -5342,6 +5373,397 @@ def phase_l(device="cuda", n_nodes=L_NODES, kinds=L_KINDS, users=L_USERS,
                     "writers": writers, "batch": batch,
                     "kinds": {k: len(v) for k, v in specs.items()},
                     "kubelet_tick_s": L_TICK_S, "pod_run_s": L_RUN_S}
+    out["wall_s"] = time.perf_counter() - t0
+    print(json.dumps(out))
+    return counts
+
+
+# ------------------------------------ phase H: the partitioned write plane
+# One CookDaemon in process on the card (phase N's node: Config() but for
+# match_interval_seconds 1.0, so the fused cycle at depth 2) whose store
+# is four partition journals, as docs/DEPLOY.md's partitioned write plane
+# documents: prod, research and batch declared on p0-p2 and default
+# hashed (crc32 mod 4) to p3, summaries at most 1 s stale.  The node pins
+# columnar_index and resident_pack off, so its leader runs the entity
+# pack and the dense-mask K1-K6 cycle.  One fake cluster a pool, 250
+# hosts of 64 cpus and 65,536 MB each (1,000 hosts, as phase N); tasks of
+# 3 s, auto-advanced.  4 JobClient writers, writer i to pool i only, so
+# each writer's batches go to one partition's journal (bench.py's
+# partitioned write bench); then the user "capped" meets a count quota
+# of 8 on the reserved pool "*" across prod and research.
+H_POOLS = ("prod", "research", "batch", "default")
+H_PARTITIONS = {"count": 4, "pools": {"prod": 0, "research": 1, "batch": 2},
+                "summary_max_age_seconds": 1.0}
+H_HOSTS, H_JOBS, H_USERS, H_WRITERS, H_BATCH = 250, 1_600, 200, 4, 20
+H_CAP, H_CAP_EACH = 8, 6
+H_CAP_TASK_MS = 120_000   # the capped user's tasks run until killed
+H_TIMEOUT_S = 180.0
+H_SMALL = {"hosts": 8, "jobs": 200, "users": 10}  # card against CPU
+
+
+def h_clusters(hosts: int) -> list:
+    """One fake cluster a pool: ``hosts`` hosts of 64 cpus and 65,536 MB,
+    tasks of 3 s on the wall clock."""
+    return [{"factory": "cook_tpu_torch.cluster.fake.factory",
+             "kwargs": {"name": f"h-{pool}", "n_hosts": hosts, "pool": pool,
+                        "cpus": 64.0, "mem": 65_536.0,
+                        "default_task_duration_ms": 3_000,
+                        "auto_advance": True}}
+            for pool in H_POOLS]
+
+
+def h_specs(n_jobs, n_users, writers, batch) -> list:
+    """Writer i's (user, specs) batches, every job in pool ``H_POOLS[i]``:
+    1 cpu and 256 MB, exit 0; each batch from the next user."""
+    per_writer = n_jobs // (writers * batch)
+    return [[(f"user{(i * per_writer + b) % n_users:03d}",
+              [{"command": "true", "cpus": 1.0, "mem": 256.0,
+                "pool": H_POOLS[i]} for _ in range(batch)])
+             for b in range(per_writer)] for i in range(writers)]
+
+
+def h_capped(node, url: str) -> dict:
+    """The cross-partition count quota: "capped" gets a count quota of
+    ``H_CAP`` on the reserved pool "*" (through REST, as an admin), then
+    submits ``H_CAP_EACH`` single jobs to prod and as many to research,
+    whose tasks run until killed.  Whatever the summaries' age, the
+    first ``H_CAP`` are admitted (a summary can only lag behind the
+    user's own submissions); once the exchange must sweep anew (older
+    than its bound), the rest and the next submission to each pool are
+    refused with 422, and no more than ``H_CAP`` of the user's jobs are
+    live across the partitions.  Then the user kills them."""
+    from cook_tpu_torch.client import JobClient, JobClientError
+    from cook_tpu_torch.state import JobState
+    ex = node.store.summaries
+    JobClient(url, user="admin").set_quota("capped",
+                                           {"*": {"count": H_CAP}})
+    client = JobClient(url, user="capped")
+    client.throttle_retries = 0
+    env = {"COOK_FAKE_DURATION_MS": str(H_CAP_TASK_MS)}
+    order = ["prod"] * H_CAP_EACH + ["research"] * H_CAP_EACH
+    accepted, answers, t0 = [], [], time.perf_counter()
+    for k, pool in enumerate(order + ["prod", "research"]):
+        if k == H_CAP:
+            # the next check sweeps every partition's summary anew
+            wait_for(lambda: ex.staleness_s() > ex.max_age_s, 10.0,
+                     "phase H: the summary exchange's window")
+        try:
+            accepted += client.submit([{"command": "true", "cpus": 1.0,
+                                        "mem": 256.0, "env": env}],
+                                      pool=pool)
+            answers.append([pool, 200])
+        except JobClientError as e:
+            if e.status != 422 or "global quota" not in e.message:
+                raise
+            answers.append([pool, 422])
+    owners = sorted({node.store._partition_of_job(u) for u in accepted})
+
+    def live():
+        return sum(1 for j in node.store.jobs_where(
+            lambda j: j.user == "capped", clone=False)
+            if j.state is not JobState.COMPLETED)
+
+    n_live = live()
+    want = [[p, 200] for p in order[:H_CAP]] \
+        + [[p, 422] for p in order[H_CAP:] + ["prod", "research"]]
+    if answers != want or n_live > H_CAP or owners != [0, 1]:
+        raise AssertionError(f"phase H: capped answers {answers}, "
+                             f"{n_live} live, partitions {owners}")
+    client.kill(accepted)
+    wait_for(lambda: live() == 0, 60.0, "phase H: the capped jobs killed")
+    return {"quota": H_CAP, "answers": [a[1] for a in answers],
+            "admitted": len(accepted), "live_at_most": n_live,
+            "partitions": owners, "refusal_staleness_bound_s": ex.max_age_s,
+            "wall_s": time.perf_counter() - t0}
+
+
+def h_small(device: str, hosts=H_SMALL["hosts"], jobs=H_SMALL["jobs"],
+            users=H_SMALL["users"]) -> list:
+    """One ``step_cycle`` (depth 0) of the port's ``Scheduler`` on
+    ``device`` over a four-partition in-memory store (the phase's map)
+    and one fake cluster of ``hosts`` hosts of 8 cpus and 8,192 MB a
+    pool, every job submitted before it; the launched (job uuid,
+    hostname) pairs."""
+    from cook_tpu_torch.cluster import FakeCluster, FakeHost
+    from cook_tpu_torch.config import Config
+    from cook_tpu_torch.sched import Scheduler
+    from cook_tpu_torch.state import (Job, PartitionedStore, PartitionMap,
+                                      Pool, Resources, Store)
+    pmap = PartitionMap(H_PARTITIONS["count"], H_PARTITIONS["pools"])
+    store = PartitionedStore([Store(partition=i) for i in range(pmap.count)],
+                             pmap)
+    store.clock = lambda: 1_700_000_000_000
+    for pool in H_POOLS:
+        store.put_pool(Pool(name=pool))
+    store.create_jobs([Job(
+        uuid=f"00000000-0000-4000-8000-{k:012d}",
+        user=f"user{k % users:02d}", command="true",
+        pool=H_POOLS[k % len(H_POOLS)], priority=1 + (k * 37) % 100,
+        resources=Resources(cpus=1.0 + k % 3, mem=256.0 * (1 + k % 4)))
+        for k in range(jobs)])
+    clusters = [FakeCluster(f"h-{pool}", [
+        FakeHost(f"h-{pool}-{i}", pool=pool,
+                 capacity=Resources(cpus=8.0, mem=8192.0))
+        for i in range(hosts)]) for pool in H_POOLS]
+    cfg = Config()
+    cfg.pipeline.depth = 0
+    cfg.columnar_index = cfg.resident_pack = False
+    sched = Scheduler(store, cfg, clusters, device=device)
+    try:
+        res = sched.step_cycle()
+        return sorted((store.instance(t).job_uuid, store.instance(t).hostname)
+                      for r in res.values() for t in r.launched_task_ids)
+    finally:
+        sched.shutdown()
+
+
+def h_scan(data: Path, i: int):
+    """Partition ``i``'s journal, which must scan clean to its end."""
+    from cook_tpu_torch.state.integrity import scan_journal
+    j = scan_journal(str(data / f"p{i}" / "journal.jsonl"))
+    if j.corrupt or j.good != j.size:
+        raise AssertionError(f"phase H: p{i}'s journal unsound: {j.reason}")
+    return j
+
+
+def h_detail(seq0: int) -> dict:
+    """p50 and p99 of each ``detail_ms`` entry (pack, stage, apply) over
+    the fused flight records after ``seq0``."""
+    from cook_tpu_torch.utils.flight import recorder
+    recs = [r for r in recorder.recent(10_000)
+            if r["seq"] > seq0 and r["kind"] == "fused"]
+    out = {"records": len(recs)}
+    for k in ("pack", "stage", "apply"):
+        xs = [r["detail_ms"][k] for r in recs if k in r["detail_ms"]]
+        if xs:
+            out[f"{k}_ms_p50"] = float(np.percentile(xs, 50))
+            out[f"{k}_ms_p99"] = float(np.percentile(xs, 99))
+    return out
+
+
+def phase_h(device="cuda", n_jobs=H_JOBS, n_users=H_USERS, hosts=H_HOSTS,
+            writers=H_WRITERS, batch=H_BATCH) -> dict:
+    """The partitioned node: ``CookDaemon.start()`` opens ``p0`` ... ``p3``
+    and leads on ``device``; 4 writers submit, each to one pool; the
+    daemon's own loops place and complete every job; every launch of its
+    cycles is recorded and replayed against its plain version after its
+    step (path ``partitioned_node``); no host over capacity and no job
+    live twice after every step; every job in its pool's partition, each
+    writer's token with an entry for its partition; ``h_capped``;
+    ``/debug/replication``'s four partition blocks at each partition's
+    journal head, the monitor's head gauge one series a partition; no
+    cycle degraded; after ``shutdown()`` each journal scans clean, the
+    reopened plane holds every acknowledged job in its state, and
+    another map is refused; then ``H_SMALL`` on the card and the CPU."""
+    import shutil
+    import tempfile
+    import threading
+
+    from cook_tpu_torch.client import JobClient
+    from cook_tpu_torch.daemon import CookDaemon
+    from cook_tpu_torch.state import (JobState, PartitionedStore,
+                                      PartitionMap, PartitionRoutingError,
+                                      Pool, parse_token_vector)
+    from cook_tpu_torch.utils.metrics import registry
+    card = device == "cuda"
+    out = {"phase": "H"}
+    tmp = Path(tempfile.mkdtemp(prefix="cook_part"))
+    data = tmp / "data-h"
+    t0 = time.perf_counter()
+    pmap = PartitionMap(H_PARTITIONS["count"], H_PARTITIONS["pools"])
+    owner = [pmap.partition_of(pool) for pool in H_POOLS]
+    if owner != [0, 1, 2, 3]:
+        raise AssertionError(f"phase H: the pools route to {owner}")
+    specs = h_specs(n_jobs, n_users, writers, batch)
+    conf = node_conf(tmp, "h", device, 0)
+    conf["clusters"] = h_clusters(hosts)
+    conf["scheduler"]["partitions"] = dict(H_PARTITIONS)
+    node = CookDaemon(conf)
+    running, rec = True, None
+
+    def leader():
+        if node.exit_code != 0:
+            raise AssertionError("phase H: the takeover failed")
+        return node.scheduler
+
+    try:
+        node.start()
+        sched = wait_for(leader, 60.0, "phase H: leadership")
+        out["lead_s"] = time.perf_counter() - t0
+        store = node.store
+        if sched.device.type != torch.device(device).type:
+            raise AssertionError(f"phase H: the leader runs on "
+                                 f"{sched.device}")
+        if not isinstance(store, PartitionedStore) \
+                or node.sched_config.columnar_index \
+                or node.sched_config.resident_pack:
+            raise AssertionError("phase H: not a partitioned node on the "
+                                 "entity path")
+        dirs = sorted(os.listdir(data))
+        if dirs != ["p0", "p1", "p2", "p3", "partition_map.json"]:
+            raise AssertionError(f"phase H: the data dir holds {dirs}")
+        for pool in H_POOLS:
+            store.put_pool(Pool(name=pool))
+        # the loops wait one interval before their first tick: the
+        # recorder starts (and zeroes the counts) before any launch
+        rec = ReplayingRecorder("phase H") if card else None
+        guard = threading.Lock()
+        faults = []
+        seq0, counter0 = flight_seq(), fallbacks("fused.pool_cycle")
+        rebalances = guard_rebalancer(sched, guard)
+
+        def no_fault():
+            if faults:
+                raise AssertionError(f"phase H: {len(faults)} step_cycle "
+                                     f"calls failed") from faults[0]
+
+        if rec is not None:
+            rec.start()
+        steps, calls = checked_steps(
+            sched, rec, guard, lambda label: check_live(node, label),
+            "phase H", faults)
+        clients = []
+        sub = submit_batches(node.node_url, specs, clients)
+        acked, last_ack = sub.pop("acked"), sub.pop("last_ack")
+        out["h1"] = sub
+        # writer i submitted to H_POOLS[i] only, its uuids in turn
+        each = len(acked) // writers
+        astray = [(u, k // each) for k, u in enumerate(acked)
+                  if store._partition_of_job(u) != owner[k // each]]
+        untokened = [(i, c.last_commit_offset)
+                     for i, mine in enumerate(clients) for c in mine.values()
+                     if owner[i] not in {e[0] for e in parse_token_vector(
+                         c.last_commit_offset)}]
+        if astray or untokened:
+            raise AssertionError(f"phase H: jobs outside their pool's "
+                                 f"partition {astray[:3]}, tokens without "
+                                 f"the writer's partition {untokened[:3]}")
+
+        def count(state):
+            no_fault()
+            return len(store.jobs_where(lambda j: j.state is state,
+                                        clone=False))
+
+        wait_for(lambda: count(JobState.WAITING) == 0, H_TIMEOUT_S,
+                 "phase H: every job placed", every=0.1)
+        placed_s = time.perf_counter() - last_ack
+        wait_for(lambda: count(JobState.COMPLETED) == len(acked),
+                 H_TIMEOUT_S, "phase H: every job completed", every=0.1)
+        completed_s = time.perf_counter() - last_ack
+        out["h3"] = h_capped(node, node.node_url)
+        states = {j.uuid: j.state.value
+                  for j in store.jobs_where(lambda j: True, clone=False)}
+        with guard:
+            admin = JobClient(node.node_url, user="admin")
+            for _ in range(20):
+                heads = [s.commit_offset() for s in store.partitions]
+                repl = admin.debug_replication()
+                if heads == [s.commit_offset() for s in store.partitions]:
+                    break
+            blocks = [(b["partition"], b["journal_bytes"])
+                      for b in repl["partitions"]]
+            sched.monitor.sweep()
+            # an earlier node of this process left its one-store series,
+            # which carries no partition label
+            gauge = {dict(lbl)["partition"]: v for lbl, v
+                     in registry.series("cook_journal_head_bytes")
+                     if "partition" in dict(lbl)}
+            exchange = dict(store.summaries.stats())
+            scans = [h_scan(data, i) for i in range(pmap.count)]
+            steps_ms = [s[2] * 1e3 for s in steps]
+            out["h2"] = {
+                "placed_after_last_ack_s": placed_s,
+                "completed_after_last_ack_s": completed_s,
+                "step_cycles": len(steps),
+                "dispatching_cycles": sum(1 for s in steps if s[1]),
+                "launched": sum(s[1] for s in steps),
+                "step_ms_p50": float(np.percentile(steps_ms, 50)),
+                "step_ms_p99": float(np.percentile(steps_ms, 99)),
+                "flight_detail": h_detail(seq0),
+                "steps": [[round(t - last_ack, 3), n, s * 1e3, r * 1e3]
+                          for t, n, s, r in steps],
+                "replay_and_check_s": sum(s[3] for s in steps),
+                "partitions": [{
+                    "partition": f"p{i}", "pool": H_POOLS[i],
+                    "journal_bytes": heads[i],
+                    "journal_commits": len(scans[i].records),
+                    "jobs": sum(1 for u in states
+                                if store._partition_of_job(u) == i)}
+                    for i in range(pmap.count)],
+                "summary_exchange": exchange}
+        want = [(f"p{i}", h) for i, h in enumerate(heads)]
+        if blocks != want or sorted(gauge) != [f"p{i}" for i in range(4)] \
+                or [gauge[f"p{i}"] for i in range(4)] != heads:
+            raise AssertionError(f"phase H: /debug/replication {blocks} "
+                                 f"and the head gauge {gauge}, heads "
+                                 f"{heads}")
+        node.shutdown()
+        running = False
+        counts = rec.stop() if rec is not None else {}
+        no_fault()
+        if len(steps) != calls[0]:
+            raise AssertionError(f"phase H: {calls[0]} step_cycle calls, "
+                                 f"{len(steps)} checked")
+        degraded = degraded_since(seq0, counter0)
+        out["h2"]["degraded_cycles"] = degraded
+        out["h2"]["rebalancer_pool_passes"] = len(rebalances)
+        if degraded["fallback_counter"] or degraded["flight_notes"]:
+            raise AssertionError(f"phase H: cycles degraded to the split "
+                                 f"path: {degraded}")
+        if card:
+            missing = [k for k in SOURCES if counts.get(k, 0) <= 0]
+            if missing:
+                raise AssertionError(f"phase H: kernels not launched: "
+                                     f"{missing}")
+            skipped = rec.unreplayed(counts)
+            if skipped:
+                raise AssertionError(f"phase H: launches not replayed "
+                                     f"(path, replays): {skipped}")
+            out["h2"]["launches_per_kernel"] = counts
+            out["h2"]["replayed_equal_to_plain"] = rec.replayed
+        t1 = time.perf_counter()
+        journals = [len(h_scan(data, i).records) for i in range(pmap.count)]
+        reopened = PartitionedStore.open(str(data), pmap)
+        try:
+            lost = [u for u in states if reopened.job(u) is None
+                    or reopened.job(u).state.value != states[u]]
+        finally:
+            reopened.close()
+        if lost:
+            raise AssertionError(f"phase H: {len(lost)} acknowledged jobs "
+                                 f"not read back: {lost[:3]}")
+        try:
+            PartitionedStore.open(str(data), PartitionMap(
+                4, {**H_PARTITIONS["pools"], "batch": 0})).close()
+            raise AssertionError("phase H: another map reopened the plane")
+        except PartitionRoutingError:
+            pass
+        out["h4"] = {"journal_records_after_checkpoint": journals,
+                     "read_back": len(states),
+                     "states": sorted(set(states.values())),
+                     "other_map_refused": True,
+                     "reopen_s": time.perf_counter() - t1}
+    finally:
+        if running:
+            node.shutdown()
+        if rec is not None and rec._ctx is not None:
+            rec._ctx.__exit__(None, None, None)
+        shutil.rmtree(tmp, ignore_errors=True)
+    t1 = time.perf_counter()
+    pairs = [h_small(device), cpu_side("h_small")]
+    if not pairs[0] or pairs[0] != pairs[1]:
+        raise AssertionError(f"phase H small: {device} placed "
+                             f"{len(pairs[0])} jobs and cpu "
+                             f"{len(pairs[1])}, not the same pairs")
+    out["h5"] = {**H_SMALL, "pools": len(H_POOLS), "placed": len(pairs[0]),
+                 "devices": [device, "cpu"], "equal": True,
+                 "wall_s": time.perf_counter() - t1}
+    out["world"] = {"partitions": H_PARTITIONS, "pools": list(H_POOLS),
+                    "hosts_per_pool": hosts, "cpus": 64.0, "mem": 65_536.0,
+                    "jobs": n_jobs, "users": n_users,
+                    "users_submitting": len({u for w in specs
+                                             for u, _ in w}),
+                    "writers": writers, "batch": batch, "task_s": 3.0}
     out["wall_s"] = time.perf_counter() - t0
     print(json.dumps(out))
     return counts
@@ -6944,7 +7366,8 @@ def copy_args(args) -> tuple:
 # side's result from there, or computes it in process when nothing was
 # started (a phase run alone).
 CPU_SIDES = (("e_split",), ("x_leg", 0), ("x_leg", 2), ("t_small",),
-             ("q_small", 0), ("q_small", 2), ("u_small",), ("l_small",))
+             ("q_small", 0), ("q_small", 2), ("u_small",), ("l_small",),
+             ("h_small",))
 CPU_SIDE_WORKERS, CPU_SIDE_THREADS = 2, 2
 _SIDES = {"pool": None, "futures": {}}
 
@@ -6963,6 +7386,8 @@ def cpu_side_run(key: tuple):
         return split_on_cpu()
     if name == "l_small":
         return l_small("cpu")
+    if name == "h_small":
+        return h_small("cpu")
     raise KeyError(key)
 
 
@@ -7183,6 +7608,8 @@ def run() -> int:
     mark("G")
     k8s_counts = phase_l()
     mark("L")
+    partitioned_counts = phase_h()
+    mark("H")
     prod_counts = phase_t()
     mark("T")
     dense_counts = phase_u1()
@@ -7224,6 +7651,7 @@ def run() -> int:
                 "daemon": node_counts.get(k, 0),
                 "remote_node": remote_counts.get(k, 0),
                 "k8s_node": k8s_counts.get(k, 0),
+                "partitioned_node": partitioned_counts.get(k, 0),
                 "warmup": prod_counts["warmup"].get(k, 0),
                 "optimizer": prod_counts["optimizer"].get(k, 0),
                 "dense_cycle": dense_counts.get(k, 0)},

@@ -5,11 +5,14 @@ boot before the listener binds on every node that may lead, so a node
 without its card exits nonzero and never serves; the elected leader's
 ``Scheduler`` runs on it.  Each branch that needs a module still to be
 ported is refused at boot with the ROADMAP.md item that holds it: a
-``"federation"`` section (queue 1, item 11d) and ``partitions.count > 1``
-(11c).  A cluster or optimizer factory in the JAX package
-(``cook_tpu.`` ...) is refused too: importing it would load JAX into the
-node.  The clusters a node builds are the port's fake backend, its
-remote backend (``cook_tpu_torch.cluster.remote.factory``:
+``"federation"`` section (queue 1, item 11d).  ``partitions.count > 1``
+opens the partitioned write plane (``state/partition``: one journal a
+partition under ``<data_dir>/p<i>/``) and pins the scheduler to the
+entity path, as the reference's node does.  A cluster or optimizer
+factory in the JAX package (``cook_tpu.`` ...) is refused too: importing
+it would load JAX into the node.  The clusters a node builds are the
+port's fake backend, its remote backend
+(``cook_tpu_torch.cluster.remote.factory``:
 ``cook_agentd`` agents over the repo-root ``native/transport.cpp``) and
 its Kubernetes backend (``cook_tpu_torch.cluster.k8s.compute_cluster.
 factory``); ``election.mode = "k8s-lease"`` elects over a Lease object
@@ -69,11 +72,13 @@ from typing import Dict, List, Optional
 
 from . import resolve_device
 from .config import Config
+from .parallel.mesh import validate_shard_alignment
 from .policy import PluginRegistry, QueueLimits, RateLimits
 from .rest.api import (ApiError, ApiServer, CookApi,
                        check_container_wire_bytes, check_env_wire_bytes)
 from .sched import Scheduler
 from .sched.election import FileLeaderElector
+from .state.partition import PartitionedStore, PartitionMap
 from .state.store import Store
 
 # Config fields settable straight from the "scheduler" config section.
@@ -424,17 +429,60 @@ class CookDaemon:
                              "local journal to replicate)")
         sched_spec = dict(conf.get("scheduler", {}))
         self.sched_config = build_scheduler_config(sched_spec)
-        if self.sched_config.partitions.count > 1:
-            raise NotImplementedError(
-                "partitions.count > 1 (the partitioned write plane, "
-                "state/partition.PartitionedStore) is not ported: see "
-                "ROADMAP.md, queue 1, item 11c")
+        # partitioned write plane (docs/DEPLOY.md): P > 1 shards the
+        # store + journal by pool group.  Config is validated at boot;
+        # P = 1 keeps the classic single Store (compatibility mode).
+        pc = self.sched_config.partitions
+        self.partitioned = pc.count > 1
+        if self.partitioned:
+            if self.shared_data or self.replication:
+                # each partition carries its OWN replication topology;
+                # wiring P topologies through one daemon's follower
+                # loop is the multi-host half of this plane and ships
+                # with the federation work — refusing beats silently
+                # mirroring one journal of P
+                raise ValueError(
+                    "partitions.count > 1 is not yet supported together "
+                    "with shared_data_dir/replication in one daemon; "
+                    "run the partitioned plane standalone (per-partition "
+                    "replication is exercised by sim --chaos-failover "
+                    "--partitions)")
+            if self.sched_config.columnar_index \
+                    or self.sched_config.resident_pack:
+                # the columnar projection is per-store; the partitioned
+                # facade serves the entity path
+                print("cook_tpu: partitions>1 pins columnar_index/"
+                      "resident_pack off (entity path)", flush=True)
+                self.sched_config.columnar_index = False
+                self.sched_config.resident_pack = False
+            pmap = PartitionMap(count=pc.count, pools=pc.pools)
+            if pc.shards or pc.shard_pools:
+                # the PartitionMap pool groups and the controller
+                # shards' pool layout must be the SAME partition — a
+                # mismatched declaration silently double-owns or orphans
+                # a pool's resident buffers, so it fails the boot here
+                # with the offending pool named (ShardAlignmentError is
+                # a ValueError: same config-error surface as the
+                # sections around it)
+                validate_shard_alignment(pmap, pc.shards or 1,
+                                         pc.shard_pools)
         if not self.api_only:
             # a node that may lead runs its Scheduler on this device: a
             # missing card fails the boot here, before the listener binds
             # and before any state is opened, never a fall back to the CPU
             self.device = resolve_device(self.device)
-        if not self.data_dir:
+        if self.partitioned:
+            if not self.data_dir:
+                self.store = PartitionedStore(
+                    [Store(partition=i) for i in range(pc.count)], pmap,
+                    summary_max_age_s=pc.summary_max_age_seconds)
+            else:
+                # per-partition lease claims: each shard dir fences at
+                # its own epoch (the N-leases-over-P-partitions layout)
+                self.store = PartitionedStore.open(
+                    self.data_dir, pmap,
+                    summary_max_age_s=pc.summary_max_age_seconds)
+        elif not self.data_dir:
             self.store = Store()
         elif self.shared_data or self.replication:
             # follower view until elected (replication: the native

@@ -1,8 +1,8 @@
 """The port's copy of ``cook_tpu/state``: the entity schema, the
-transactional ``Store`` and its columnar index, and the HA plane the
-node uses (``replication``, ``read_replica``, ``repair``).  The
-partitioned write plane (``partition.PartitionedStore``) is not copied
-(ROADMAP queue 1, item 11c)."""
+transactional ``Store`` and its columnar index, the partitioned write
+plane (``partition.PartitionedStore`` over one ``Store`` a partition),
+and the HA plane the node uses (``replication``, ``read_replica``,
+``repair``)."""
 
 from .schema import (  # noqa: F401
     Application,
@@ -33,5 +33,9 @@ from .schema import (  # noqa: F401
 )
 from .store import (AbortTransaction, ReplicationIndeterminate,  # noqa: F401
                     ReplicationTimeout, StaleEpochError, Store, TxEvent)
+from .partition import (GLOBAL_POOL, PartitionedReadView,  # noqa: F401
+                        PartitionedStore, PartitionMap,
+                        PartitionRoutingError, UserSummaryExchange,
+                        parse_token_vector, substores)
 from .index import ColumnarIndex  # noqa: F401
 from . import machines  # noqa: F401

@@ -9,9 +9,13 @@ cook_tpu_torch``) against the JAX package's on the CPU.
   pipeline's warmup and compilation cache included) builds the
   reference's ``Config``, the optimizer's factories named in the port;
   a node boots with each of those planes, and with the whole section;
-- the port's own refusals (a federation section, ``partitions.count >
-  1``, a cluster or optimizer factory in the JAX package) and the
-  default device without a card each fail the boot before a port binds;
+- the port's own refusals (a federation section, a cluster or optimizer
+  factory in the JAX package) and the default device without a card
+  each fail the boot before a port binds;
+- a node with ``partitions.count = 2`` and one fake cluster a pool
+  routes, pins the entity path and places jobs as the reference node
+  does; with replication, or with ``shard_pools`` that disagree with
+  its partition map, it is refused with the reference's error;
 - a node under ``election.mode = "k8s-lease"`` against the port's
   ``MockApiServer`` leads and holds the lease, and refuses replication
   with the reference's message; the production example boots with its
@@ -233,8 +237,6 @@ def _sched(**section):
 
 REFUSALS = {
     "federation": (lambda conf: conf.update(federation={"cells": []}),
-                   NotImplementedError, "item 11"),
-    "partitions": (_sched(partitions={"count": 2}),
                    NotImplementedError, "item 11"),
     "jax_optimizer_factory": (
         _sched(optimizer={"optimizer_create_fn":
@@ -490,6 +492,113 @@ def drive(p, conf, steps=3):
         return launched, bodies(s, uuids), uuids
     finally:
         d.shutdown()
+
+
+def partitioned_conf(tmp_path, root, **partitions):
+    """``node_conf`` with a partitions section and one fake cluster a pool:
+    prod and research declared on p0 and p1, default hashed (to p1)."""
+    conf = node_conf(tmp_path / root, root)
+    conf["clusters"] = [{"factory": f"{root}.cluster.fake.factory",
+                         "kwargs": {"name": f"part-{pool}", "n_hosts": 3,
+                                    "pool": pool}}
+                        for pool in PARTITION_POOLS]
+    conf["scheduler"]["partitions"] = {
+        "count": 2, "pools": {"prod": 0, "research": 1}, **partitions}
+    return conf
+
+
+PARTITION_POOLS = ("prod", "research", "default")
+
+
+def drive_partitioned(p, conf, steps=3):
+    d = boot(p, conf)
+    try:
+        now = [T0]
+        d.store.clock = lambda: now[0]
+        s = as_stack(p, d)
+        for pool in PARTITION_POOLS:
+            d.store.put_pool(p.m.Pool(name=pool))
+        c = p.client.JobClient(d.node_url, user="alice")
+        c.throttle_retries = 0
+        for k in range(18):
+            c.user = ("alice", "bob", "carol")[k % 3]
+            c.submit([{"uuid": job_uuid(k), "command": "true",
+                       "cpus": 1.0 + k % 4, "mem": 512.0 * (1 + k % 3),
+                       "priority": 50 + k}], pool=PARTITION_POOLS[k % 3])
+        tokens = sorted(e[0] for e in PARTITION_VECTOR[p.root](
+            c.last_commit_offset))
+        launched = []
+        for _ in range(steps):
+            launched.append(s.step())
+            now[0] += 1_000
+        uuids = sorted(j.uuid for j in d.store.jobs_where(lambda j: True))
+        repl = s.call("GET", "/debug/replication", user="admin")[1]
+        return {"pinned": (d.sched_config.columnar_index,
+                           d.sched_config.resident_pack),
+                "store": type(d.store).__name__,
+                "dirs": sorted(os.listdir(conf["data_dir"])),
+                "partition_of": [d.store._partition_of_job(u)
+                                 for u in uuids],
+                "tokens": tokens, "launched": launched,
+                "partitions": [(x["partition"], x["declared_pools"],
+                                x["journal_bytes"] > 0)
+                               for x in repl["partitions"]],
+                "bodies": bodies(s, uuids), "uuids": uuids}
+    finally:
+        d.shutdown()
+
+
+PARTITION_VECTOR = {
+    p.root: importlib.import_module(
+        f"{p.root}.state.partition").parse_token_vector for p in SIDES}
+
+
+def test_partitioned_nodes_route_and_place_equally(tmp_path):
+    """A node with ``partitions.count = 2`` and one fake cluster a pool
+    opens ``p0`` and ``p1``, pins the entity path, routes each pool's
+    jobs to its partition's journal and places them: its (job uuid,
+    hostname) pairs, bodies and ``/debug/replication`` partitions are
+    the reference node's."""
+    out = [drive_partitioned(p, partitioned_conf(tmp_path, p.root))
+           for p in SIDES]
+    assert out[1] == out[0]
+    assert out[0]["pinned"] == (False, False)
+    assert out[0]["store"] == "PartitionedStore"
+    assert out[0]["dirs"] == ["p0", "p1", "partition_map.json"]
+    assert set(out[0]["partition_of"]) == {0, 1}
+    assert sum(len(v) for step in out[0]["launched"]
+               for v in step.values()) == 18
+    assert {pool for step in out[0]["launched"] for pool in step} \
+        == set(PARTITION_POOLS)
+
+
+def test_partitions_with_replication_refused_as_the_reference(tmp_path):
+    out = []
+    for p in SIDES:
+        conf = partitioned_conf(tmp_path, p.root)
+        conf["replication"] = {"listen_port": 0}
+        d = p.daemon.CookDaemon(conf, **({"device": "cpu"} if p is P
+                                         else {}))
+        with pytest.raises(ValueError) as e:
+            d.start()
+        assert d.server is None and d.store is None
+        out.append(str(e.value))
+    assert out[1] == out[0] and "partitions" in out[0]
+
+
+def test_misaligned_shard_pools_refused_naming_the_pool(tmp_path):
+    out = []
+    for p in SIDES:
+        conf = partitioned_conf(tmp_path, p.root, shards=2,
+                                shard_pools={"research": 0})
+        d = p.daemon.CookDaemon(conf, **({"device": "cpu"} if p is P
+                                         else {}))
+        mesh = importlib.import_module(f"{p.root}.parallel.mesh")
+        with pytest.raises(mesh.ShardAlignmentError) as e:
+            d.start()
+        assert d.server is None and d.store is None
+        out.append(str(e.value))
+    assert out[1] == out[0] and "'research'" in out[0]
 
 
 def test_in_process_nodes_launch_and_answer_equally(tmp_path):
