@@ -304,12 +304,12 @@ cycle, and the native pack (``native/pack.cpp``) on phase S's arrays.
      1 s match interval) whose one cluster is
      ``cook_tpu_torch.cluster.remote.factory`` over 64
      ``LocalAgentProcess`` agents (``g-00`` ... ``g-63``, 16 cpus and
-     32,768 MB each; ``progress_url`` the node's own URL); 1,200 jobs
+     32,768 MB each; ``progress_url`` the node's own URL); 800 jobs
      of 1 cpu and 256 MB from 60 users (a size for the run's time;
      ``phase_g(kinds=...)`` takes more): 16 that fill ``g-00``, its only
      agent at first, and run ``[ "$COOK_INSTANCE_NUM" = 0 ] && sleep 60
      || true``; then the other 63 agents register (``add_agent``) and 4
-     ``JobClient`` writers submit in batches of 20 the rest: 1,004 that
+     ``JobClient`` writers submit in batches of 20 the rest: 604 that
      write ``$COOK_INSTANCE_UUID`` into their sandbox, 100 under
      ``executor: "cook"`` printing two progress lines, 60 ``exit 7``
      with ``max_retries`` 2, 20 ``sleep 60`` killed through REST once
@@ -339,8 +339,8 @@ cycle, and the native pack (``native/pack.cpp``) on phase S's arrays.
      ``k-00`` ... ``k-63`` of 16 cpus and 32,768 MB; a kubelet thread
      steps the mock every 100 ms and finishes each running pod 300 ms
      after it saw it run, with its job's exit code, never on ``k-00``;
-     1,200 jobs from 40 users by 4 ``JobClient`` writers in batches of
-     20 (1,112 exit 0, 60 exit 7 with ``max_retries`` 2, 20 killed
+     800 jobs from 40 users by 4 ``JobClient`` writers in batches of
+     20 (712 exit 0, 60 exit 7 with ``max_retries`` 2, 20 killed
      through REST once they run, 8 of 24 cpus that fit no node); once
      16 pods run on ``k-00`` the mock loses it; once the big jobs'
      synthetic pods are up, 4 nodes of 32 cpus join.  Every job must
@@ -364,7 +364,7 @@ cycle, and the native pack (``native/pack.cpp``) on phase S's arrays.
      deployment; ``default`` hashes to p3) on a journaled data dir, so
      ``p0`` ... ``p3`` and the entity pack's dense-mask K1-K6 cycle; one
      fake cluster a pool, 250 hosts of 64 cpus and 65,536 MB each; 4
-     ``JobClient`` writers submit 1,600 jobs of 1 cpu and 256 MB in
+     ``JobClient`` writers submit 800 jobs of 1 cpu and 256 MB in
      batches of 20, writer i to pool i only.  Every job must land in its
      pool's partition, each writer's token carry its partition's entry,
      every job be placed and completed, no host over capacity and no job
@@ -4426,10 +4426,11 @@ def phase_n(device="cuda", n_jobs=N_JOBS, n_users=N_USERS, hosts=N_HOSTS,
 # match_interval_seconds 1.0, so the fused cycle at depth 2) whose one
 # cluster is cook_tpu_torch.cluster.remote.factory over 64 cook_agentd
 # agents (LocalAgentProcess, g-00 ... g-63, 16 cpus and 32,768 MB each),
-# its progress_url the node's own URL.  1,200 jobs of 1 cpu and 256 MB
+# its progress_url the node's own URL.  800 jobs of 1 cpu and 256 MB
 # from 60 users; the job kinds and their commands are G_KINDS.  g-00
-# holds 16 cpus, so 16 jobs fill it before it is SIGKILLed.  1,200 jobs
-# for the run's time: a launching step of up to 1,000 real launches
+# holds 16 cpus, so 16 jobs fill it before it is SIGKILLed.  800 jobs
+# (1,200 until a whole smoke took 898.8 s of a 900 s call on a slow
+# host) for the run's time: a launching step of up to 1,000 real launches
 # holds the node's host for seconds, and the statuses apply after it
 # (PERF.md section 5).  G_KINDS_6000 is the 6,000-job world, run alone
 # (``phase_g(kinds=G_KINDS_6000)``).
@@ -4437,7 +4438,7 @@ G_AGENTS, G_CPUS, G_MEM = 64, 16.0, 32_768.0
 G_USERS, G_WRITERS, G_BATCH = 60, 4, 20
 G_KINDS = {
     # kind: (count, command, executor, max_retries)
-    "uuid": (1_004, 'echo "$COOK_INSTANCE_UUID" > instance_uuid', None, 1),
+    "uuid": (604, 'echo "$COOK_INSTANCE_UUID" > instance_uuid', None, 1),
     "executor": (100, 'echo "progress: 50 half"; echo "progress: 100 done"',
                  "cook", 1),
     "exit7": (60, "exit 7", None, 2),
@@ -4861,18 +4862,19 @@ def phase_g(device="cuda", n_agents=G_AGENTS, kinds=G_KINDS, users=G_USERS,
 # never a "killed" job's.  The mock's kube-scheduler stand-in binds no
 # unbound pod: synthetic pods stay pending demand, placeholders a real
 # cluster would preempt (the mock has no priorities), so they never
-# take a node from a job.  1,200 jobs of 1 cpu and 256 MB but the big
+# take a node from a job.  800 jobs of 1 cpu and 256 MB but the big
 # ones, from 40 users; L_KINDS gives each kind's count, exit code,
 # max_retries and cpus.  The jobs on k-00 once 16 pods run there fail
-# NODE_LOST when the phase loses it, whatever their kind.  1,200 jobs for
-# the run's time: every pod is an HTTP POST under the controller's lock,
+# NODE_LOST when the phase loses it, whatever their kind.  800 jobs for
+# the run's time (1,200 until a whole smoke took 898.8 s of a 900 s call
+# on a slow host): every pod is an HTTP POST under the controller's lock,
 # and at 2,400 (L_KINDS_2400, run alone) the phase took 151 s on the
 # card's host (PERF.md section 6).
 L_NODES, L_CPUS, L_MEM = 64, 16.0, 32_768.0
 L_USERS, L_WRITERS, L_BATCH = 40, 4, 20
 L_KINDS = {
     # kind: (count, exit code, max_retries, cpus)
-    "ok": (1_112, 0, 1, 1.0),
+    "ok": (712, 0, 1, 1.0),
     "exit7": (60, 7, 2, 1.0),
     "killed": (20, None, 1, 1.0),
     "big": (8, 0, 1, 24.0),
@@ -5390,11 +5392,12 @@ def phase_l(device="cuda", n_nodes=L_NODES, kinds=L_KINDS, users=L_USERS,
 # 3 s, auto-advanced.  4 JobClient writers, writer i to pool i only, so
 # each writer's batches go to one partition's journal (bench.py's
 # partitioned write bench); then the user "capped" meets a count quota
-# of 8 on the reserved pool "*" across prod and research.
+# of 8 on the reserved pool "*" across prod and research.  800 jobs (1,600
+# until a whole smoke took 898.8 s of a 900 s call on a slow host).
 H_POOLS = ("prod", "research", "batch", "default")
 H_PARTITIONS = {"count": 4, "pools": {"prod": 0, "research": 1, "batch": 2},
                 "summary_max_age_seconds": 1.0}
-H_HOSTS, H_JOBS, H_USERS, H_WRITERS, H_BATCH = 250, 1_600, 200, 4, 20
+H_HOSTS, H_JOBS, H_USERS, H_WRITERS, H_BATCH = 250, 800, 200, 4, 20
 H_CAP, H_CAP_EACH = 8, 6
 H_CAP_TASK_MS = 120_000   # the capped user's tasks run until killed
 H_TIMEOUT_S = 180.0
