@@ -4429,8 +4429,8 @@ def phase_n(device="cuda", n_jobs=N_JOBS, n_users=N_USERS, hosts=N_HOSTS,
 # its progress_url the node's own URL.  800 jobs of 1 cpu and 256 MB
 # from 60 users; the job kinds and their commands are G_KINDS.  g-00
 # holds 16 cpus, so 16 jobs fill it before it is SIGKILLed.  800 jobs
-# (1,200 until a whole smoke took 898.8 s of a 900 s call on a slow
-# host) for the run's time: a launching step of up to 1,000 real launches
+# (1,200 until a whole run of this script took 898.8 s on a slow host)
+# for the run's time: a launching step of up to 1,000 real launches
 # holds the node's host for seconds, and the statuses apply after it
 # (PERF.md section 5).  G_KINDS_6000 is the 6,000-job world, run alone
 # (``phase_g(kinds=G_KINDS_6000)``).
@@ -4866,8 +4866,8 @@ def phase_g(device="cuda", n_agents=G_AGENTS, kinds=G_KINDS, users=G_USERS,
 # ones, from 40 users; L_KINDS gives each kind's count, exit code,
 # max_retries and cpus.  The jobs on k-00 once 16 pods run there fail
 # NODE_LOST when the phase loses it, whatever their kind.  800 jobs for
-# the run's time (1,200 until a whole smoke took 898.8 s of a 900 s call
-# on a slow host): every pod is an HTTP POST under the controller's lock,
+# the run's time (1,200 until a whole run of this script took 898.8 s on
+# a slow host): every pod is an HTTP POST under the controller's lock,
 # and at 2,400 (L_KINDS_2400, run alone) the phase took 151 s on the
 # card's host (PERF.md section 6).
 L_NODES, L_CPUS, L_MEM = 64, 16.0, 32_768.0
@@ -5392,8 +5392,8 @@ def phase_l(device="cuda", n_nodes=L_NODES, kinds=L_KINDS, users=L_USERS,
 # 3 s, auto-advanced.  4 JobClient writers, writer i to pool i only, so
 # each writer's batches go to one partition's journal (bench.py's
 # partitioned write bench); then the user "capped" meets a count quota
-# of 8 on the reserved pool "*" across prod and research.  800 jobs (1,600
-# until a whole smoke took 898.8 s of a 900 s call on a slow host).
+# of 8 on the reserved pool "*" across prod and research.  800 jobs
+# (1,600 until a whole run of this script took 898.8 s on a slow host).
 H_POOLS = ("prod", "research", "batch", "default")
 H_PARTITIONS = {"count": 4, "pools": {"prod": 0, "research": 1, "batch": 2},
                 "summary_max_age_seconds": 1.0}
