@@ -120,7 +120,7 @@ cycle, and the native pack (``native/pack.cpp``) on phase S's arrays.
      same world through ``sync_resident`` and
      ``stage_mega_wire(resident=True)`` (a cold repack, then scatters),
      each cycle's outputs equal to the rebuilt wire's and to the plain
-     cycle's, counted on their own; 5 churn cycles (1,000 running rows
+     cycle's, counted on their own; 3 churn cycles (1,000 running rows
      a pool finish, 1,000 jobs arrive across its users, user-contiguous)
      staged both ways from the same host arrays, kernels on both wires
      and the plain cycle equal; each cycle's ``stage_ms``,
@@ -168,10 +168,10 @@ cycle, and the native pack (``native/pack.cpp``) on phase S's arrays.
      (native, numpy, numpy, native), their ``stage_ms`` and
      ``pack_ms``;
   6f. phase Q: ``Scheduler.step_cycle`` at ``bench_pipeline_driver``'s
-     world, nothing cut (100,000 jobs from ``_driver_jobs``, seed 13;
-     5,000 hosts of 64 cpus and 65,536 MB; ``Config()``;
+     world, cut to 50,000 jobs from ``_driver_jobs`` (seed 13; 5,000
+     hosts of 64 cpus and 65,536 MB; ``Config()``;
      ``status_queue_shards=4``): a depth-0 leg and a depth-2 leg, each
-     from a fresh store, one warm step, one settle step, then 8 timed
+     from a fresh store, one warm step, one settle step, then 5 timed
      steps, each topped up with as many jobs as the last launched, the
      status updates flushed and the published queue touched after each
      (its ``queue.rows`` wait read); p50 and p99, launches, conflicts,
@@ -189,7 +189,7 @@ cycle, and the native pack (``native/pack.cpp``) on phase S's arrays.
      host apply's window); and a reduced world (10,000 jobs, 500 hosts)
      4 steps at depth 0 and 4 at depth 2 on the card and with
      ``device="cpu"``, the same (job uuid, hostname) pairs every step;
-  6g. phase V: ``step_rebalance`` on a full cluster (5,000 hosts, 200
+  6g. phase V: ``step_rebalance`` on a full cluster (2,500 hosts, 100
      users of 100 jobs of 16 cpus and 16,384 MB filled by
      ``step_cycle`` until a step launches nothing; then 1,000 jobs of a
      new user, one ``step_rank`` and one ``step_match``, counted, every
@@ -285,9 +285,9 @@ cycle, and the native pack (``native/pack.cpp``) on phase S's arrays.
      --query-compute-apps``'s list (by its pid, or where a container's
      processes all show as pid 1, by one entry more than the processes
      already there; the standby adds none); the port's ``cs`` submits
-     200 jobs and
+     100 jobs and
      ``cs wait``s for them; the leader's cluster is drained (``POST
-     /compute-clusters/node-fake``) and 500 more are submitted; once
+     /compute-clusters/node-fake``) and 300 more are submitted; once
      ``/debug/replication`` shows the standby synced the leader is
      killed with SIGKILL, and the list's count, polled from the kill,
      shows the handover (down to the processes already there, or up by
@@ -388,7 +388,7 @@ cycle, and the native pack (``native/pack.cpp``) on phase S's arrays.
      of its remote backend (phase G drives that backend) and its
      ``compilation_cache_dir`` in ``build/cuda-cache`` (the file's lies
      outside the checkout). T1: two fresh ``python3`` processes on
-     phase Q's world (100,000 jobs, 200 users, 5,000 hosts) and 4
+     phase Q's world (50,000 jobs, 200 users, 5,000 hosts) and 4
      elastic gangs of 8 (min 4), no status shards, a pinned store
      clock: the first with the boot warmup at the file's grid (131,072
      x 8,192, 2,048 users, no sweep; its seconds, its run count held
@@ -407,7 +407,7 @@ cycle, and the native pack (``native/pack.cpp``) on phase S's arrays.
      ``device="cpu"``, the same decisions;
   6o. phase U1: the entity-pack driver (``columnar_index=False``) on
      one pool of 100,000 jobs (T bucket 131,072) x 8,192 hosts, C =
-     1,024, 2 cycles counted (path ``dense_cycle``): each cycle's
+     1,024, 1 cycle counted (path ``dense_cycle``): the cycle's
      dense inputs through ``parallel/sharded.dense_pool_cycle`` on the
      card, every compact output equal bit for bit, the gang outputs
      the no-op reduction; ``pack_ms``, ``stage_ms``, ``h2d_bytes`` and
@@ -1192,7 +1192,7 @@ def phase_c():
 
 # ------------------------------- phase B: the resident wire, and churn
 CHURN = 1_000          # rows that finish, and jobs that arrive, a pool
-CHURN_CYCLES = 5
+CHURN_CYCLES = 3
 RESIDENT_KEY = ("design", P)
 # the parts of staging, by the function that does each (cProfile)
 STAGE_PARTS = {
@@ -2551,12 +2551,13 @@ def split_rank_check(ranked, what: str = "phase S") -> float:
 
 
 # ------------------------------------------------ phase Q: the Scheduler
-# bench.py::bench_pipeline_driver's world (:1250-1352), nothing cut: one
-# pool, 100,000 jobs from 200 users (_driver_jobs, seed 13), 5,000 hosts
+# bench.py::bench_pipeline_driver's world (:1250-1352), cut to 50,000 of
+# its 100,000 jobs for the smoke's time: one pool, jobs from 200 users
+# (_driver_jobs, seed 13), 5,000 hosts
 # of 64 cpus and 65,536 MB, Config() defaults, status_queue_shards=4; a
 # depth-0 leg and a depth-2 leg, each from a fresh store
 Q_JOBS, Q_USERS, Q_HOSTS, Q_SEED, Q_TIMED, Q_CHECKED = \
-    100_000, 200, 5_000, 13, 8, 3
+    50_000, 200, 5_000, 13, 5, 3
 Q_SMALL = {"n_jobs": 10_000, "hosts": 500}   # the card-against-CPU world
 Q_SMALL_STEPS = 4
 
@@ -3007,16 +3008,16 @@ def phase_q() -> dict:
 
 # --------------------------------------------- phase V: step_rebalance
 # tests/test_rebalance.py:155-176 ("alice fills the cluster; bob's job
-# waits") at deployment size on phase S's hosts, RebalancerConfig
+# waits") on half of phase S's hosts, RebalancerConfig
 # defaults (safe_dru_threshold 1.0, min_dru_diff 0.5, max_preemption 64)
-V_USERS, V_JOBS_EACH, V_NEW = 200, 100, 1_000
+V_USERS, V_JOBS_EACH, V_NEW, V_HOSTS = 100, 100, 1_000, 2_500
 V_CPUS, V_MEM = 16.0, 16_384.0
 # every 100th job of the full cluster carries a max runtime of 1 ms:
 # phase X's reapers find 1% of the running tasks past it
 V_REAP_EVERY, V_REAP_MS = 100, 1
 
 
-def v_world(device="cuda", hosts=S_HOSTS, users=V_USERS,
+def v_world(device="cuda", hosts=V_HOSTS, users=V_USERS,
             each=V_JOBS_EACH, new=V_NEW):
     """The full cluster: ``users`` users (share 64 cpus, 65,536 MB) with
     ``each`` jobs of 16 cpus and 16,384 MB (every ``V_REAP_EVERY``-th
@@ -4156,7 +4157,7 @@ def phase_z(device="cuda", n_jobs=Z_JOBS, writers=Z_WRITERS, batch=Z_BATCH,
 # socket replication on 200 hosts.
 N_JOBS, N_USERS, N_HOSTS, N_WRITERS, N_BATCH = 1_600, 200, 1_000, 4, 20
 N_TIMEOUT_S = 180.0
-O_HOSTS, O_FIRST, O_WAITING = 200, 200, 500
+O_HOSTS, O_FIRST, O_WAITING = 200, 100, 300
 # 10 users over 5 s, for the run's time
 O_SIM = {"users": 10, "jobs_per_user": 10, "duration_s": 5.0}
 O_TIMEOUT_S = 120.0
@@ -5772,6 +5773,395 @@ def phase_h(device="cuda", n_jobs=H_JOBS, n_users=H_USERS, hosts=H_HOSTS,
     return counts
 
 
+# ------------------------------------- phase SH: the mesh and the shards
+SH_MESHES = ((1,), (2,), (4,), (2, 2))   # pool_mesh(n), multislice(2, 2)
+# quota groups that span slots on every mesh of more than one slot: pools
+# 0 and 2, 1 and 3; each group's cap its pools' running total plus 1,000
+# cpus, which one cycle's placements pass, so the caps bind
+SH_GROUPS = np.array([0, 1, 0, 1], np.int32)
+SH_HEADROOM = np.array([1000.0, 1e12, 1e6, 1e9], np.float32)
+SH_REPS = 5
+SH_POOLS = ["pool0", "pool1", "pool2", "pool3"]
+# the design point over 4 pools: 100,000 jobs from 200 users; 1,250
+# hosts of 16 cpus and 16 GiB a pool
+SH_WORLD = {"n_jobs": 100_000, "n_users": 200, "hosts_per_pool": 1_250,
+            "host_cpus": 16.0, "host_mem": 16384.0, "seed": 3}
+SH_CFG = {"resident": True, "quantized": True, "depth": 0}
+SH_SMALL = {"n_jobs": 1_600, "n_users": 20, "hosts_per_pool": 8,
+            "host_cpus": 16.0, "host_mem": 16384.0, "seed": 5}
+SH_WARM, SH_TIMED = 2, 3
+SH_MAX_AGE_S = 2.0
+SH_BOOT_S = 300.0
+SH_CYCLE_TIMEOUT_S = 300.0
+
+
+def sh_mesh(shape, device):
+    from cook_tpu_torch.parallel.mesh import multislice_pool_mesh, pool_mesh
+    if len(shape) == 2:
+        return multislice_pool_mesh(*shape, device=device)
+    return pool_mesh(shape[0], device=device)
+
+
+def sh_world(live=LIVE, hosts=HOSTS):
+    """Phase A's world with its quota groups spanning slots."""
+    w = build_world(np.random.default_rng(SEED), live=live, hosts=hosts)
+    group_total = np.stack([w.run_total[SH_GROUPS == g].sum(0)
+                            for g in SH_GROUPS])
+    w.scalars = {**w.scalars, "group_id": SH_GROUPS.copy(),
+                 "group_quota": (group_total + SH_HEADROOM)
+                 .astype(np.float32)}
+    return w
+
+
+def sh_compact(w) -> dict:
+    """The world as the JAX package's CompactPoolCycleInputs fields."""
+    return dict(rows=w.rows, flags=w.flags, res_base=w.res,
+                disk_base=w.disk, tokens_u=w.tokens, shares_u=w.shares,
+                quota_u=w.quota, **w.scalars, host_gpu=w.host_gpu,
+                host_blocked=w.blocked, exc_rows=w.exc_rows,
+                exc_mask=w.exc_mask, avail=w.avail, capacity=w.cap)
+
+
+def sh_sync(card: bool) -> None:
+    if card:
+        torch.cuda.synchronize()
+
+
+def phase_sh1(device="cuda", **size) -> dict:
+    """The mesh cycle: phase A's wire with slot-spanning quota groups
+    through ``make_pool_cycle(mesh, compact=True)`` on 1, 2 and 4 slots
+    of one card and the 2 x 2 multislice mesh, each launch recorded and
+    replayed against its plain version, every output equal bit for bit
+    to the one-device ``megacycle`` and ``megacycle_plain`` on the same
+    wire (and the gathered bases to the one-device plain bases); the
+    wire's blocks on their own (each slot's group base its own) decide
+    otherwise.  Then the negotiated wire (quantized, gangs) through
+    ``megacycle(mesh=)`` on two slots, equal to one device.  The
+    launches of the mesh cycles are the path ``mesh_cycle``."""
+    from cook_tpu_torch.ops import cuda_lib, telemetry
+    from cook_tpu_torch.ops.pallas_cycle import (MegaCycleResult,
+                                                 MegaCycleWire, megacycle,
+                                                 megacycle_plain)
+    from cook_tpu_torch.parallel.mesh import pool_sharding
+    from cook_tpu_torch.parallel.sharded import (compact_inputs_from_numpy,
+                                                 compact_wire,
+                                                 make_pool_cycle, pool_cycle)
+    card = device == "cuda"
+    dev = "cuda:0" if card else "cpu"
+    t0 = time.perf_counter()
+    w = sh_world(**size)
+    inp = compact_inputs_from_numpy(sh_compact(w), dev)
+    wire = compact_wire(inp)
+    cap = 1024
+    want = megacycle(wire, considerable_cap=cap, device=dev)
+    plain = megacycle_plain(wire, considerable_cap=cap)
+    bases = pool_cycle(inp, considerable_cap=cap, device=dev)
+    sh_sync(card)
+    for k in MegaCycleResult._fields:
+        max_err(getattr(want, k), getattr(plain, k))
+    out = {"phase": "SH1", "meshes": {}, "shape": {
+        "P": P, "T": w.T, "H": w.H, "C": cap, "live_rows": w.live,
+        "hosts": int((~w.blocked).sum(1).max()), "groups": SH_GROUPS.tolist()}}
+    counts, replayed = {}, 0
+
+    def counted(fn, what):
+        nonlocal replayed
+        telemetry.reset_all()
+        with cuda_lib.recording() as calls:
+            res = fn()
+        sh_sync(card)
+        launched = telemetry.snapshot()
+        for k, n in launched.items():
+            counts[k] = counts.get(k, 0) + n
+        if card:
+            replay_all(calls, what)
+            replayed += len(calls)
+        return res, launched
+
+    for shape in SH_MESHES:
+        name = "x".join(map(str, shape))
+        mesh = sh_mesh(shape, dev)
+        cycle = make_pool_cycle(mesh, considerable_cap=cap, compact=True)
+        got, launched = counted(lambda: cycle(inp), f"phase SH1 {name}")
+        for k in MegaCycleResult._fields:
+            max_err(getattr(got, k), getattr(want, k))
+        max_err(got.pool_base, bases.pool_base)
+        max_err(got.group_base, bases.group_base)
+        t1 = time.perf_counter()
+        if card:
+            ms = cuda_ms(lambda: megacycle(wire, considerable_cap=cap,
+                                           mesh=mesh, device=dev), SH_REPS)
+            full_ms = cuda_ms(lambda: cycle(inp), SH_REPS)
+        else:
+            megacycle(wire, considerable_cap=cap, mesh=mesh, device=dev)
+            ms = full_ms = (time.perf_counter() - t1) * 1e3
+        out["meshes"][name] = {
+            "slots": mesh.size, "axes": list(mesh.axis_names),
+            "devices": [str(d) for d in mesh.devices], "ms": ms,
+            "make_pool_cycle_ms": full_ms, "launches": launched,
+            "placed": int((got.cand_gang >= 0).sum()),
+            "total_matched": int(got.total_matched),
+            "matched_cpus": float(got.matched_usage[:, 0].sum())}
+    # each slot's block with its own group base decides otherwise
+    differs = False
+    for b in pool_sharding(sh_mesh((2,), dev)).blocks(P):
+        block = MegaCycleWire(*(t if k in ("res_base", "disk_base") else
+                                t[b].contiguous() for k, t in
+                                zip(MegaCycleWire._fields, wire)))
+        alone = megacycle(block, considerable_cap=cap, device=dev)
+        differs |= any(not torch.equal(getattr(alone, k),
+                                       getattr(want, k)[b])
+                       for k in MegaCycleResult._fields)
+    if not differs:
+        raise AssertionError("phase SH1: the group caps never bind across "
+                             "slots")
+    # the driver's negotiated wire (quantized, gangs) on two slots
+    res_dev = torch.from_numpy(w.res).to(dev)
+    disk_dev = torch.from_numpy(w.disk).to(dev)
+    staged = stage(w, res_dev, disk_dev, {}, device=dev)
+    args = megacycle_args(staged)
+    one = megacycle(staged["wire"], device=dev, **args)
+    two, launched = counted(
+        lambda: megacycle(staged["wire"], mesh=sh_mesh((2,), dev),
+                          device=dev, **args), "phase SH1 negotiated")
+    for k in MegaCycleResult._fields:
+        max_err(getattr(two, k), getattr(one, k))
+    out["negotiated_2"] = {
+        "codecs": [staged["rows_codec"], str(staged["avail_scale"]),
+                   str(staged["cap_scale"])],
+        "placed": int((two.cand_gang >= 0).sum()),
+        "dropped": int(two.cand_dropped.sum()), "launches": launched}
+    missing = [k for k in SOURCES if counts.get(k, 0) <= 0]
+    if card and missing:
+        raise AssertionError(f"phase SH1: kernels not launched: {missing}")
+    out.update(slot_local_bases_differ=differs, equal=True,
+               replayed_equal_to_plain=replayed,
+               launches_per_kernel=counts,
+               wall_s=time.perf_counter() - t0)
+    print(json.dumps(out))
+    return counts
+
+
+def sh_topology(n, world, device, root):
+    from cook_tpu_torch.sched.shard import sched_topology
+    t0, wall0 = time.perf_counter(), time.time()
+    sup = sched_topology(n, SH_POOLS, world, cfg=SH_CFG,
+                         summary_max_age_s=SH_MAX_AGE_S, root=str(root),
+                         device=device)
+    boot = time.perf_counter() - t0
+    # a worker's boot: from the spawn to its address file
+    each = [os.path.getmtime(sp.addr_file) - wall0 for sp in sup.procs]
+    return sup, {"topology_s": boot, "workers_s": each}
+
+
+def sh_rounds(sup, warm=SH_WARM, timed=SH_TIMED):
+    """``warm`` then ``timed`` rounds of one cycle on every shard at
+    once: each round's wall (host clock, the supervisor's broadcast) and
+    each shard's own cycle ms."""
+    rounds, per_shard = [], {}
+    for i in range(warm + timed):
+        t0 = time.perf_counter()
+        resps = sup.broadcast({"cmd": "cycle", "n": 1},
+                              timeout_s=SH_CYCLE_TIMEOUT_S)
+        wall = (time.perf_counter() - t0) * 1e3
+        if len(resps) != len(sup.procs):
+            raise AssertionError("phase SH2: a shard did not answer")
+        if i >= warm:
+            rounds.append(wall)
+            for sp, r in zip(sup.procs, resps):
+                per_shard.setdefault(sp.shard, []).extend(r["durations_ms"])
+    return rounds, per_shard
+
+
+def sh_pcts(xs) -> dict:
+    return {"p50": float(np.percentile(xs, 50)),
+            "p99": float(np.percentile(xs, 99)), "all": list(xs)}
+
+
+def sh_check(decisions: dict, world: dict, what: str) -> int:
+    """No host over capacity and no job live twice, from the launched
+    set and the world's jobs; returns the jobs placed."""
+    from cook_tpu_torch.sched.shard import build_world_jobs
+    jobs = {j.uuid: j for j in build_world_jobs(world, SH_POOLS)}
+    if set(decisions) != set(jobs):
+        raise AssertionError(f"{what}: decisions for {len(decisions)} of "
+                             f"{len(jobs)} jobs")
+    cap = np.array([world["host_cpus"], world["host_mem"]])
+    used, placed = {}, 0
+    for uuid, (state, hosts) in decisions.items():
+        if len(hosts) > 1:
+            raise AssertionError(f"{what}: job {uuid} live on {hosts}")
+        if hosts:
+            if state != "running":
+                raise AssertionError(f"{what}: job {uuid} {state} on "
+                                     f"{hosts}")
+            r = jobs[uuid].resources
+            used.setdefault(hosts[0], np.zeros(2))
+            used[hosts[0]] += (r.cpus, r.mem)
+            placed += 1
+    over = [h for h, u in used.items() if (u > cap).any()]
+    if over:
+        raise AssertionError(f"{what}: hosts over capacity: {over[:5]}")
+    return placed
+
+
+def sh_worker_counts(spec_file: str) -> tuple:
+    """One ``_SchedWorker`` built in this process from a topology's
+    shard spec: its ``setup`` and two ``handle({"cmd": "cycle"})``, each
+    under ``cuda_lib.recording()`` and replayed against the plain
+    versions after it.  Returns (launches by kernel, replays, cycle
+    ms)."""
+    from cook_tpu_torch.ops import cuda_lib, telemetry
+    from cook_tpu_torch.sched.shard import _SchedWorker
+    from cook_tpu_torch.utils import flight
+    spec = json.loads(Path(spec_file).read_text())
+    worker = _SchedWorker(spec)
+    counts, replayed, ms = {}, 0, []
+    try:
+        worker.setup()
+        for _ in range(2):
+            telemetry.reset_all()
+            with cuda_lib.recording() as calls:
+                resp = worker.handle({"cmd": "cycle", "n": 1})
+            torch.cuda.synchronize()
+            for k, n in telemetry.snapshot().items():
+                counts[k] = counts.get(k, 0) + n
+            replay_all(calls, "phase SH2 worker")
+            replayed += len(calls)
+            ms.extend(resp["durations_ms"])
+    finally:
+        flight.set_shard(None)
+        sched = getattr(worker, "sched", None)
+        if sched is not None:
+            sched.shutdown()
+    return counts, replayed, ms
+
+
+def sh_small(device: str) -> dict:
+    """SH_SMALL through four shard processes on ``device``."""
+    import shutil
+    import tempfile
+    root = Path(tempfile.mkdtemp(prefix="cook_sh_small"))
+    try:
+        sup, _boot = sh_topology(4, SH_SMALL, device, root)
+        try:
+            sh_rounds(sup, 0, 3)
+            got = sup.collect_decisions()
+        finally:
+            sup.stop()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    sh_check(got, SH_SMALL, f"phase SH2 small on {device}")
+    return {u: [s, list(h)] for u, (s, h) in sorted(got.items())}
+
+
+def phase_sh2(device="cuda", world=SH_WORLD) -> dict:
+    """The sharded controllers: ``sched_topology`` over 4 pools of
+    ``world`` on ``device`` (the default fused cycle, resident and
+    quantized wire, depth 0), one process and then four, ``SH_WARM``
+    rounds then ``SH_TIMED`` timed; the four-process launched set equal
+    to the one-process set, no host over capacity, no job live twice;
+    the flight summaries and the stitched trace (a process track a
+    shard); shard 1 SIGKILLed, shard 0's totals reported stale.  A
+    shard-0 worker built in this process from the topology's spec has
+    its kernels counted (path ``sharded_controllers``) and replayed.
+    Then ``SH_SMALL`` on four processes on the card and on the CPU."""
+    import shutil
+    import tempfile
+    card = device == "cuda"
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="cook_sh"))
+    out = {"phase": "SH2", "world": world, "config": SH_CFG,
+           "pools": SH_POOLS}
+    try:
+        sup, boot1 = sh_topology(1, world, device, tmp / "one")
+        try:
+            rounds1, shard1 = sh_rounds(sup)
+            d1 = sup.collect_decisions()
+        finally:
+            sup.stop()
+        sup, boot4 = sh_topology(4, world, device, tmp / "four")
+        try:
+            rounds4, shard4 = sh_rounds(sup)
+            d4 = sup.collect_decisions()
+            flight = sup.collect_flight()
+            trace = sup.collect_trace("phase-sh2")
+            spec0 = sup.procs[0].spec_file
+            fresh = sup.rpc(0, {"cmd": "user_totals", "user": "user0"})
+            t1 = time.perf_counter()
+            sup.kill(1)
+            stale = None
+            while time.perf_counter() - t1 < 30.0:
+                resp = sup.rpc(0, {"cmd": "user_totals", "user": "user0"})
+                if "stale" in resp:
+                    stale = resp["stale"]
+                    break
+                time.sleep(0.1)
+            stale_s = time.perf_counter() - t1
+            if stale is None:
+                raise AssertionError("phase SH2: shard 0 served totals 30 s "
+                                     "after its peer died")
+            counts, replayed, worker_ms = ({}, 0, [])
+            if card:
+                counts, replayed, worker_ms = sh_worker_counts(spec0)
+        finally:
+            sup.stop()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if d4 != d1:
+        bad = [u for u in d1 if d1[u] != d4.get(u)]
+        raise AssertionError(f"phase SH2: 4 processes decided otherwise "
+                             f"than 1 on {len(bad)} jobs: {bad[:3]}")
+    placed = sh_check(d4, world, "phase SH2")
+    if placed <= 0:
+        raise AssertionError("phase SH2: nothing placed")
+    tracks = {ev["args"]["name"] for ev in trace["traceEvents"]
+              if ev.get("ph") == "M" and ev.get("name") == "process_name"}
+    pids = {ev["pid"] for ev in trace["traceEvents"]}
+    if sorted(flight) != [0, 1, 2, 3] or len(pids) != 4 \
+            or not {f"shard-{i}" for i in range(4)} <= tracks:
+        raise AssertionError(f"phase SH2: flight of shards {sorted(flight)}"
+                             f", trace tracks {sorted(tracks)}")
+    kinds = {s: f["by_kind"] for s, f in flight.items()}
+    if any(k != {"fused": SH_WARM + SH_TIMED} for k in kinds.values()) \
+            or any(f["faults"] for f in flight.values()):
+        raise AssertionError(f"phase SH2: cycles not all fused: {kinds}, "
+                             f"{[f['faults'] for f in flight.values()]}")
+    if card:
+        missing = [k for k in SOURCES if counts.get(k, 0) <= 0]
+        if missing:
+            raise AssertionError(f"phase SH2: kernels not launched in a "
+                                 f"worker: {missing}")
+    t1 = time.perf_counter()
+    pairs = [sh_small(device), cpu_side("sh_small")]
+    if not pairs[0] or pairs[0] != pairs[1]:
+        raise AssertionError("phase SH2 small: the card's shards and the "
+                             "CPU's decided otherwise")
+    out.update({
+        "one_process": {"boot": boot1, "round_ms": sh_pcts(rounds1),
+                        "cycle_ms": sh_pcts(shard1[0])},
+        "four_processes": {
+            "boot": boot4, "round_ms": sh_pcts(rounds4),
+            "cycle_ms_by_shard": {s: sh_pcts(v) for s, v in shard4.items()},
+            "flight_by_shard": {s: f["by_shard"] for s, f in flight.items()},
+            "trace_tracks": sorted(tracks),
+            "trace_events": len(trace["traceEvents"])},
+        "decisions_equal": True, "placed": placed,
+        "live_checked": True,
+        "totals_fresh_staleness_s": fresh.get("staleness_s"),
+        "dead_peer_stale_after_s": stale_s, "stale": stale,
+        "worker": {"launches_per_kernel": counts,
+                   "replayed_equal_to_plain": replayed,
+                   "cycle_ms": worker_ms},
+        "small": {**SH_SMALL, "placed": sum(1 for s, h in pairs[0].values()
+                                            if h),
+                  "devices": [device, "cpu"], "equal": True,
+                  "wall_s": time.perf_counter() - t1},
+        "wall_s": time.perf_counter() - t0})
+    print(json.dumps(out))
+    return counts
+
+
 def compute_apps() -> list:
     """The pids ``nvidia-smi`` lists as compute processes on the card,
     one entry a process that holds a CUDA context."""
@@ -6815,7 +7205,7 @@ ROOT = Path(__file__).resolve().parent
 # compilation_cache_dir: the file's /var/cook/xla-cache lies outside the
 # checkout; the smoke keeps the library in the checkout's build/
 T_CACHE = ROOT / "build" / "cuda-cache"
-T_STEPS = 6              # steps after the first, each leg
+T_STEPS = 4              # steps after the first, each leg
 T_GANGS, T_GANG_SIZE, T_GANG_MIN = 4, 8, 4   # elastic gangs in the world
 T_CLOCK = 2_000_000      # the pinned store clock (ms) of phase T's worlds
 T_CHILD_TIMEOUT_S = 240.0
@@ -7134,7 +7524,7 @@ def phase_t() -> dict:
 
 # ------------------------------ phase U: the dense cycle and the native pack
 # 2 cycles, for the run's time
-U_JOBS, U_USERS, U_HOSTS, U_CYCLES = 100_000, 200, 8_192, 2
+U_JOBS, U_USERS, U_HOSTS, U_CYCLES = 100_000, 200, 8_192, 1
 U_SMALL = {"n_jobs": 3_000, "n_users": 20, "hosts": 300}  # card = CPU
 
 
@@ -7370,7 +7760,7 @@ def copy_args(args) -> tuple:
 # started (a phase run alone).
 CPU_SIDES = (("e_split",), ("x_leg", 0), ("x_leg", 2), ("t_small",),
              ("q_small", 0), ("q_small", 2), ("u_small",), ("l_small",),
-             ("h_small",))
+             ("h_small",), ("sh_small",))
 CPU_SIDE_WORKERS, CPU_SIDE_THREADS = 2, 2
 _SIDES = {"pool": None, "futures": {}}
 
@@ -7391,6 +7781,8 @@ def cpu_side_run(key: tuple):
         return l_small("cpu")
     if name == "h_small":
         return h_small("cpu")
+    if name == "sh_small":
+        return sh_small("cpu")
     raise KeyError(key)
 
 
@@ -7613,6 +8005,10 @@ def run() -> int:
     mark("L")
     partitioned_counts = phase_h()
     mark("H")
+    mesh_counts = phase_sh1()
+    mark("SH1")
+    shard_counts = phase_sh2()
+    mark("SH2")
     prod_counts = phase_t()
     mark("T")
     dense_counts = phase_u1()
@@ -7655,6 +8051,8 @@ def run() -> int:
                 "remote_node": remote_counts.get(k, 0),
                 "k8s_node": k8s_counts.get(k, 0),
                 "partitioned_node": partitioned_counts.get(k, 0),
+                "mesh_cycle": mesh_counts.get(k, 0),
+                "sharded_controllers": shard_counts.get(k, 0),
                 "warmup": prod_counts["warmup"].get(k, 0),
                 "optimizer": prod_counts["optimizer"].get(k, 0),
                 "dense_cycle": dense_counts.get(k, 0)},

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -106,8 +107,14 @@ def nvcc() -> str:
 def build(verbose: bool = False) -> Path:
     """Compile every source in parallel and link the shared library
     (skipped when a library of the same hash exists).  ``verbose`` adds
-    ``-Xptxas -v``; the compiler output lands in ``BUILD_LOG``."""
-    global BUILD_LOG
+    ``-Xptxas -v``; the compiler output lands in ``BUILD_LOG``.
+
+    Processes that build into one directory together (the shard workers
+    of ``sched/shard``, a node's standby beside its leader) take turns:
+    the check, the compile and the link run under an exclusive
+    ``flock`` on ``BUILD_DIR/.build.lock``, so no process links an
+    object another is still writing, and the later ones find the
+    library the first one linked."""
     t0 = time.perf_counter()
     out = BUILD_DIR / f"libcook_cycle_{_digest()}.so"
     if out.exists() and not verbose:
@@ -115,6 +122,23 @@ def build(verbose: bool = False) -> Path:
                           seconds=time.perf_counter() - t0)
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if out.exists() and not verbose:
+                LAST_BUILD.update(path=str(out), built=False,
+                                  seconds=time.perf_counter() - t0)
+                return out
+            _compile_and_link(out, verbose)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    LAST_BUILD.update(path=str(out), built=True,
+                      seconds=time.perf_counter() - t0)
+    return out
+
+
+def _compile_and_link(out: Path, verbose: bool) -> None:
+    global BUILD_LOG
     cc = nvcc()
     flags = NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else [])
     procs = []
@@ -142,9 +166,6 @@ def build(verbose: bool = False) -> Path:
     if link.returncode != 0:
         raise RuntimeError(f"link failed:\n{link.stdout}")
     os.replace(tmp, out)
-    LAST_BUILD.update(path=str(out), built=True,
-                      seconds=time.perf_counter() - t0)
-    return out
 
 
 def lib() -> ctypes.CDLL:

@@ -128,6 +128,20 @@ def expand_fixed_device(scale, data: torch.Tensor) -> torch.Tensor:
                        dim=-1)
 
 
+def pack_bits_device(x: torch.Tensor) -> torch.Tensor:
+    """:func:`pack_bits` on the tensor's device: bool[..., n] to
+    u8[..., ceil(n / 8)], MSB first."""
+    n = x.shape[-1]
+    nb = (n + 7) // 8
+    bits = torch.zeros(x.shape[:-1] + (nb * 8,), dtype=torch.int32,
+                       device=x.device)
+    bits[..., :n] = x.to(torch.int32)
+    weights = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.int32,
+                           device=x.device)
+    packed = (bits.reshape(x.shape[:-1] + (nb, 8)) * weights).sum(-1)
+    return packed.to(torch.uint8)
+
+
 def unpack_bits_device(packed: torch.Tensor, n: int) -> torch.Tensor:
     """Bit unpack along the last axis, MSB first (numpy's packbits
     order); returns bool[..., n]."""

@@ -1,16 +1,21 @@
-"""The fused pool cycle (rank -> considerable -> match) over P pools on
-one device, plain PyTorch: the single-device form of
-``cook_tpu/parallel/sharded.py``'s ``make_pool_cycle``, in its three
-input forms: the compact wire (``structured=True, compact=True``, the
-columnar pack's), the structured mask, and the dense bool[P, T, H]
-constraint mask of :class:`PoolCycleInputs` (``structured=False``, the
-entity pack's; ``_pool_cycle_one``, ``single_pool_cycle``).  The
-all_gather of every pool's running usage becomes a direct sum over the
-pools.
+"""The fused pool cycle (rank -> considerable -> match) over P pools:
+``cook_tpu/parallel/sharded.py``, in its three input forms: the compact
+wire (the columnar pack's), the structured mask, and the dense bool[P,
+T, H] constraint mask of :class:`PoolCycleInputs` (the entity pack's;
+``_pool_cycle_one``, ``single_pool_cycle``).
 
-These are the plain versions of the whole cycle; on the card
+On one device ``pool_cycle`` and ``dense_pool_cycle`` are the plain
+versions of the whole cycle, the reference's all_gather of every pool's
+running usage a direct sum over the pools; on the card
 ``ops/pallas_cycle.megacycle`` runs the same math as CUDA stage kernels
 (the dense form through ``ops/pallas_cycle.dense_wire``).
+
+Over a mesh (``parallel/mesh``), :func:`make_pool_cycle` and
+:func:`mesh_megacycle` run each slot's contiguous pool block on its
+device, and cross-device copies play the reference's two collectives:
+the gather of every pool's running base and group id, over which each
+pool's quota-group base is summed (:func:`group_bases`), and the gather
+of the matched usage with the sum of the placements.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import torch
 from .. import resolve_device
 from ..ops import dru as dru_ops
 from ..ops import match as match_ops
+from ..ops import quant
 from ..ops.considerable import considerable_body
 from ..ops.delta import (FLAG_ENQUEUE_OK, FLAG_LAUNCH_OK, FLAG_PENDING,
                          FLAG_USER_FIRST, FLAG_VALID)
@@ -396,6 +402,41 @@ class DensePoolCycleResult(NamedTuple):
     cand_qpos: torch.Tensor      # i32[P, C]
 
 
+def _dense_block(inp: PoolCycleInputs, pool_base, group_base, *,
+                 gpu_mode: bool, max_over_quota_jobs: int,
+                 considerable_cap: Optional[int]) -> list:
+    """Every pool of one block of the dense inputs, on their device:
+    the reference's per-pool result columns, stacked over the block."""
+    outs = []
+    for p in range(inp.pending.shape[0]):
+        outs.append(_pool_cycle_one(
+            inp.usage[p], inp.quota[p], inp.shares[p], inp.first_idx[p],
+            inp.user_rank[p], inp.pending[p], inp.valid[p],
+            inp.enqueue_ok[p], inp.launch_ok[p], inp.tokens[p],
+            inp.num_considerable[p], inp.pool_quota[p], inp.group_quota[p],
+            pool_base[p], group_base[p], inp.job_res[p], inp.cmask[p],
+            inp.avail[p], inp.capacity[p], gpu_mode, max_over_quota_jobs,
+            considerable_cap))
+    return [torch.stack(c) for c in zip(*outs)]
+
+
+def _dense_result(cols, total) -> "DensePoolCycleResult":
+    (order, num_ranked, dru, assign, match_valid, queue_ok, accepted,
+     matched_usage, queue_rows, n_queue, cand_row, cand_assign,
+     cand_qpos) = cols
+    return DensePoolCycleResult(
+        order=order, num_ranked=num_ranked.to(torch.int32), dru=dru,
+        assign=assign,
+        match_valid=match_valid, queue_ok=queue_ok, accepted=accepted,
+        matched_usage=matched_usage, total_matched=total,
+        queue_rows=queue_rows, n_queue=n_queue.to(torch.int32),
+        cand_row=cand_row, cand_assign=cand_assign, cand_qpos=cand_qpos)
+
+
+def _placed(assign) -> torch.Tensor:
+    return (assign >= 0).sum(dtype=torch.int32)
+
+
 def dense_pool_cycle(inp: PoolCycleInputs, *, gpu_mode: bool = False,
                      max_over_quota_jobs: int = 100,
                      considerable_cap: Optional[int] = None,
@@ -407,51 +448,198 @@ def dense_pool_cycle(inp: PoolCycleInputs, *, gpu_mode: bool = False,
     inp = PoolCycleInputs(*(t.to(dev) for t in inp))
     pool_base, group_base = pool_bases(inp.usage, inp.pending, inp.valid,
                                        inp.group_id)
-    outs = []
-    for p in range(inp.pending.shape[0]):
-        outs.append(_pool_cycle_one(
-            inp.usage[p], inp.quota[p], inp.shares[p], inp.first_idx[p],
-            inp.user_rank[p], inp.pending[p], inp.valid[p],
-            inp.enqueue_ok[p], inp.launch_ok[p], inp.tokens[p],
-            inp.num_considerable[p], inp.pool_quota[p], inp.group_quota[p],
-            pool_base[p], group_base[p], inp.job_res[p], inp.cmask[p],
-            inp.avail[p], inp.capacity[p], gpu_mode, max_over_quota_jobs,
-            considerable_cap))
-    cols = [torch.stack(c) for c in zip(*outs)]
-    (order, num_ranked, dru, assign, match_valid, queue_ok, accepted,
-     matched_usage, queue_rows, n_queue, cand_row, cand_assign,
-     cand_qpos) = cols
-    total = (assign >= 0).to(torch.int32).sum()
-    return DensePoolCycleResult(
-        order=order, num_ranked=num_ranked, dru=dru, assign=assign,
-        match_valid=match_valid, queue_ok=queue_ok, accepted=accepted,
-        matched_usage=matched_usage, total_matched=total,
-        queue_rows=queue_rows, n_queue=n_queue.to(torch.int32),
-        cand_row=cand_row, cand_assign=cand_assign, cand_qpos=cand_qpos)
+    cols = _dense_block(inp, pool_base, group_base, gpu_mode=gpu_mode,
+                        max_over_quota_jobs=max_over_quota_jobs,
+                        considerable_cap=considerable_cap)
+    return _dense_result(cols, _placed(cols[3]))
 
 
-def make_pool_cycle(*, gpu_mode: bool = False, max_over_quota_jobs: int = 100,
+class MeshCycleResult(NamedTuple):
+    """The compact cycle over a mesh: ``ops/pallas_cycle``'s seven
+    outputs, then the reconciliations' (every pool's, in mesh order)."""
+    queue_rows: torch.Tensor     # i32[P, T]
+    n_queue: torch.Tensor        # i32[P]
+    cand_row: torch.Tensor       # i32[P, C]
+    cand_assign: torch.Tensor    # i32[P, C]
+    cand_qpos: torch.Tensor      # i32[P, C]
+    cand_gang: torch.Tensor      # i32[P, C]
+    cand_dropped: torch.Tensor   # i32[P, C]
+    pool_base: torch.Tensor      # f32[P, 4] gathered (reconciliation #1)
+    group_base: torch.Tensor     # f32[P, 4] summed over the gathered bases
+    matched_usage: torch.Tensor  # f32[P, 4] gathered (reconciliation #2)
+    total_matched: torch.Tensor  # i32[] summed over the slots
+
+
+def _gather(parts, dev) -> torch.Tensor:
+    """The collectives' counterpart: every slot's block copied to ``dev``
+    and concatenated in mesh order (pool-major: the reference's tiled
+    ``all_gather``)."""
+    return torch.cat([t.to(dev) for t in parts])
+
+
+def _psum(parts, dev) -> torch.Tensor:
+    return _gather([t.reshape(1) for t in parts], dev).sum(dtype=torch.int32)
+
+
+def group_bases(base_all, gid_all, gid) -> torch.Tensor:
+    """Reconciliation #1's sum: for each pool whose group id is in
+    ``gid``, its quota group's running base over every pool of
+    ``base_all`` (f32[P, 4], ids ``gid_all``), in XLA:CPU's order
+    (``window32_sum`` over the pools); f32[len(gid), 4]."""
+    same = (gid_all[None, :] == gid[:, None]) & (gid[:, None] >= 0)
+    return window32_sum(base_all[None, :, :] * same[:, :, None], dim=1)
+
+
+def mesh_megacycle(mesh, wire, *, gpu_mode: bool = False,
+                   max_over_quota_jobs: int = 100,
+                   considerable_cap: int = 1024,
+                   rows_codec: int = quant.ROWS_WIDE,
+                   avail_scale=0.0, cap_scale=0.0, stats: bool = False,
+                   slot_rows=None):
+    """``ops/pallas_cycle.megacycle`` over a mesh: each slot runs its
+    pool block of ``wire`` on its device through the stage chain (the
+    kernels on a card, their plain versions on the CPU), ``res_base``
+    and ``disk_base`` replicated.  Between K1 and the admission stage
+    (``ops/stages.admit_match``'s ``group_base``) reconciliation #1
+    gathers every slot's pool bases and group ids and sums each pool's
+    quota-group base over all of them; with one slot K1's own base is
+    already that sum and the chain is ``megacycle_stages``, launch for
+    launch.  The outputs are gathered onto the first slot's device.
+    Returns the ``MegaCycleResult``, or with ``stats`` the
+    :class:`MeshCycleResult` (reconciliation #2 adds every pool's
+    matched usage and the placement total).  ``slot_rows``, a (rows,
+    flags) pair a slot already on its device (the driver's resident
+    buffers, ``pool_sharding``'s blocks), takes the place of the wire's
+    rows and flags."""
+    from ..ops import stages
+    from ..ops.pallas_cycle import MegaCycleResult, MegaCycleWire, to_device
+    from .mesh import pool_sharding
+    devs = mesh.devices
+    blocks = pool_sharding(mesh).blocks(wire.group_id.shape[0])
+    replicated = {"res_base", "disk_base"}
+    parts = []
+    for k, (b, d) in enumerate(zip(blocks, devs)):
+        w = MegaCycleWire(*(
+            t if (f in ("rows", "flags") and slot_rows is not None)
+            else to_device(t if f in replicated else t[b], d).contiguous()
+            for f, t in zip(MegaCycleWire._fields, wire)))
+        if slot_rows is not None:
+            w = w._replace(rows=slot_rows[k][0], flags=slot_rows[k][1])
+        parts.append(w)
+    # pass 1: each slot's wire decode and phase-0 bases (K2 + K1)
+    heads = [stages.decode(w, rows_codec=rows_codec, avail_scale=avail_scale,
+                           cap_scale=cap_scale) for w in parts]
+    pool_base = _gather([x.pool_base for _ur, x in heads], devs[0])
+    if len(parts) > 1:
+        # reconciliation #1: every pool's running base and group id
+        gid_all = _gather([w.group_id for w in parts], devs[0])
+        group = [group_bases(pool_base.to(d), gid_all.to(d),
+                             w.group_id).contiguous()
+                 for w, d in zip(parts, devs)]
+    else:
+        group = [None]
+    # pass 2: the rest of the cycle on each slot's block
+    outs = [stages.admit_match(w, ur, x, gpu_mode=gpu_mode,
+                               max_over_quota_jobs=max_over_quota_jobs,
+                               considerable_cap=considerable_cap,
+                               group_base=g)
+            for w, (ur, x), g in zip(parts, heads, group)]
+    res = MegaCycleResult(*(_gather([getattr(r, f) for r, _c in outs],
+                                    devs[0])
+                            for f in MegaCycleResult._fields))
+    if not stats:
+        return res
+    # reconciliation #2: every pool's matched usage, the placement total
+    used = [window32_sum(c.res_c * (r.cand_assign >= 0)[..., None],
+                         dim=1)[:, :4] for r, c in outs]
+    group_base = _gather([x.group_base for _ur, x in heads]
+                         if group[0] is None else group, devs[0])
+    return MeshCycleResult(
+        *res, pool_base=pool_base, group_base=group_base,
+        matched_usage=_gather(used, devs[0]),
+        total_matched=_psum([_placed(r.cand_assign) for r, _c in outs],
+                            devs[0]))
+
+
+def compact_wire(inp: CompactPoolCycleInputs):
+    """The wide ``MegaCycleWire`` of the compact inputs on their device:
+    i32 rows, f32 hosts, the host vectors bit-packed, the no-op gang
+    wire."""
+    from ..ops.pallas_cycle import MegaCycleWire, empty_gang_wire
+    from ..ops.quant import pack_bits_device
+    P, T = inp.rows.shape
+    H = inp.avail.shape[1]
+    dev = inp.rows.device
+    gang = [torch.from_numpy(a).to(dev) for a in empty_gang_wire(P, T, H)]
+    return MegaCycleWire(
+        rows=inp.rows.to(torch.int32), flags=inp.flags,
+        res_base=inp.res_base, disk_base=inp.disk_base,
+        tokens_u=inp.tokens_u, shares_u=inp.shares_u, quota_u=inp.quota_u,
+        num_considerable=inp.num_considerable, pool_quota=inp.pool_quota,
+        group_quota=inp.group_quota, group_id=inp.group_id,
+        host_bits=torch.stack([pack_bits_device(inp.host_gpu),
+                               pack_bits_device(inp.host_blocked)], dim=1),
+        exc_rows=inp.exc_rows, exc_mask=inp.exc_mask, avail=inp.avail,
+        capacity=inp.capacity, gang_id=gang[0], gang_size=gang[1],
+        gang_attr=gang[2], host_topo=gang[3])
+
+
+def _mesh_dense(mesh, inp: PoolCycleInputs, **kw) -> DensePoolCycleResult:
+    """The dense cycle over a mesh (plain PyTorch on each slot's
+    device): each slot's pool bases, reconciliation #1, each slot's
+    pools, reconciliation #2."""
+    from .mesh import pool_sharding
+    devs = mesh.devices
+    layout = pool_sharding(mesh)
+    parts = [PoolCycleInputs(*blk)
+             for blk in zip(*(layout.shard(t) for t in inp))]
+    bases = [window32_sum(p.usage * (p.valid & ~p.pending)[..., None],
+                          dim=1)[:, :4] for p in parts]
+    base_all = _gather(bases, devs[0])
+    gid_all = _gather([p.group_id for p in parts], devs[0])
+    cols = [_dense_block(p, b, group_bases(base_all.to(d), gid_all.to(d),
+                                           p.group_id), **kw)
+            for p, b, d in zip(parts, bases, devs)]
+    total = _psum([_placed(c[3]) for c in cols], devs[0])
+    return _dense_result([_gather(c, devs[0]) for c in zip(*cols)], total)
+
+
+def make_pool_cycle(mesh, *, gpu_mode: bool = False,
+                    max_over_quota_jobs: int = 100,
                     considerable_cap: Optional[int] = None,
-                    structured: bool = False, compact: bool = False,
-                    device="cuda"):
-    """The cycle function for one device (the reference's
-    ``make_pool_cycle`` without its mesh): ``compact=True`` takes
-    :class:`CompactPoolCycleInputs` (:func:`pool_cycle`), otherwise the
-    dense :class:`PoolCycleInputs` (:func:`dense_pool_cycle`; the
+                    structured: bool = False, compact: bool = False):
+    """The pool-sharded cycle over ``mesh`` (``parallel/mesh.pool_mesh``
+    or ``multislice_pool_mesh``): each slot runs its contiguous pool
+    block on its device; the pool axis must divide over the slots.
+
+    ``compact=True`` takes :class:`CompactPoolCycleInputs` and runs
+    :func:`mesh_megacycle` on its wide wire (:func:`compact_wire`: the
+    stage kernels on a card, their plain versions on the CPU), returning
+    a :class:`MeshCycleResult`.  Otherwise it takes the dense
+    :class:`PoolCycleInputs` and runs the plain dense cycle on each
+    slot's device, returning the reference's result
+    (:class:`DensePoolCycleResult`); the dense form's card route is
+    ``ops/pallas_cycle.dense_wire`` through :func:`mesh_megacycle`.  The
     structured non-compact form has no caller in either package's
-    drivers and is not offered)."""
+    drivers and is not offered."""
     if compact:
         if considerable_cap is None:
             raise ValueError("the compact cycle needs a considerable_cap")
-        return lambda inp: pool_cycle(
-            inp, considerable_cap=considerable_cap, gpu_mode=gpu_mode,
-            max_over_quota_jobs=max_over_quota_jobs, device=device)
+
+        def cycle(inp: CompactPoolCycleInputs) -> MeshCycleResult:
+            cap = int(min(considerable_cap, inp.rows.shape[1]))
+            return mesh_megacycle(
+                mesh, compact_wire(inp), gpu_mode=gpu_mode,
+                max_over_quota_jobs=max_over_quota_jobs,
+                considerable_cap=cap, stats=True)
+        return cycle
     if structured:
         raise ValueError("make_pool_cycle: structured=True needs "
                          "compact=True here")
-    return lambda inp: dense_pool_cycle(
-        inp, gpu_mode=gpu_mode, max_over_quota_jobs=max_over_quota_jobs,
-        considerable_cap=considerable_cap, device=device)
+    return lambda inp: _mesh_dense(
+        mesh, inp, gpu_mode=gpu_mode,
+        max_over_quota_jobs=max_over_quota_jobs,
+        considerable_cap=considerable_cap)
 
 
 def pool_bases(usage, pending, valid, group_id):
@@ -461,22 +649,21 @@ def pool_bases(usage, pending, valid, group_id):
     reference's bits."""
     run = usage * (valid & ~pending)[..., None]
     pool_base = window32_sum(run, dim=1)[:, :4]
-    same = (group_id[None, :] == group_id[:, None]) & (group_id[:, None] >= 0)
-    group_base = torch.stack([
-        window32_sum(pool_base * same[p][:, None], dim=0)
-        for p in range(pool_base.shape[0])])
-    return pool_base, group_base
+    return pool_base, group_bases(pool_base, group_id, group_id)
 
 
 def pool_cycle(inp: CompactPoolCycleInputs, *, considerable_cap: int,
                gpu_mode: bool = False, max_over_quota_jobs: int = 100,
-               device="cuda") -> PoolCycleResult:
-    """The fused cycle over P pools on one device (plain PyTorch)."""
+               device="cuda", group_base=None) -> PoolCycleResult:
+    """The fused cycle over P pools on one device (plain PyTorch).
+    ``group_base`` (f32[P, 4]), where given, replaces the quota-group
+    base summed over these pools (a mesh slot's gathered one)."""
     dev = resolve_device(device)
     inp = CompactPoolCycleInputs(*(t.to(dev) for t in inp))
     s = expand_compact(inp)
-    pool_base, group_base = pool_bases(s.usage, s.pending, s.valid,
-                                       s.group_id)
+    pool_base, own_base = pool_bases(s.usage, s.pending, s.valid,
+                                     s.group_id)
+    group_base = own_base if group_base is None else group_base.to(dev)
     outs = []
     for p in range(inp.rows.shape[0]):
         outs.append(_pool_cycle_structured(

@@ -42,7 +42,13 @@ instead (the entity pack: ``build_user_tasks``, a dense bool[T, H]
 constraint mask) and the group runs the dense-mask cycle
 (``ops/pallas_cycle.dense_wire``: the same stage kernels, every task its
 own exception row).  ``warmup`` runs every stage kernel once at the
-configured bucket grid.  Not ported: the mesh.  A fault in the resident
+configured bucket grid.  With a pool mesh of more than one slot
+(``mesh=``, ``parallel/mesh``) every group dispatches through the
+sharded cycle (``parallel/sharded.mesh_megacycle``: each slot's pool
+block on its device, the quota-group base gathered across slots), the
+pool axis padded to a multiple of the slots, and the resident wire is
+one [P_k, T] rows/flags pair a slot on that slot's device
+(``parallel/mesh.pool_sharding``).  A fault in the resident
 delta (its extraction or its scatter) repacks the resident wire, as the
 reference's does; a failed launch, full upload or mirror sync raises
 (``Scheduler.step_cycle`` then degrades that cycle to the split path).
@@ -265,7 +271,9 @@ class ResidentSync(NamedTuple):
     """What one :func:`sync_resident` did.  ``reason``: ``delta``,
     ``empty``, or the repack's (:data:`REPACK_REASONS`); ``k``: the
     positions that differ from the shadow (0 where no diff was taken);
-    ``h2d_bytes``: the scatter batch's or the full upload's bytes."""
+    ``h2d_bytes``: the scatter batch's or the full upload's bytes.  A
+    multi-slot mesh's sync (``FusedCycleDriver._sync_resident``) holds
+    a list of each slot's buffers in ``rows_dev`` and ``flags_dev``."""
 
     rows_dev: torch.Tensor   # i32[P, T]
     flags_dev: torch.Tensor  # u8[P, T]
@@ -523,12 +531,15 @@ class FusedCycleDriver:
     ``megacycle`` (the reference picks between it and the fused XLA
     cycle, which decide identically): a columnar group on the compact
     wire, an entity-pack group (``columnar_index=False``) on the dense
-    wire.  Not ported: the mesh.  A failed resident delta repacks
-    (:func:`sync_resident`); a failed launch, full upload or mirror sync
-    raises."""
+    wire.  ``mesh`` (``parallel/mesh.PoolMesh``, its first slot on
+    ``device``) defaults to one slot on ``device``; with more slots each
+    group runs the sharded cycle (:meth:`mesh`).  A failed resident
+    delta repacks (:func:`sync_resident`); a failed launch, full upload
+    or mirror sync raises."""
 
     def __init__(self, store: Store, config: Config, matcher: Matcher,
-                 plugins, rate_limits, device="cuda", shard_id=None):
+                 plugins, rate_limits, device="cuda", mesh=None,
+                 shard_id=None):
         self.store = store
         self.config = config
         self.matcher = matcher
@@ -539,14 +550,23 @@ class FusedCycleDriver:
             # the split match and the gang reduction run on the matcher's
             raise ValueError(f"FusedCycleDriver on {self.device}, its "
                              f"matcher on {matcher.device}")
-        # the controller shard this driver's process owns (the mesh that
-        # would make it matter is not ported: one device)
+        if mesh is not None and mesh.devices[0] != self.device:
+            # the sharded cycle gathers its outputs onto the first slot
+            raise ValueError(f"FusedCycleDriver on {self.device}, its "
+                             f"mesh's first slot on {mesh.devices[0]}")
+        self._mesh = mesh
+        # sharded-controller mode: this process owns ONE mesh shard, so
+        # the [P, ...] pool-stacked arrays it builds cover only its
+        # partition's pools (mesh() refuses a multi-slot mesh with it)
         self.shard_id = shard_id
         # device mirror of the index's immutable res/disk base columns
         self._mirror = DeviceBaseMirror(self.device)
         # the resident [P, T] rows/flags wire, keyed by DRU mode
         self._resident: Dict[bool, ResidentPack] = {}
         self._applier = PackDeltaApplier(self.device)
+        # with a multi-slot mesh: the same, one a slot on its device
+        self._slot_resident: List[Dict[bool, ResidentPack]] = []
+        self._slot_appliers: List[PackDeltaApplier] = []
         # quiet-pool fast path: the index's delta feed tells the pack
         # when a pool saw no churn since its last pack
         self._delta_cid: Optional[int] = None
@@ -558,6 +578,27 @@ class FusedCycleDriver:
         # the side stream the lazy queue fetches copy on (a card only)
         self._queue_stream = None
 
+    # ------------------------------------------------------------------ mesh
+    def mesh(self):
+        """The pool mesh the cycle runs over: one slot on the driver's
+        device unless one was given.  A controller shard (``shard_id``)
+        with a mesh of more than one slot raises
+        ``ShardAlignmentError``."""
+        if self._mesh is None:
+            from ..parallel.mesh import POOL_AXIS, PoolMesh
+            self._mesh = PoolMesh([self.device], (POOL_AXIS,))
+        if self.shard_id is not None and self._mesh.size > 1:
+            # one partition = one process = one mesh shard: a shard
+            # worker driving a multi-slot pool mesh would commit
+            # resident buffers for pools OTHER processes own
+            from ..parallel.mesh import ShardAlignmentError
+            raise ShardAlignmentError(
+                f"controller shard {self.shard_id} was given a "
+                f"{self._mesh.size}-device pool mesh: a shard process "
+                "commits resident buffers for ITS pools only; give each "
+                "shard its local device slice")
+        return self._mesh
+
     # --------------------------------------------------------------- warmup
     def _megacycle_warm_selected(self) -> bool:
         """Does the warmup run the megacycle's codec variants (the
@@ -565,6 +606,9 @@ class FusedCycleDriver:
         the reference does: an explicit ``tpu-megakernel`` pin on any
         matcher, or ``auto`` on the accelerator (here a card, where the
         live path is the stage kernels)."""
+        if self.mesh().size > 1:
+            # the reference's megakernel serves a one-device mesh only
+            return False
         backends = {self.config.default_matcher.backend}
         backends.update(mc.backend for _rx, mc in self.config.pool_matchers)
         return "tpu-megakernel" in backends or (
@@ -617,7 +661,8 @@ class FusedCycleDriver:
             return out
 
         dev = self.device
-        P = 1  # one device: one pool per zero world, as the reference's
+        mesh = self.mesh()
+        P = mesh.size  # one pool a slot, as the reference's
         U = bucket(max(users, 1), minimum=8)
         E = 8  # exception bucket floor: no complex jobs in the zero world
         # the dispatch cap is bucket(max matcher cap over the group's
@@ -638,7 +683,8 @@ class FusedCycleDriver:
                 pallas_cycle.wire_from_numpy(fields, dev), gpu_mode=gm,
                 max_over_quota_jobs=self.config.max_over_quota_jobs,
                 considerable_cap=cap, rows_codec=rows_codec,
-                avail_scale=avail_scale, cap_scale=cap_scale, device=dev)
+                avail_scale=avail_scale, cap_scale=cap_scale, mesh=mesh,
+                device=dev)
             # wait for the cycle: one read of a result
             res.n_queue.cpu()
 
@@ -691,28 +737,32 @@ class FusedCycleDriver:
                 if self.config.resident_pack:
                     # the resident delta scatter at every delta bucket up
                     # to the buffer, into throwaway buffers of the live
-                    # buffers' shape: a wide batch, and with the quantized
-                    # wire an i8 and an i16 one
-                    n_flat = P * T
+                    # buffers' shape and place (one a slot, on the
+                    # slot's device): a wide batch, and with the
+                    # quantized wire an i8 and an i16 one
+                    Pk = P // mesh.size
+                    n_flat = Pk * T
                     kbs, k = set(), _DELTA_MIN_BUCKET
                     while k < n_flat:
                         kbs.add(k)
                         k *= 2
                     kbs.add(n_flat)  # the clamped top bucket
-                    zeros = np.zeros((P, T), dtype=np.int32)
-                    rows_b = resident_buffer(zeros, dev)
-                    flags_b = resident_buffer(zeros.astype(np.uint8), dev)
-                    for k in sorted(kbs):
-                        idx = np.arange(min(k, n_flat), dtype=np.int32)
-                        fl = np.zeros(idx.size, dtype=np.uint8)
-                        self._applier.apply(rows_b, flags_b, (P, T), idx,
-                                            np.zeros(idx.size, np.int32), fl)
-                        if self.config.quantized_wire:
-                            for off in (0, 1000):
-                                self._applier.apply(
-                                    rows_b, flags_b, (P, T), idx,
-                                    idx % T + off, fl, quantize=True)
-                    rows_b[-1:].cpu()
+                    zeros = np.zeros((Pk, T), dtype=np.int32)
+                    for applier in self._appliers():
+                        rows_b = resident_buffer(zeros, applier.device)
+                        flags_b = resident_buffer(zeros.astype(np.uint8),
+                                                  applier.device)
+                        for k in sorted(kbs):
+                            idx = np.arange(min(k, n_flat), dtype=np.int32)
+                            fl = np.zeros(idx.size, dtype=np.uint8)
+                            applier.apply(rows_b, flags_b, (Pk, T), idx,
+                                          np.zeros(idx.size, np.int32), fl)
+                            if self.config.quantized_wire:
+                                for off in (0, 1000):
+                                    applier.apply(
+                                        rows_b, flags_b, (Pk, T), idx,
+                                        idx % T + off, fl, quantize=True)
+                        rows_b[-1:].cpu()
         return runs
 
     # ------------------------------------------------------- resident pack
@@ -723,19 +773,57 @@ class FusedCycleDriver:
         Safe at any time: residency mirrors what the next full pack
         builds."""
         self._resident.clear()
+        for packs in self._slot_resident:
+            packs.clear()
         self._pack_cache.clear()
         self._mirror = DeviceBaseMirror(self.device)
+
+    def _appliers(self) -> List[PackDeltaApplier]:
+        """The delta appliers of the resident buffers: the driver's own
+        on a one-slot mesh, else one a slot, on the slot's device."""
+        mesh = self.mesh()
+        if mesh.size == 1:
+            return [self._applier]
+        if len(self._slot_appliers) != mesh.size:
+            self._slot_appliers = [PackDeltaApplier(d)
+                                   for d in mesh.devices]
+            self._slot_resident = [{} for _ in mesh.devices]
+        return self._slot_appliers
 
     def _sync_resident(self, gpu_mode: bool, key: Tuple, rows_p: np.ndarray,
                        flags_p: np.ndarray, epoch: int) -> ResidentSync:
         """Bring the resident [P, T] rows/flags buffers up to the staged
         host arrays (:func:`sync_resident`): a delta scatter in steady
         state, a full upload on a cold start, a reshape, a compaction, an
-        oversize delta or a failed diff or scatter (``fault``)."""
+        oversize delta or a failed diff or scatter (``fault``).  Over a
+        multi-slot mesh each slot syncs its own [P_k, T] block; the
+        returned sync has no [P, T] tensors (``rows_dev``/``flags_dev``
+        are lists, a slot's buffers each), its reason is a slot's repack
+        reason if any slot repacked, and ``k`` and ``h2d_bytes`` are
+        summed."""
+        quantize = bool(self.config.quantized_wire)
         with tracing.span("delta.apply", gpu=gpu_mode):
-            rs = sync_resident(self._resident, gpu_mode, key, rows_p,
-                               flags_p, epoch, applier=self._applier,
-                               quantize=bool(self.config.quantized_wire))
+            if self.mesh().size == 1:
+                rs = sync_resident(self._resident, gpu_mode, key, rows_p,
+                                   flags_p, epoch, applier=self._applier,
+                                   quantize=quantize)
+            else:
+                from ..parallel.mesh import pool_sharding
+                appliers = self._appliers()
+                blocks = pool_sharding(self.mesh()).blocks(rows_p.shape[0])
+                slots = [sync_resident(packs, gpu_mode, key, rows_p[b],
+                                       flags_p[b], epoch, applier=applier,
+                                       quantize=quantize)
+                         for packs, applier, b in zip(
+                             self._slot_resident, appliers, blocks)]
+                reasons = [r.reason for r in slots]
+                reason = next((r for r in reasons
+                               if r not in ("delta", "empty")),
+                              "delta" if "delta" in reasons else "empty")
+                rs = ResidentSync([r.rows_dev for r in slots],
+                                  [r.flags_dev for r in slots], reason,
+                                  sum(r.k for r in slots),
+                                  sum(r.h2d_bytes for r in slots))
         if rs.reason == "delta":
             registry.counter_inc("cook_delta_rows", float(rs.k))
             _flight.note_delta(rs.k)
@@ -1579,7 +1667,11 @@ class FusedCycleDriver:
                               - missing_usage(gname)).astype(F32)
         T = bucket(max(pp.n_tasks for pp in group))
         H = bucket(max(max(pp.n_hosts, 1) for pp in group))
-        P = len(group)
+        # the pool axis divides over the mesh's slots: padding pools hold
+        # no valid row and belong to no quota group
+        n_dev = self.mesh().size
+        P = max(n_dev, -(-len(group) // n_dev) * n_dev)
+        pad = P - len(group)
         stage_t0 = time.perf_counter()
         avail_p = np.zeros((P, H, 4), dtype=F32)
         cap_p = np.zeros((P, H, 4), dtype=F32)
@@ -1588,10 +1680,13 @@ class FusedCycleDriver:
             cap_p[i, :pp.capacity.shape[0]] = pp.capacity
         scalars = dict(
             num_considerable=np.array(
-                [pp.num_considerable for pp in group], dtype=np.int32),
-            pool_quota=np.stack([pp.pool_quota for pp in group]),
-            group_quota=np.stack([pp.group_quota for pp in group]),
-            group_id=np.array([pp.group_id for pp in group],
+                [pp.num_considerable for pp in group] + [0] * pad,
+                dtype=np.int32),
+            pool_quota=np.stack([pp.pool_quota for pp in group]
+                                + [np.full(4, INF, F32)] * pad),
+            group_quota=np.stack([pp.group_quota for pp in group]
+                                 + [np.full(4, INF, F32)] * pad),
+            group_id=np.array([pp.group_id for pp in group] + [-1] * pad,
                               dtype=np.int32))
         # the static match cap: the configured max_jobs_considered (at
         # least every pool's dynamic num_considerable), bucketed
@@ -1644,17 +1739,28 @@ class FusedCycleDriver:
             key = (tuple(pp.pool.name for pp in group), P, T)
             rs = self._sync_resident(gpu_mode, key, rows_p, flags_p, epoch)
             rows_dev, flags_dev = rs.rows_dev, rs.flags_dev
+        slot_rows = None
+        if isinstance(rows_dev, list):
+            # a multi-slot mesh: the wire carries no rows/flags; each
+            # slot's resident pair joins its block at the dispatch
+            slot_rows = list(zip(rows_dev, flags_dev))
+            rows_dev = torch.empty((0,), dtype=torch.int32,
+                                   device=self.device)
+            flags_dev = torch.empty((0,), dtype=torch.uint8,
+                                    device=self.device)
         mega = stage_mega_wire(
             rows_p=rows_p, flags_p=flags_p,
-            n_tasks=[pp.n_tasks for pp in group], res_base=mir_res,
-            disk_base=mir_disk, tokens_u_p=tokens_u_p,
+            n_tasks=[pp.n_tasks for pp in group] + [0] * pad,
+            res_base=mir_res, disk_base=mir_disk, tokens_u_p=tokens_u_p,
             shares_u_p=shares_u_p, quota_u_p=quota_u_p, scalars=scalars,
             host_gpu_p=host_gpu_p, host_blocked_p=host_blocked_p,
             exc_rows_p=exc_rows_p, exc_mask_p=exc_mask_p, avail_p=avail_p,
-            cap_p=cap_p, gang_wires=[pp.gang_wire for pp in group],
+            cap_p=cap_p,
+            gang_wires=[pp.gang_wire for pp in group] + [None] * pad,
             quantize=bool(self.config.quantized_wire),
             scales=self._mega_scales, rows_dev=rows_dev,
             flags_dev=flags_dev, resident=resident, device=self.device)
+        mega["slot_rows"] = slot_rows
         stage_ms = (time.perf_counter() - stage_t0) * 1000.0
         _flight.note_phase_detail("stage", stage_ms)
         return _StagedGroup(gpu_mode=gpu_mode, group=group, cap=cap, T=T,
@@ -1673,13 +1779,14 @@ class FusedCycleDriver:
         index are uploaded beside it (no base mirror, no resident
         buffers: the dense form is rebuilt every cycle, as the
         reference's is)."""
-        P = len(group)
+        P = avail_p.shape[0]
 
         def stack(fn, fill, dtype):
             out = []
             for pp in group:
                 a = np.asarray(fn(pp))
                 out.append(pad_to(a, T, fill=fill))
+            out += [np.full_like(out[0], fill)] * (P - len(group))
             return np.stack(out).astype(dtype)
 
         arr = lambda k, fill, dt: stack(lambda pp: pp.arrays[k], fill, dt)
@@ -1730,15 +1837,21 @@ class FusedCycleDriver:
         m = sg.mega
         telemetry.profile_upload(sg.stage_ms, list(m["wire"]))
         telemetry.count_transfer("h2d", m["h2d_bytes"])
+        mesh = self.mesh()
+        kw = dict(gpu_mode=sg.gpu_mode,
+                  max_over_quota_jobs=self.config.max_over_quota_jobs,
+                  considerable_cap=min(sg.cap, sg.T),
+                  rows_codec=m["rows_codec"], avail_scale=m["avail_scale"],
+                  cap_scale=m["cap_scale"])
         with tracing.span("fused.dispatch", pools=len(sg.group),
                           tasks=sg.T, hosts=sg.H, gpu=sg.gpu_mode,
                           stage_ms=sg.stage_ms, megakernel=True):
-            res = megacycle(
-                m["wire"], gpu_mode=sg.gpu_mode,
-                max_over_quota_jobs=self.config.max_over_quota_jobs,
-                considerable_cap=min(sg.cap, sg.T),
-                rows_codec=m["rows_codec"], avail_scale=m["avail_scale"],
-                cap_scale=m["cap_scale"], device=self.device)
+            if mesh.size == 1:
+                res = megacycle(m["wire"], device=self.device, **kw)
+            else:
+                from ..parallel.sharded import mesh_megacycle
+                res = mesh_megacycle(mesh, m["wire"],
+                                     slot_rows=m.get("slot_rows"), **kw)
             outs = [getattr(res, k).to(torch.int32).reshape(-1)
                     for k in _FETCHED]
             flat = torch.cat(outs)

@@ -248,7 +248,9 @@ def test_port_imports_neither_jax_nor_cook_tpu():
     assert {REPO / "cook_tpu_torch/cluster/remote.py",
             REPO / "cook_tpu_torch/agent/executor.py",
             REPO / "cook_tpu_torch/state/partition.py",
-            REPO / "cook_tpu_torch/parallel/mesh.py"} <= set(files)
+            REPO / "cook_tpu_torch/parallel/mesh.py",
+            REPO / "cook_tpu_torch/parallel/sharded.py",
+            REPO / "cook_tpu_torch/sched/shard.py"} <= set(files)
     k8s = {f.name for f in (REPO / "cook_tpu/cluster/k8s").glob("*.py")}
     assert len(k8s) == 9
     assert {REPO / "cook_tpu_torch/cluster/k8s" / n for n in k8s} \
@@ -264,11 +266,12 @@ def test_port_imports_neither_jax_nor_cook_tpu():
 
 def test_k8s_backend_loads_neither_jax_nor_cook_tpu():
     """Importing every module of the port's Kubernetes backend, the
-    partitioned write plane, the mesh's host helpers, and the node that
-    builds its lease elector and opens partitions, loads no ``jax`` and
-    no ``cook_tpu`` module."""
+    partitioned write plane, the pool mesh, the sharded cycle, the shard
+    controllers, and the node that builds its lease elector and opens
+    partitions, loads no ``jax`` and no ``cook_tpu`` module."""
     code = ("import sys, cook_tpu_torch.cluster.k8s, "
             "cook_tpu_torch.state.partition, cook_tpu_torch.parallel.mesh, "
+            "cook_tpu_torch.parallel.sharded, cook_tpu_torch.sched.shard, "
             "cook_tpu_torch.cluster.k8s.real_api, "
             "cook_tpu_torch.cluster.k8s.mock_apiserver, "
             "cook_tpu_torch.cluster.k8s.testcerts, "

@@ -28,6 +28,7 @@ from cook_tpu.parallel import make_pool_cycle as jax_make_pool_cycle
 from cook_tpu.parallel.mesh import POOL_AXIS
 from cook_tpu_torch.ops import pallas_cycle as tpc
 from cook_tpu_torch.parallel import sharded as tsh
+from cook_tpu_torch.parallel.mesh import pool_mesh
 
 F32 = np.float32
 INF = np.inf
@@ -146,7 +147,7 @@ def test_dense_plain_cycle_matches_the_reference(seed, gpu_mode):
     cap = 16
     ref = jax_dense_cycle(fields, cap, gpu_mode)
     got = tsh.make_pool_cycle(
-        gpu_mode=gpu_mode, considerable_cap=cap, device="cpu")(
+        pool_mesh(1, "cpu"), gpu_mode=gpu_mode, considerable_cap=cap)(
             tsh.dense_inputs_from_numpy(fields, "cpu"))
     n = ref.n_queue
     for k in ("order", "num_ranked", "assign", "match_valid", "queue_ok",
@@ -217,7 +218,7 @@ def test_single_pool_cycle_matches_the_reference():
 
 def test_make_pool_cycle_refuses_the_structured_dense_form():
     with pytest.raises(ValueError, match="compact"):
-        tsh.make_pool_cycle(structured=True, device="cpu")
+        tsh.make_pool_cycle(pool_mesh(1, "cpu"), structured=True)
 
 
 # ------------------------------------------------------------ driver level
