@@ -626,6 +626,13 @@ def build_world(rng, live=LIVE, users=USERS, hosts=HOSTS, gangs=GANGS,
         gang_groups=groups, gang_offers=offers)
 
 
+def driver_wire(sg):
+    """The staged wire of a ``FusedCycleDriver`` group on its default
+    one-slot mesh."""
+    (wire,) = sg.mega["wires"]
+    return wire
+
+
 def stage(w, res_dev, disk_dev, scales, device="cuda", quantize=True,
           rows=None, flags=None, **resident):
     """``stage_mega_wire`` on the world's host arrays (or on ``rows`` /
@@ -2337,7 +2344,7 @@ def driver_cycle(s, kind: str, i: int, check: bool = True) -> dict:
         if check:
             m = sg.mega
             ref = megacycle_plain(
-                m["wire"], gpu_mode=sg.gpu_mode,
+                driver_wire(sg), gpu_mode=sg.gpu_mode,
                 max_over_quota_jobs=s.cfg.max_over_quota_jobs,
                 considerable_cap=min(sg.cap, sg.T),
                 rows_codec=m["rows_codec"], avail_scale=m["avail_scale"],
@@ -2793,7 +2800,7 @@ def checking_dispatches(s, plain=True):
 
     def dispatch(sg):
         seen.dispatches.append(sg.sync.reason if sg.sync else None)
-        wire = (MegaCycleWire(*(t.clone() for t in sg.mega["wire"]))
+        wire = (MegaCycleWire(*(t.clone() for t in driver_wire(sg)))
                 if plain else None)
         gd = real_dispatch(sg)
         clones[id(gd)] = (len(seen.dispatches) - 1, wire)
@@ -5789,9 +5796,19 @@ SH_WORLD = {"n_jobs": 100_000, "n_users": 200, "hosts_per_pool": 1_250,
 SH_CFG = {"resident": True, "quantized": True, "depth": 0}
 SH_SMALL = {"n_jobs": 1_600, "n_users": 20, "hosts_per_pool": 8,
             "host_cpus": 16.0, "host_mem": 16384.0, "seed": 5}
+# SH1's driver leg: 4 pools of 1,500 jobs over 200 hosts each, the quota
+# groups spanning the two slots.  A cycle admits up to 1,000 jobs of 1-3
+# cpus a pool, so after the first (about 2,000 cpus a pool running) a
+# group's cap leaves each of its pools 500-700 cpus of the about 1,000
+# its last 500 jobs ask, where a slot-local group base would leave 2,500
+SH_DRIVER_WORLD = {"n_jobs": 6_000, "n_users": 200, "hosts_per_pool": 200,
+                   "host_cpus": 16.0, "host_mem": 16384.0, "seed": 7}
+SH_DRIVER_GROUPS = {"pool0": "g0", "pool2": "g0", "pool1": "g1",
+                    "pool3": "g1"}
+SH_DRIVER_CPUS = {"g0": 4_500.0, "g1": 4_700.0}
+SH_DRIVER_CYCLES = 3
 SH_WARM, SH_TIMED = 2, 3
 SH_MAX_AGE_S = 2.0
-SH_BOOT_S = 300.0
 SH_CYCLE_TIMEOUT_S = 300.0
 
 
@@ -5827,6 +5844,44 @@ def sh_sync(card: bool) -> None:
         torch.cuda.synchronize()
 
 
+def sh_driver(device, mesh=None):
+    """A ``Scheduler`` over ``SH_DRIVER_WORLD``'s 4 pools (``SH_CFG``:
+    resident, quantized, depth 0; the quota groups ``SH_DRIVER_GROUPS``)
+    and a ``FusedCycleDriver`` on ``device`` over ``mesh`` (default one
+    slot).  Returns (store, scheduler, driver)."""
+    from cook_tpu_torch.cluster import FakeCluster
+    from cook_tpu_torch.config import PoolQuota
+    from cook_tpu_torch.sched.fused import FusedCycleDriver
+    from cook_tpu_torch.sched.scheduler import Scheduler
+    from cook_tpu_torch.sched.shard import (build_world_hosts,
+                                            build_world_jobs,
+                                            config_from_spec)
+    from cook_tpu_torch.state.schema import Pool
+    from cook_tpu_torch.state.store import Store
+    cfg = config_from_spec(SH_CFG)
+    cfg.quota_groups = dict(SH_DRIVER_GROUPS)
+    cfg.quota_group_quotas = {g: PoolQuota(cpus=c)
+                              for g, c in SH_DRIVER_CPUS.items()}
+    store = Store()
+    for name in SH_POOLS:
+        store.put_pool(Pool(name=name))
+    cluster = FakeCluster("fake-mesh",
+                          build_world_hosts(SH_DRIVER_WORLD, SH_POOLS))
+    sched = Scheduler(store, cfg, [cluster], rank_backend="tpu",
+                      device=device)
+    store.create_jobs(build_world_jobs(SH_DRIVER_WORLD, SH_POOLS))
+    drv = FusedCycleDriver(store, cfg, sched.matcher, sched.plugins,
+                           sched.rate_limits, device=device, mesh=mesh)
+    return store, sched, drv
+
+
+def sh_pairs(store, jobs) -> set:
+    """The launched (job uuid, hostname) pairs of ``jobs``."""
+    return {(j.uuid, store.instance(t).hostname)
+            for j in jobs for t in store.job(j.uuid).instances
+            if store.instance(t) is not None}
+
+
 def phase_sh1(device="cuda", **size) -> dict:
     """The mesh cycle: phase A's wire with slot-spanning quota groups
     through ``make_pool_cycle(mesh, compact=True)`` on 1, 2 and 4 slots
@@ -5836,8 +5891,12 @@ def phase_sh1(device="cuda", **size) -> dict:
     wire (and the gathered bases to the one-device plain bases); the
     wire's blocks on their own (each slot's group base its own) decide
     otherwise.  Then the negotiated wire (quantized, gangs) through
-    ``megacycle(mesh=)`` on two slots, equal to one device.  The
-    launches of the mesh cycles are the path ``mesh_cycle``."""
+    ``mesh_megacycle`` on two slots, equal to one device; and
+    ``FusedCycleDriver`` over two slots (resident and quantized: a cold
+    repack, then delta scatters into each slot's buffers), its launched
+    (job uuid, hostname) pairs equal to the one-slot driver's after
+    every cycle.  The launches of the mesh cycles and of the two-slot
+    driver are the path ``mesh_cycle``."""
     from cook_tpu_torch.ops import cuda_lib, telemetry
     from cook_tpu_torch.ops.pallas_cycle import (MegaCycleResult,
                                                  MegaCycleWire, megacycle,
@@ -5845,7 +5904,9 @@ def phase_sh1(device="cuda", **size) -> dict:
     from cook_tpu_torch.parallel.mesh import pool_sharding
     from cook_tpu_torch.parallel.sharded import (compact_inputs_from_numpy,
                                                  compact_wire,
-                                                 make_pool_cycle, pool_cycle)
+                                                 make_pool_cycle,
+                                                 mesh_megacycle, pool_cycle,
+                                                 shard_wire)
     card = device == "cuda"
     dev = "cuda:0" if card else "cpu"
     t0 = time.perf_counter()
@@ -5887,13 +5948,15 @@ def phase_sh1(device="cuda", **size) -> dict:
             max_err(getattr(got, k), getattr(want, k))
         max_err(got.pool_base, bases.pool_base)
         max_err(got.group_base, bases.group_base)
+        parts = shard_wire(mesh, wire)
         t1 = time.perf_counter()
         if card:
-            ms = cuda_ms(lambda: megacycle(wire, considerable_cap=cap,
-                                           mesh=mesh, device=dev), SH_REPS)
+            ms = cuda_ms(lambda: mesh_megacycle(mesh, parts,
+                                                considerable_cap=cap),
+                         SH_REPS)
             full_ms = cuda_ms(lambda: cycle(inp), SH_REPS)
         else:
-            megacycle(wire, considerable_cap=cap, mesh=mesh, device=dev)
+            mesh_megacycle(mesh, parts, considerable_cap=cap)
             ms = full_ms = (time.perf_counter() - t1) * 1e3
         out["meshes"][name] = {
             "slots": mesh.size, "axes": list(mesh.axis_names),
@@ -5921,9 +5984,10 @@ def phase_sh1(device="cuda", **size) -> dict:
     staged = stage(w, res_dev, disk_dev, {}, device=dev)
     args = megacycle_args(staged)
     one = megacycle(staged["wire"], device=dev, **args)
-    two, launched = counted(
-        lambda: megacycle(staged["wire"], mesh=sh_mesh((2,), dev),
-                          device=dev, **args), "phase SH1 negotiated")
+    mesh2 = sh_mesh((2,), dev)
+    parts = shard_wire(mesh2, staged["wire"])
+    two, launched = counted(lambda: mesh_megacycle(mesh2, parts, **args),
+                            "phase SH1 negotiated")
     for k in MegaCycleResult._fields:
         max_err(getattr(two, k), getattr(one, k))
     out["negotiated_2"] = {
@@ -5931,6 +5995,7 @@ def phase_sh1(device="cuda", **size) -> dict:
                    str(staged["cap_scale"])],
         "placed": int((two.cand_gang >= 0).sum()),
         "dropped": int(two.cand_dropped.sum()), "launches": launched}
+    out["driver_2"] = sh1_driver(dev, counted)
     missing = [k for k in SOURCES if counts.get(k, 0) <= 0]
     if card and missing:
         raise AssertionError(f"phase SH1: kernels not launched: {missing}")
@@ -5940,6 +6005,60 @@ def phase_sh1(device="cuda", **size) -> dict:
                wall_s=time.perf_counter() - t0)
     print(json.dumps(out))
     return counts
+
+
+def sh1_driver(dev, counted) -> dict:
+    """SH1's driver leg: one-slot and two-slot ``FusedCycleDriver``s on
+    ``dev`` over the same world, ``SH_DRIVER_CYCLES`` synchronous cycles
+    each (a cold repack, then delta scatters); the two-slot driver's
+    cycles go through ``counted`` (launches recorded and replayed).
+    Their launched pairs must be equal after every cycle; the resident
+    path is the cold repack first and then the delta (or, where no slot
+    changed, none), with at least one delta."""
+    from cook_tpu_torch.ops import telemetry
+    from cook_tpu_torch.sched.shard import build_world_jobs
+    t0 = time.perf_counter()
+    jobs = build_world_jobs(SH_DRIVER_WORLD, SH_POOLS)
+    one_store, one_sched, one = sh_driver(dev)
+    two_store, two_sched, two = sh_driver(dev, sh_mesh((2,), dev))
+    out = {"world": SH_DRIVER_WORLD, "groups": SH_DRIVER_GROUPS,
+           "group_cpus": SH_DRIVER_CPUS, "cycles": []}
+    try:
+        for c in range(SH_DRIVER_CYCLES):
+            one.step(one_sched)
+
+            def step():
+                two.step(two_sched)
+                return telemetry.events()
+            ev, launched = counted(step, f"phase SH1 driver cycle {c}")
+            for s in (one_sched, two_sched):
+                s.flush_status_updates()
+            pairs = [sh_pairs(one_store, jobs), sh_pairs(two_store, jobs)]
+            if pairs[0] != pairs[1]:
+                raise AssertionError(
+                    f"phase SH1 driver cycle {c}: two slots launched "
+                    f"{len(pairs[1])} pairs, one slot {len(pairs[0])}, "
+                    f"{len(pairs[0] ^ pairs[1])} differ")
+            repacks = sorted(k for k in ev if k.startswith("resident.repack"))
+            path = ("cold" if repacks == ["resident.repack.cold"] else
+                    repacks or ("delta" if ev.get("resident.delta_rows")
+                                else "empty"))
+            if path not in (("cold",) if c == 0 else ("delta", "empty")):
+                raise AssertionError(f"phase SH1 driver cycle {c}: the "
+                                     f"resident path was {path}")
+            out["cycles"].append({"running": len(pairs[1]), "path": path,
+                                  "delta_rows": ev.get(
+                                      "resident.delta_rows", 0),
+                                  "launches": launched})
+    finally:
+        one_sched.shutdown()
+        two_sched.shutdown()
+    if two.mesh().size != 2 or len(two._slots) != 2:
+        raise AssertionError("phase SH1 driver: not a two-slot driver")
+    if "delta" not in [c["path"] for c in out["cycles"]]:
+        raise AssertionError("phase SH1 driver: no delta cycle")
+    out.update(slots=2, equal=True, wall_s=time.perf_counter() - t0)
+    return out
 
 
 def sh_topology(n, world, device, root):

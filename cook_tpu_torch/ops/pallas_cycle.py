@@ -149,8 +149,7 @@ def megacycle_plain(wire: MegaCycleWire, *, gpu_mode: bool = False,
                     max_over_quota_jobs: int = 100,
                     considerable_cap: int = 1024,
                     rows_codec: int = quant.ROWS_WIDE,
-                    avail_scale=0.0, cap_scale=0.0,
-                    group_base=None) -> MegaCycleResult:
+                    avail_scale=0.0, cap_scale=0.0) -> MegaCycleResult:
     """The plain PyTorch cycle on the wire's own device: ``pool_cycle``
     then ``gang_reduce_body`` over each pool's candidate slots."""
     from ..parallel.sharded import pool_cycle
@@ -159,7 +158,7 @@ def megacycle_plain(wire: MegaCycleWire, *, gpu_mode: bool = False,
     inp = decode_wire(wire, rows_codec, avail_scale, cap_scale)
     res = pool_cycle(inp, considerable_cap=cap, gpu_mode=gpu_mode,
                      max_over_quota_jobs=max_over_quota_jobs,
-                     device=wire.rows.device, group_base=group_base)
+                     device=wire.rows.device)
     cand_gang, dropped = gang_reduce_candidates(
         res.cand_row, res.cand_assign, wire.gang_id, wire.gang_size,
         wire.gang_attr, wire.host_topo)
@@ -173,24 +172,16 @@ def megacycle(wire: MegaCycleWire, *, gpu_mode: bool = False,
               max_over_quota_jobs: int = 100,
               considerable_cap: int = 1024,
               rows_codec: int = quant.ROWS_WIDE,
-              avail_scale=0.0, cap_scale=0.0, mesh=None,
+              avail_scale=0.0, cap_scale=0.0,
               device="cuda") -> MegaCycleResult:
     """One fused scheduling cycle over every pool of the wire.  On
     ``cuda`` the CUDA stage kernels run it; on ``cpu`` the plain cycle.
-    The wire is moved to ``device`` first.  With a ``mesh``
-    (``parallel/mesh.PoolMesh``) of more than one slot, ``device`` is
-    ignored: each slot runs its pool block on its own device, the
-    quota-group base gathered over every slot
-    (``parallel/sharded.mesh_megacycle``), and the outputs land on the
-    first slot's."""
+    The wire is moved to ``device`` first."""
+    dev = resolve_device(device)
+    wire = MegaCycleWire(*(to_device(t, dev) for t in wire))
     kw = dict(gpu_mode=gpu_mode, max_over_quota_jobs=max_over_quota_jobs,
               considerable_cap=considerable_cap, rows_codec=rows_codec,
               avail_scale=avail_scale, cap_scale=cap_scale)
-    if mesh is not None and mesh.size > 1:
-        from ..parallel.sharded import mesh_megacycle
-        return mesh_megacycle(mesh, wire, **kw)
-    dev = resolve_device(device if mesh is None else mesh.devices[0])
-    wire = MegaCycleWire(*(to_device(t, dev) for t in wire))
     if dev.type == "cpu":
         return megacycle_plain(wire, **kw)
     from .stages import megacycle_stages

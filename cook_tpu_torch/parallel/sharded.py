@@ -474,6 +474,8 @@ def _gather(parts, dev) -> torch.Tensor:
     """The collectives' counterpart: every slot's block copied to ``dev``
     and concatenated in mesh order (pool-major: the reference's tiled
     ``all_gather``)."""
+    if len(parts) == 1:
+        return parts[0].to(dev)
     return torch.cat([t.to(dev) for t in parts])
 
 
@@ -490,16 +492,33 @@ def group_bases(base_all, gid_all, gid) -> torch.Tensor:
     return window32_sum(base_all[None, :, :] * same[:, :, None], dim=1)
 
 
-def mesh_megacycle(mesh, wire, *, gpu_mode: bool = False,
+REPLICATED = ("res_base", "disk_base")
+
+
+def shard_wire(mesh, wire) -> list:
+    """``wire`` (an ``ops/pallas_cycle.MegaCycleWire``) as one wire a
+    slot of ``mesh``: each pool-stacked field's block
+    (``parallel/mesh.pool_sharding``) on the slot's device, the
+    :data:`REPLICATED` index columns whole on every slot."""
+    from ..ops.pallas_cycle import MegaCycleWire, to_device
+    from .mesh import pool_sharding
+    blocks = pool_sharding(mesh).blocks(wire.group_id.shape[0])
+    return [MegaCycleWire(*(
+        to_device(t if f in REPLICATED else t[b], d).contiguous()
+        for f, t in zip(MegaCycleWire._fields, wire)))
+        for b, d in zip(blocks, mesh.devices)]
+
+
+def mesh_megacycle(mesh, parts, *, gpu_mode: bool = False,
                    max_over_quota_jobs: int = 100,
                    considerable_cap: int = 1024,
                    rows_codec: int = quant.ROWS_WIDE,
-                   avail_scale=0.0, cap_scale=0.0, stats: bool = False,
-                   slot_rows=None):
-    """``ops/pallas_cycle.megacycle`` over a mesh: each slot runs its
-    pool block of ``wire`` on its device through the stage chain (the
-    kernels on a card, their plain versions on the CPU), ``res_base``
-    and ``disk_base`` replicated.  Between K1 and the admission stage
+                   avail_scale=0.0, cap_scale=0.0, stats: bool = False):
+    """``ops/pallas_cycle.megacycle`` over a mesh: ``parts`` holds one
+    wire a slot, each its pool block on the slot's device
+    (:func:`shard_wire`, or the driver's staging), and each runs
+    through the stage chain (the kernels on a card, their plain
+    versions on the CPU).  Between K1 and the admission stage
     (``ops/stages.admit_match``'s ``group_base``) reconciliation #1
     gathers every slot's pool bases and group ids and sums each pool's
     quota-group base over all of them; with one slot K1's own base is
@@ -507,25 +526,13 @@ def mesh_megacycle(mesh, wire, *, gpu_mode: bool = False,
     launch.  The outputs are gathered onto the first slot's device.
     Returns the ``MegaCycleResult``, or with ``stats`` the
     :class:`MeshCycleResult` (reconciliation #2 adds every pool's
-    matched usage and the placement total).  ``slot_rows``, a (rows,
-    flags) pair a slot already on its device (the driver's resident
-    buffers, ``pool_sharding``'s blocks), takes the place of the wire's
-    rows and flags."""
+    matched usage and the placement total)."""
     from ..ops import stages
-    from ..ops.pallas_cycle import MegaCycleResult, MegaCycleWire, to_device
-    from .mesh import pool_sharding
+    from ..ops.pallas_cycle import MegaCycleResult
     devs = mesh.devices
-    blocks = pool_sharding(mesh).blocks(wire.group_id.shape[0])
-    replicated = {"res_base", "disk_base"}
-    parts = []
-    for k, (b, d) in enumerate(zip(blocks, devs)):
-        w = MegaCycleWire(*(
-            t if (f in ("rows", "flags") and slot_rows is not None)
-            else to_device(t if f in replicated else t[b], d).contiguous()
-            for f, t in zip(MegaCycleWire._fields, wire)))
-        if slot_rows is not None:
-            w = w._replace(rows=slot_rows[k][0], flags=slot_rows[k][1])
-        parts.append(w)
+    if len(parts) != len(devs):
+        raise ValueError(f"{len(parts)} slot wires for a "
+                         f"{len(devs)}-slot mesh")
     # pass 1: each slot's wire decode and phase-0 bases (K2 + K1)
     heads = [stages.decode(w, rows_codec=rows_codec, avail_scale=avail_scale,
                            cap_scale=cap_scale) for w in parts]
@@ -629,8 +636,8 @@ def make_pool_cycle(mesh, *, gpu_mode: bool = False,
         def cycle(inp: CompactPoolCycleInputs) -> MeshCycleResult:
             cap = int(min(considerable_cap, inp.rows.shape[1]))
             return mesh_megacycle(
-                mesh, compact_wire(inp), gpu_mode=gpu_mode,
-                max_over_quota_jobs=max_over_quota_jobs,
+                mesh, shard_wire(mesh, compact_wire(inp)),
+                gpu_mode=gpu_mode, max_over_quota_jobs=max_over_quota_jobs,
                 considerable_cap=cap, stats=True)
         return cycle
     if structured:
@@ -654,16 +661,13 @@ def pool_bases(usage, pending, valid, group_id):
 
 def pool_cycle(inp: CompactPoolCycleInputs, *, considerable_cap: int,
                gpu_mode: bool = False, max_over_quota_jobs: int = 100,
-               device="cuda", group_base=None) -> PoolCycleResult:
-    """The fused cycle over P pools on one device (plain PyTorch).
-    ``group_base`` (f32[P, 4]), where given, replaces the quota-group
-    base summed over these pools (a mesh slot's gathered one)."""
+               device="cuda") -> PoolCycleResult:
+    """The fused cycle over P pools on one device (plain PyTorch)."""
     dev = resolve_device(device)
     inp = CompactPoolCycleInputs(*(t.to(dev) for t in inp))
     s = expand_compact(inp)
-    pool_base, own_base = pool_bases(s.usage, s.pending, s.valid,
-                                     s.group_id)
-    group_base = own_base if group_base is None else group_base.to(dev)
+    pool_base, group_base = pool_bases(s.usage, s.pending, s.valid,
+                                       s.group_id)
     outs = []
     for p in range(inp.rows.shape[0]):
         outs.append(_pool_cycle_structured(

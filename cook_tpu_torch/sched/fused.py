@@ -4,10 +4,11 @@ host applies the assignments transactionally.
 
 ``FusedCycleDriver.step(scheduler)`` packs every active non-direct pool
 straight off the store's columnar index into the compact wire, groups the
-pools by DRU mode, stages each group (:func:`stage_mega_wire`, over the
+pools by DRU mode, stages each group (:func:`stage_slot_wires`, over the
 resident rows/flags of :func:`sync_resident` and the device base mirror),
-runs ``ops/pallas_cycle.megacycle`` on the driver's device (kernels K1-K6
-on a card, the plain cycle on the CPU), fetches the six compact outputs
+runs the cycle over the driver's pool mesh (``parallel/sharded.
+mesh_megacycle``: the stage kernels K1-K6 on a card, their plain
+versions on the CPU), fetches the six compact outputs
 with one wait, and walks them through the reference's apply path: queue
 publication, within-batch group placement, the gang pass with K6's
 verdicts, backoff and the transactional launch.
@@ -42,12 +43,11 @@ instead (the entity pack: ``build_user_tasks``, a dense bool[T, H]
 constraint mask) and the group runs the dense-mask cycle
 (``ops/pallas_cycle.dense_wire``: the same stage kernels, every task its
 own exception row).  ``warmup`` runs every stage kernel once at the
-configured bucket grid.  With a pool mesh of more than one slot
-(``mesh=``, ``parallel/mesh``) every group dispatches through the
-sharded cycle (``parallel/sharded.mesh_megacycle``: each slot's pool
-block on its device, the quota-group base gathered across slots), the
-pool axis padded to a multiple of the slots, and the resident wire is
-one [P_k, T] rows/flags pair a slot on that slot's device
+configured bucket grid.  The mesh (``mesh=``, ``parallel/mesh``) is one
+slot on the driver's device unless one is given; each slot runs its
+pool block on its device, the quota-group base gathered across slots,
+the pool axis is padded to a multiple of the slots, and the resident
+wire is one [P_k, T] rows/flags pair a slot on that slot's device
 (``parallel/mesh.pool_sharding``).  A fault in the resident
 delta (its extraction or its scatter) repacks the resident wire, as the
 reference's does; a failed launch, full upload or mirror sync raises
@@ -78,7 +78,7 @@ from ..ops.delta import (FLAG_LAUNCH_OK, DeviceBaseMirror,
                          PackDeltaApplier, resident_buffer)
 from ..ops.gang import GangWire
 from ..ops.padding import bucket, pad_to
-from ..ops.pallas_cycle import megacycle
+from ..parallel.sharded import mesh_megacycle, shard_wire
 from ..state.schema import DruMode, Job, Pool, SchedulerKind
 from ..state.store import Store
 from ..utils import audit as _audit
@@ -151,53 +151,56 @@ def pad_gangs(gang_wires: List[Optional[GangWire]], P: int, T: int, H: int):
     return gang_id, gang_size, gang_attr, host_topo
 
 
-def stage_mega_wire(*, rows_p: np.ndarray, flags_p: np.ndarray,
-                    n_tasks: List[int], res_base: torch.Tensor,
-                    disk_base: torch.Tensor, tokens_u_p: np.ndarray,
-                    shares_u_p: np.ndarray, quota_u_p: np.ndarray,
-                    scalars: Dict[str, np.ndarray], host_gpu_p: np.ndarray,
-                    host_blocked_p: np.ndarray, exc_rows_p: np.ndarray,
-                    exc_mask_p: np.ndarray, avail_p: np.ndarray,
-                    cap_p: np.ndarray,
-                    gang_wires: List[Optional[GangWire]],
-                    quantize: bool = True,
-                    scales: Optional[Dict[str, tuple]] = None,
-                    rows_dev: Optional[torch.Tensor] = None,
-                    flags_dev: Optional[torch.Tensor] = None,
-                    resident: bool = False,
-                    device="cuda") -> dict:
-    """Negotiate and upload one group's wire.  ``res_base``/``disk_base``
-    are the device base mirror; ``scalars`` holds ``num_considerable``,
-    ``pool_quota``, ``group_quota`` and ``group_id``.
+def stage_slot_wires(mesh, *, rows_p: np.ndarray, flags_p: np.ndarray,
+                     n_tasks: List[int], res_base: torch.Tensor,
+                     disk_base: torch.Tensor, tokens_u_p: np.ndarray,
+                     shares_u_p: np.ndarray, quota_u_p: np.ndarray,
+                     scalars: Dict[str, np.ndarray], host_gpu_p: np.ndarray,
+                     host_blocked_p: np.ndarray, exc_rows_p: np.ndarray,
+                     exc_mask_p: np.ndarray, avail_p: np.ndarray,
+                     cap_p: np.ndarray,
+                     gang_wires: List[Optional[GangWire]],
+                     quantize: bool = True,
+                     scales: Optional[Dict[str, tuple]] = None,
+                     slot_rows: Optional[List[Tuple]] = None,
+                     resident: bool = False) -> dict:
+    """Negotiate one group's wire once and upload it as one wire a slot
+    of ``mesh`` (``parallel/mesh.PoolMesh``): each slot's pool block
+    (``pool_sharding``) on the slot's device, ``res_base``/``disk_base``
+    (the device base mirror) whole on every slot.  ``scalars`` holds
+    ``num_considerable``, ``pool_quota``, ``group_quota`` and
+    ``group_id``.
 
-    ``resident``: ``rows_dev``/``flags_dev`` are the resident [P, T]
-    buffers (already synced, :func:`sync_resident`); they go in as wide
-    rows and add nothing to ``h2d_bytes``.  Without ``quantize``, given
-    device buffers are used as they are (their bytes counted, as the
-    reference counts them); otherwise rows and flags are uploaded.
-    Returns ``{"wire", "rows_codec", "avail_scale", "cap_scale",
+    ``slot_rows`` holds a (rows, flags) pair of device buffers a slot,
+    either of them None.  With ``resident`` they are the resident [P_k,
+    T] buffers (already synced, :func:`sync_resident`); they go in as
+    wide rows and add nothing to ``h2d_bytes``.  Without ``quantize``,
+    given device buffers are used as they are (their bytes counted, as
+    the reference counts them); otherwise rows and flags are uploaded.
+    Returns ``{"wires", "rows_codec", "avail_scale", "cap_scale",
     "h2d_bytes"}``."""
-    dev = resolve_device(device)
+    from ..parallel.mesh import pool_sharding
     P, T = rows_p.shape
     H = avail_p.shape[1]
     scales = {} if scales is None else scales
     h2d = 0
     rows_codec = quant.ROWS_WIDE
-    w_rows = w_flags = None
+    given = [(None, None)] * mesh.size
+    rows_host = rows_p
     if resident:
-        if rows_dev is None or flags_dev is None:
-            raise ValueError("resident staging needs rows_dev and flags_dev")
-        w_rows, w_flags = rows_dev, flags_dev
+        if slot_rows is None or any(r is None or f is None
+                                    for r, f in slot_rows):
+            raise ValueError("resident staging needs every slot's rows "
+                             "and flags buffers")
+        given = slot_rows
     elif quantize:
         qr = negotiate_rows(rows_p, n_tasks)
         rows_codec, rows_host = qr.codec, qr.data
         h2d += rows_host.nbytes + flags_p.nbytes
     else:
         rows_host = rows_p.astype(np.int32)
-        if rows_dev is not None:
-            w_rows = rows_dev
-        if flags_dev is not None:
-            w_flags = flags_dev
+        if slot_rows is not None:
+            given = slot_rows
         h2d += rows_p.nbytes + flags_p.nbytes
     avail_scale = cap_scale = 0.0
     if quantize:
@@ -214,26 +217,51 @@ def stage_mega_wire(*, rows_p: np.ndarray, flags_p: np.ndarray,
     gang_id, gang_size, gang_attr, host_topo = pad_gangs(gang_wires, P, T, H)
     h2d += (gang_id.nbytes + gang_size.nbytes + gang_attr.nbytes
             + host_topo.nbytes)
-    empty = np.zeros((0,), np.uint8)
     fields = dict(
-        rows=rows_host if w_rows is None else empty,
-        flags=flags_p if w_flags is None else empty, tokens_u=tokens_u_p,
+        rows=rows_host, flags=flags_p, tokens_u=tokens_u_p,
         shares_u=shares_u_p, quota_u=quota_u_p, host_bits=host_bits,
         exc_rows=exc_rows_p, exc_mask=exc_mask_p, avail=w_avail,
         capacity=w_cap, gang_id=gang_id, gang_size=gang_size,
-        gang_attr=gang_attr, host_topo=host_topo,
-        res_base=np.zeros((0, 4), np.float32),
-        disk_base=np.zeros((0,), np.float32), **scalars)
-    wire = pallas_cycle.wire_from_numpy(fields, dev)
-    wire = wire._replace(res_base=res_base.to(dev),
-                         disk_base=disk_base.to(dev))
-    if w_rows is not None:
-        wire = wire._replace(rows=w_rows.to(dev))
-    if w_flags is not None:
-        wire = wire._replace(flags=w_flags.to(dev))
-    return {"wire": wire, "rows_codec": rows_codec,
+        gang_attr=gang_attr, host_topo=host_topo, **scalars)
+    empty = {"rows": np.zeros((0,), np.int32),
+             "flags": np.zeros((0,), np.uint8),
+             "res_base": np.zeros((0, 4), np.float32),
+             "disk_base": np.zeros((0,), np.float32)}
+    wires = []
+    blocks = pool_sharding(mesh).blocks(P)
+    for b, d, (r_dev, f_dev) in zip(blocks, mesh.devices, given):
+        # the device buffers and the base mirror's columns go in as they
+        # are, the rest of the slot's block from the host
+        on_dev = dict(res_base=res_base, disk_base=disk_base)
+        if r_dev is not None:
+            on_dev["rows"] = r_dev
+        if f_dev is not None:
+            on_dev["flags"] = f_dev
+        block = {k: v[b] for k, v in fields.items() if k not in on_dev}
+        block.update({k: empty[k] for k in on_dev})
+        wire = pallas_cycle.wire_from_numpy(block, d)
+        wires.append(wire._replace(**{k: t.to(d)
+                                      for k, t in on_dev.items()}))
+    return {"wires": wires, "rows_codec": rows_codec,
             "avail_scale": avail_scale, "cap_scale": cap_scale,
             "h2d_bytes": int(h2d)}
+
+
+def stage_mega_wire(*, rows_dev: Optional[torch.Tensor] = None,
+                    flags_dev: Optional[torch.Tensor] = None,
+                    device="cuda", **kw) -> dict:
+    """:func:`stage_slot_wires` on one device: ``rows_dev``/``flags_dev``
+    are its buffers.  Returns the same dict, its one wire under
+    ``"wire"``."""
+    from ..parallel.mesh import POOL_AXIS, PoolMesh
+    if kw.get("resident") and (rows_dev is None or flags_dev is None):
+        raise ValueError("resident staging needs rows_dev and flags_dev")
+    mesh = PoolMesh([resolve_device(device)], (POOL_AXIS,))
+    given = (None if rows_dev is None and flags_dev is None
+             else [(rows_dev, flags_dev)])
+    out = stage_slot_wires(mesh, slot_rows=given, **kw)
+    out["wire"] = out.pop("wires")[0]
+    return out
 
 
 class ResidentPack:
@@ -271,15 +299,38 @@ class ResidentSync(NamedTuple):
     """What one :func:`sync_resident` did.  ``reason``: ``delta``,
     ``empty``, or the repack's (:data:`REPACK_REASONS`); ``k``: the
     positions that differ from the shadow (0 where no diff was taken);
-    ``h2d_bytes``: the scatter batch's or the full upload's bytes.  A
-    multi-slot mesh's sync (``FusedCycleDriver._sync_resident``) holds
-    a list of each slot's buffers in ``rows_dev`` and ``flags_dev``."""
+    ``h2d_bytes``: the scatter batch's or the full upload's bytes."""
 
     rows_dev: torch.Tensor   # i32[P, T]
     flags_dev: torch.Tensor  # u8[P, T]
     reason: str
     k: int
     h2d_bytes: int
+
+
+class SlotSyncs(NamedTuple):
+    """The resident sync of every mesh slot
+    (``FusedCycleDriver._sync_resident``): ``slots`` holds each slot's
+    :class:`ResidentSync` over its [P_k, T] block; ``reason`` is a
+    slot's repack reason where any slot repacked, else ``delta`` where
+    any slot scattered, else ``empty``; ``k`` and ``h2d_bytes`` are
+    summed over the slots."""
+
+    slots: List[ResidentSync]
+    reason: str
+    k: int
+    h2d_bytes: int
+
+
+class _ResidentSlot:
+    """One mesh slot's resident [P_k, T] rows/flags wire, keyed by DRU
+    mode, and the delta applier on the slot's device."""
+
+    __slots__ = ("packs", "applier")
+
+    def __init__(self, device):
+        self.packs: Dict[bool, ResidentPack] = {}
+        self.applier = PackDeltaApplier(device)
 
 
 REPACK_REASONS = ("cold", "shape", "compaction", "oversize", "fault")
@@ -449,10 +500,11 @@ class _StagedCycle:
 
 
 class _StagedGroup:
-    """One DRU-mode group's staged wire (``stage_mega_wire``'s dict:
-    the device wire, the codec tags and ``h2d_bytes``).  With
-    ``resident`` the wire's rows/flags are the resident buffers, already
-    synced by the delta scatter or a repack."""
+    """One DRU-mode group's staged wire (``stage_slot_wires``' dict:
+    one device wire a mesh slot, the codec tags and ``h2d_bytes``).
+    With ``resident`` each slot wire's rows/flags are that slot's
+    resident buffers, already synced by the delta scatter or a repack
+    (``sync``: the :class:`SlotSyncs`)."""
 
     __slots__ = ("gpu_mode", "group", "cap", "T", "H", "stage_ms",
                  "resident", "mega", "sync", "dense")
@@ -521,19 +573,19 @@ def fetch_rows(dev_rows: torch.Tensor, n: int, done,
 class FusedCycleDriver:
     """The production cycle over every active non-direct pool: pack off
     the store's columnar index, stage the compact wire (resident and
-    quantized by default), run ``megacycle`` (kernels K1-K6 on a card,
-    the plain cycle on the CPU) on ``device``, fetch the compact
+    quantized by default), run the cycle over :meth:`mesh` (kernels
+    K1-K6 on a card, their plain versions on the CPU), fetch the compact
     outputs, and launch transactionally.
 
     The reference's ``scheduler`` argument is duck-typed: ``step`` reads
     ``reserved_hosts``, ``clusters``, ``launchable_clusters(pool)`` and
-    ``_stifle_offensive(jobs)`` from it.  Every group goes through
-    ``megacycle`` (the reference picks between it and the fused XLA
-    cycle, which decide identically): a columnar group on the compact
-    wire, an entity-pack group (``columnar_index=False``) on the dense
-    wire.  ``mesh`` (``parallel/mesh.PoolMesh``, its first slot on
-    ``device``) defaults to one slot on ``device``; with more slots each
-    group runs the sharded cycle (:meth:`mesh`).  A failed resident
+    ``_stifle_offensive(jobs)`` from it.  Every group goes through the
+    stage chain (the reference picks between its megakernel and the
+    fused XLA cycle, which decide identically): a columnar group on the
+    compact wire, an entity-pack group (``columnar_index=False``) on the
+    dense wire.  ``mesh`` (``parallel/mesh.PoolMesh``, its first slot on
+    ``device``) defaults to one slot on ``device``; each slot runs its
+    pool block (:meth:`mesh`, :meth:`_launch`).  A failed resident
     delta repacks (:func:`sync_resident`); a failed launch, full upload
     or mirror sync raises."""
 
@@ -561,12 +613,9 @@ class FusedCycleDriver:
         self.shard_id = shard_id
         # device mirror of the index's immutable res/disk base columns
         self._mirror = DeviceBaseMirror(self.device)
-        # the resident [P, T] rows/flags wire, keyed by DRU mode
-        self._resident: Dict[bool, ResidentPack] = {}
-        self._applier = PackDeltaApplier(self.device)
-        # with a multi-slot mesh: the same, one a slot on its device
-        self._slot_resident: List[Dict[bool, ResidentPack]] = []
-        self._slot_appliers: List[PackDeltaApplier] = []
+        # the resident [P_k, T] rows/flags wire of each mesh slot, on the
+        # slot's device (built with the mesh: :meth:`_resident_slots`)
+        self._slots: List[_ResidentSlot] = []
         # quiet-pool fast path: the index's delta feed tells the pack
         # when a pool saw no churn since its last pack
         self._delta_cid: Optional[int] = None
@@ -679,12 +728,10 @@ class FusedCycleDriver:
 
         def run(fields, cap, gm, rows_codec=quant.ROWS_WIDE,
                 avail_scale=0.0, cap_scale=0.0):
-            res = megacycle(
-                pallas_cycle.wire_from_numpy(fields, dev), gpu_mode=gm,
-                max_over_quota_jobs=self.config.max_over_quota_jobs,
-                considerable_cap=cap, rows_codec=rows_codec,
-                avail_scale=avail_scale, cap_scale=cap_scale, mesh=mesh,
-                device=dev)
+            res = self._launch(
+                shard_wire(mesh, pallas_cycle.wire_from_numpy(fields, dev)),
+                gpu_mode=gm, considerable_cap=cap, rows_codec=rows_codec,
+                avail_scale=avail_scale, cap_scale=cap_scale)
             # wait for the cycle: one read of a result
             res.n_queue.cpu()
 
@@ -748,7 +795,8 @@ class FusedCycleDriver:
                         k *= 2
                     kbs.add(n_flat)  # the clamped top bucket
                     zeros = np.zeros((Pk, T), dtype=np.int32)
-                    for applier in self._appliers():
+                    for slot in self._resident_slots():
+                        applier = slot.applier
                         rows_b = resident_buffer(zeros, applier.device)
                         flags_b = resident_buffer(zeros.astype(np.uint8),
                                                   applier.device)
@@ -772,58 +820,38 @@ class FusedCycleDriver:
         rebuilds from scratch (a failed cycle, leader handoff, tests).
         Safe at any time: residency mirrors what the next full pack
         builds."""
-        self._resident.clear()
-        for packs in self._slot_resident:
-            packs.clear()
+        for slot in self._slots:
+            slot.packs.clear()
         self._pack_cache.clear()
         self._mirror = DeviceBaseMirror(self.device)
 
-    def _appliers(self) -> List[PackDeltaApplier]:
-        """The delta appliers of the resident buffers: the driver's own
-        on a one-slot mesh, else one a slot, on the slot's device."""
-        mesh = self.mesh()
-        if mesh.size == 1:
-            return [self._applier]
-        if len(self._slot_appliers) != mesh.size:
-            self._slot_appliers = [PackDeltaApplier(d)
-                                   for d in mesh.devices]
-            self._slot_resident = [{} for _ in mesh.devices]
-        return self._slot_appliers
+    def _resident_slots(self) -> List[_ResidentSlot]:
+        """The resident wire of each slot of :meth:`mesh`, in mesh
+        order."""
+        if not self._slots:
+            self._slots = [_ResidentSlot(d) for d in self.mesh().devices]
+        return self._slots
 
     def _sync_resident(self, gpu_mode: bool, key: Tuple, rows_p: np.ndarray,
-                       flags_p: np.ndarray, epoch: int) -> ResidentSync:
-        """Bring the resident [P, T] rows/flags buffers up to the staged
-        host arrays (:func:`sync_resident`): a delta scatter in steady
-        state, a full upload on a cold start, a reshape, a compaction, an
-        oversize delta or a failed diff or scatter (``fault``).  Over a
-        multi-slot mesh each slot syncs its own [P_k, T] block; the
-        returned sync has no [P, T] tensors (``rows_dev``/``flags_dev``
-        are lists, a slot's buffers each), its reason is a slot's repack
-        reason if any slot repacked, and ``k`` and ``h2d_bytes`` are
-        summed."""
-        quantize = bool(self.config.quantized_wire)
+                       flags_p: np.ndarray, epoch: int) -> SlotSyncs:
+        """Bring each slot's resident [P_k, T] rows/flags buffers up to
+        its block of the staged host arrays (:func:`sync_resident`,
+        ``parallel/mesh.pool_sharding``'s blocks): a delta scatter in
+        steady state, a full upload on a cold start, a reshape, a
+        compaction, an oversize delta or a failed diff or scatter
+        (``fault``)."""
+        from ..parallel.mesh import pool_sharding
+        blocks = pool_sharding(self.mesh()).blocks(rows_p.shape[0])
         with tracing.span("delta.apply", gpu=gpu_mode):
-            if self.mesh().size == 1:
-                rs = sync_resident(self._resident, gpu_mode, key, rows_p,
-                                   flags_p, epoch, applier=self._applier,
-                                   quantize=quantize)
-            else:
-                from ..parallel.mesh import pool_sharding
-                appliers = self._appliers()
-                blocks = pool_sharding(self.mesh()).blocks(rows_p.shape[0])
-                slots = [sync_resident(packs, gpu_mode, key, rows_p[b],
-                                       flags_p[b], epoch, applier=applier,
-                                       quantize=quantize)
-                         for packs, applier, b in zip(
-                             self._slot_resident, appliers, blocks)]
-                reasons = [r.reason for r in slots]
-                reason = next((r for r in reasons
-                               if r not in ("delta", "empty")),
-                              "delta" if "delta" in reasons else "empty")
-                rs = ResidentSync([r.rows_dev for r in slots],
-                                  [r.flags_dev for r in slots], reason,
-                                  sum(r.k for r in slots),
-                                  sum(r.h2d_bytes for r in slots))
+            slots = [sync_resident(slot.packs, gpu_mode, key, rows_p[b],
+                                   flags_p[b], epoch, applier=slot.applier,
+                                   quantize=bool(self.config.quantized_wire))
+                     for slot, b in zip(self._resident_slots(), blocks)]
+        reasons = [r.reason for r in slots]
+        reason = next((r for r in reasons if r not in ("delta", "empty")),
+                      "delta" if "delta" in reasons else "empty")
+        rs = SlotSyncs(slots, reason, sum(r.k for r in slots),
+                       sum(r.h2d_bytes for r in slots))
         if rs.reason == "delta":
             registry.counter_inc("cook_delta_rows", float(rs.k))
             _flight.note_delta(rs.k)
@@ -1039,7 +1067,7 @@ class FusedCycleDriver:
             # the gang wire: the same membership the host pass would
             # derive from the candidates, staged before the dispatch so
             # K6 reduces in the launch (every columnar pool dispatches
-            # through megacycle)
+            # through the stage chain)
             from ..ops.gang import build_gang_wire
             pp.gang_wire = build_gang_wire(
                 T, gang_members,
@@ -1633,7 +1661,7 @@ class FusedCycleDriver:
         """Fold quota-group caps and stage one DRU-mode group's wire:
         the stacked, padded host arrays (numpy, as the reference builds
         them), the base mirror, the resident rows/flags, then
-        :func:`stage_mega_wire`."""
+        :func:`stage_slot_wires`."""
         # member pools NOT in this dispatch still consume their quota
         # group's cap: their running usage is folded into it here
         gids: Dict[str, int] = {}
@@ -1731,25 +1759,15 @@ class FusedCycleDriver:
             shares_u_p[i, :pp.shares_u.shape[0]] = pp.shares_u
             quota_u_p[i, :pp.quota_u.shape[0]] = pp.quota_u
             tokens_u_p[i, :pp.tokens_u.shape[0]] = pp.tokens_u
-        rs = None
-        rows_dev = flags_dev = None
+        rs = slot_rows = None
         resident = bool(self.config.resident_pack)
         if resident:
             # steady state ships only the scatter delta of [P, T]
             key = (tuple(pp.pool.name for pp in group), P, T)
             rs = self._sync_resident(gpu_mode, key, rows_p, flags_p, epoch)
-            rows_dev, flags_dev = rs.rows_dev, rs.flags_dev
-        slot_rows = None
-        if isinstance(rows_dev, list):
-            # a multi-slot mesh: the wire carries no rows/flags; each
-            # slot's resident pair joins its block at the dispatch
-            slot_rows = list(zip(rows_dev, flags_dev))
-            rows_dev = torch.empty((0,), dtype=torch.int32,
-                                   device=self.device)
-            flags_dev = torch.empty((0,), dtype=torch.uint8,
-                                    device=self.device)
-        mega = stage_mega_wire(
-            rows_p=rows_p, flags_p=flags_p,
+            slot_rows = [(r.rows_dev, r.flags_dev) for r in rs.slots]
+        mega = stage_slot_wires(
+            self.mesh(), rows_p=rows_p, flags_p=flags_p,
             n_tasks=[pp.n_tasks for pp in group] + [0] * pad,
             res_base=mir_res, disk_base=mir_disk, tokens_u_p=tokens_u_p,
             shares_u_p=shares_u_p, quota_u_p=quota_u_p, scalars=scalars,
@@ -1758,9 +1776,8 @@ class FusedCycleDriver:
             cap_p=cap_p,
             gang_wires=[pp.gang_wire for pp in group] + [None] * pad,
             quantize=bool(self.config.quantized_wire),
-            scales=self._mega_scales, rows_dev=rows_dev,
-            flags_dev=flags_dev, resident=resident, device=self.device)
-        mega["slot_rows"] = slot_rows
+            scales=self._mega_scales, slot_rows=slot_rows,
+            resident=resident)
         stage_ms = (time.perf_counter() - stage_t0) * 1000.0
         _flight.note_phase_detail("stage", stage_ms)
         return _StagedGroup(gpu_mode=gpu_mode, group=group, cap=cap, T=T,
@@ -1775,7 +1792,7 @@ class FusedCycleDriver:
         arrays (padded as the reference pads them, ``cmask_p`` the dense
         [P, T, H] mask), recast as the dense wire
         (``ops/pallas_cycle.dense_wire``) and uploaded by
-        :func:`stage_mega_wire`; the usage rows the wire's identity rows
+        :func:`stage_slot_wires`; the usage rows the wire's identity rows
         index are uploaded beside it (no base mirror, no resident
         buffers: the dense form is rebuilt every cycle, as the
         reference's is)."""
@@ -1809,8 +1826,9 @@ class FusedCycleDriver:
         dev = self.device
         res_base = torch.from_numpy(w["res_base"]).to(dev)
         disk_base = torch.from_numpy(w["disk_base"]).to(dev)
-        mega = stage_mega_wire(
-            rows_p=w["rows"], flags_p=w["flags"], n_tasks=[T] * P,
+        mega = stage_slot_wires(
+            self.mesh(), rows_p=w["rows"], flags_p=w["flags"],
+            n_tasks=[T] * P,
             res_base=res_base, disk_base=disk_base,
             tokens_u_p=w["tokens_u"], shares_u_p=w["shares_u"],
             quota_u_p=w["quota_u"], scalars=scalars,
@@ -1819,15 +1837,25 @@ class FusedCycleDriver:
             exc_rows_p=w["exc_rows"], exc_mask_p=w["exc_mask"],
             avail_p=avail_p, cap_p=cap_p, gang_wires=[None] * P,
             quantize=bool(self.config.quantized_wire),
-            scales=self._mega_scales, device=dev)
+            scales=self._mega_scales)
         mega["h2d_bytes"] += w["res_base"].nbytes + w["disk_base"].nbytes
         stage_ms = (time.perf_counter() - stage_t0) * 1000.0
         _flight.note_phase_detail("stage", stage_ms)
         return _StagedGroup(gpu_mode=gpu_mode, group=group, cap=cap, T=T,
                             H=H, stage_ms=stage_ms, mega=mega, dense=True)
 
+    def _launch(self, wires, **kw):
+        """The cycle over :meth:`mesh`, one wire a slot
+        (``parallel/sharded.mesh_megacycle``: each slot's block through
+        the stage chain, K1-K6 on a card and their plain versions on the
+        CPU; one slot is ``ops/stages.megacycle_stages``, launch for
+        launch).  The dispatch and the warmup both run it."""
+        return mesh_megacycle(
+            self.mesh(), wires,
+            max_over_quota_jobs=self.config.max_over_quota_jobs, **kw)
+
     def dispatch_group(self, sg: "_StagedGroup") -> "_GroupDispatch":
-        """Phase 2: launch the cycle on one staged group (``megacycle``:
+        """Phase 2: launch the cycle on one staged group (:meth:`_launch`:
         K1-K6 on a card) and start the copy of the six compact outputs
         into one pinned host buffer right behind it, so a later
         :meth:`fetch_group` overlaps the transfer with whatever the host
@@ -1835,23 +1863,17 @@ class FusedCycleDriver:
         cycle's outputs complete; both fetches wait on it alone, never on
         a later cycle enqueued behind it.  A failed launch raises."""
         m = sg.mega
-        telemetry.profile_upload(sg.stage_ms, list(m["wire"]))
+        telemetry.profile_upload(sg.stage_ms,
+                                 [t for w in m["wires"] for t in w])
         telemetry.count_transfer("h2d", m["h2d_bytes"])
-        mesh = self.mesh()
-        kw = dict(gpu_mode=sg.gpu_mode,
-                  max_over_quota_jobs=self.config.max_over_quota_jobs,
-                  considerable_cap=min(sg.cap, sg.T),
-                  rows_codec=m["rows_codec"], avail_scale=m["avail_scale"],
-                  cap_scale=m["cap_scale"])
         with tracing.span("fused.dispatch", pools=len(sg.group),
                           tasks=sg.T, hosts=sg.H, gpu=sg.gpu_mode,
                           stage_ms=sg.stage_ms, megakernel=True):
-            if mesh.size == 1:
-                res = megacycle(m["wire"], device=self.device, **kw)
-            else:
-                from ..parallel.sharded import mesh_megacycle
-                res = mesh_megacycle(mesh, m["wire"],
-                                     slot_rows=m.get("slot_rows"), **kw)
+            res = self._launch(
+                m["wires"], gpu_mode=sg.gpu_mode,
+                considerable_cap=min(sg.cap, sg.T),
+                rows_codec=m["rows_codec"], avail_scale=m["avail_scale"],
+                cap_scale=m["cap_scale"])
             outs = [getattr(res, k).to(torch.int32).reshape(-1)
                     for k in _FETCHED]
             flat = torch.cat(outs)

@@ -548,7 +548,7 @@ def test_a_failure_inside_the_driver_raises(monkeypatch, where):
     def boom(*a, **k):
         raise RuntimeError(f"injected {where} failure")
 
-    target = {"megacycle": (fused, "megacycle"),
+    target = {"megacycle": (fused, "mesh_megacycle"),
               "sync_resident": (fused, "sync_resident"),
               "mirror": (DeviceBaseMirror, "sync")}[where]
     monkeypatch.setattr(*target, boom)

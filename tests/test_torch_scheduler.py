@@ -333,7 +333,8 @@ def test_failed_dispatch_degrades_like_the_reference(depth):
         [(r["path"], r["pools"], r["jobs_considered"], r["jobs_placed"])
          for r in last][1]
     sched = port.sched
-    assert not sched._fused._resident and not sched._fused._pack_cache
+    assert not any(slot.packs for slot in sched._fused._slots)
+    assert not sched._fused._pack_cache
     assert sched._fused._mirror.capacity == 0
     if depth:
         assert sched._pipeline.inflight() == 0

@@ -314,7 +314,8 @@ def test_spanning_groups_dense_card_route(mesh):
     ref = cached(("span_dense", 3),
                  lambda: jax_dense_fields(fields, considerable_cap=16))
     wire = tpc.wire_from_numpy(tpc.dense_wire(fields), "cpu")
-    got = tsh.mesh_megacycle(mesh, wire, considerable_cap=16)
+    got = tsh.mesh_megacycle(mesh, tsh.shard_wire(mesh, wire),
+                             considerable_cap=16)
     for k in COMPACT:
         assert_bits(getattr(got, k), getattr(ref, k), k)
     assert_queues(got.queue_rows, ref.queue_rows, ref.n_queue)
@@ -457,14 +458,15 @@ def test_spanning_groups_compact_form(seed, mesh):
 @pytest.mark.parametrize("quantized", [False, True])
 def test_mesh_megacycle_on_the_negotiated_wire(quantized, mesh):
     """The driver's wire (quantized rows and hosts, gangs) through
-    ``megacycle(mesh=)``: the seven outputs equal the one-device
+    ``mesh_megacycle``: the seven outputs equal the one-device
     ``megacycle`` and the reference's cycle plus its gang reduction."""
     from test_torch_cycle import wire_of
     fields, gang = span_compact_world(4)
     ref = cached(("span_compact_gang", 4), lambda: jax_compact(fields, gang))
     wire, codecs = wire_of(fields, gang, quantized)
     one = tpc.megacycle(wire, considerable_cap=CAP, device="cpu", **codecs)
-    got = tpc.megacycle(wire, considerable_cap=CAP, mesh=mesh, **codecs)
+    got = tsh.mesh_megacycle(mesh, tsh.shard_wire(mesh, wire),
+                             considerable_cap=CAP, **codecs)
     for k in tpc.MegaCycleResult._fields:
         assert torch.equal(getattr(got, k), getattr(one, k)), k
         if k != "queue_rows":
@@ -473,14 +475,16 @@ def test_mesh_megacycle_on_the_negotiated_wire(quantized, mesh):
 
 
 def test_one_slot_mesh_is_the_device_cycle():
-    """``megacycle(mesh=)`` with one slot is ``megacycle`` on that slot's
-    device: the plain cycle on the CPU, whatever ``device`` says."""
+    """``mesh_megacycle`` with one slot is ``megacycle`` on that slot's
+    device, and ``shard_wire`` hands it the whole wire as it is."""
     from test_torch_cycle import wire_of
     fields, gang = span_compact_world(0)
     wire, codecs = wire_of(fields, gang, True)
     one = tpc.megacycle(wire, considerable_cap=CAP, device="cpu", **codecs)
-    got = tpc.megacycle(wire, considerable_cap=CAP,
-                        mesh=pool_mesh(1, "cpu"), device="cuda", **codecs)
+    mesh = pool_mesh(1, "cpu")
+    parts = tsh.shard_wire(mesh, wire)
+    assert all(a is b or torch.equal(a, b) for a, b in zip(parts[0], wire))
+    got = tsh.mesh_megacycle(mesh, parts, considerable_cap=CAP, **codecs)
     for k in tpc.MegaCycleResult._fields:
         assert torch.equal(getattr(got, k), getattr(one, k)), k
 
@@ -490,8 +494,8 @@ def test_one_slot_mesh_is_the_device_cycle():
 def test_seam_stage_by_stage_with_the_gathered_group_base(slots):
     """Each slot's block through the stage chain (plain versions on CPU
     tensors) with the group base gathered over every slot equals the
-    one-device ``pool_cycle`` (plus the gang reduction) on that block;
-    with the block's own group base it does not."""
+    whole wire's plain cycle (``pool_cycle`` plus the gang reduction) on
+    that block; with the block's own group base it does not."""
     from test_torch_cycle import wire_of
     fields, gang = span_compact_world(2)
     wire, codecs = wire_of(fields, gang, False)
@@ -506,12 +510,9 @@ def test_seam_stage_by_stage_with_the_gathered_group_base(slots):
         staged = megacycle_stages(block, considerable_cap=CAP,
                                   group_base=gathered[b].contiguous(),
                                   **codecs)
-        plain = tpc.megacycle_plain(block, considerable_cap=CAP,
-                                    group_base=gathered[b], **codecs)
         alone = megacycle_stages(block, considerable_cap=CAP, **codecs)
         for k in tpc.MegaCycleResult._fields:
             assert torch.equal(getattr(staged, k), getattr(whole, k)[b]), k
-            assert torch.equal(getattr(plain, k), getattr(whole, k)[b]), k
         differs |= any(not torch.equal(getattr(alone, k),
                                        getattr(whole, k)[b])
                        for k in tpc.MegaCycleResult._fields)
@@ -586,7 +587,7 @@ def test_two_slot_driver_wire_modes(resident, quantized):
 def test_four_slot_driver_pads_the_pool_axis():
     """Three pools over four slots: the fourth is a padding pool."""
     port = mesh_run(td.WORLDS["ragged_three_pools"], 4, 1)
-    assert len(port.driver._slot_resident) == 4
+    assert len(port.driver._slots) == 4
 
 
 def test_two_slot_driver_keeps_a_resident_pair_a_slot():
@@ -594,11 +595,13 @@ def test_two_slot_driver_keeps_a_resident_pair_a_slot():
     d = port.driver
     sg = d.stage(port.sched).groups[0]
     assert sg.sync.reason == "delta" or sg.sync.reason == "empty"
-    assert [tuple(r.shape) for r, _f in sg.mega["slot_rows"]] == \
+    assert [tuple(r.rows_dev.shape) for r in sg.sync.slots] == \
         [(1, sg.T)] * 2
-    assert all(len(packs) == 1 for packs in d._slot_resident)
+    assert [w.rows is r.rows_dev and w.flags is r.flags_dev
+            for w, r in zip(sg.mega["wires"], sg.sync.slots)] == [True] * 2
+    assert all(len(slot.packs) == 1 for slot in d._slots)
     d.reset_resident()
-    assert all(not packs for packs in d._slot_resident)
+    assert all(not slot.packs for slot in d._slots)
 
 
 def test_shard_id_with_a_two_slot_mesh_is_refused():
@@ -649,4 +652,4 @@ def test_two_slot_warmup_counts_as_the_reference():
         cfg.default_matcher.backend = "tpu-megakernel"
     want = rd.warmup(tasks=64, hosts=16)
     assert pd.warmup(tasks=64, hosts=16) == want
-    assert len(pd._slot_appliers) == 2
+    assert len(pd._slots) == 2
