@@ -437,8 +437,12 @@ def test_spanning_groups_compact_form(seed, mesh):
     The gathered matched usage (telemetry: no decision reads it) is
     summed in ``window32_sum``'s order, which the dense form's reference
     takes; the reference's compact cycle fuses that sum into its gather
-    and XLA:CPU orders it differently from one world to the next, so it
-    is held to a relative tolerance of 1e-5."""
+    (a loop fusion, the same compiled HLO for both worlds), and XLA:CPU's
+    vectorized loop sums the C slots in strided lanes combined as a tree
+    (8, 16 or 32 lanes fit every pool of both worlds; the same sum
+    jitted alone is sequential: ``scripts/matched_usage_order.py``).
+    That order belongs to the fusion and the host's vector width, not to
+    the world, so it is held to a relative tolerance of 1e-5."""
     fields, _gang = span_compact_world(seed)
     ref = cached(("span_compact", seed), lambda: jax_compact(fields))
     got = tsh.make_pool_cycle(mesh, considerable_cap=CAP, compact=True)(
