@@ -383,6 +383,28 @@ cycle, and the native pack (``native/pack.cpp``) on phase S's arrays.
      one cycle (depth 0) over four pools of 8 hosts and 200 jobs, the
      same (job uuid, hostname) pairs on the card and with
      ``device="cpu"``;
+  6s. phase CH: the chaos simulator (``sim/chaos``). CH1:
+     ``run_chaos(device="cuda")`` at ``CH_WORLD`` (2,000 jobs from 50
+     users, 200 hosts, 8 gangs of 4 on slice topology with the last at
+     the leader kill, the resident wire at pipeline depth 2, delta
+     faults at 0.1, launch-RPC faults at 0.15 up to 50, a node lost
+     every 9 s up to 5, the leader killed at 60 s of virtual time), job
+     uuids from a counter: the reference's invariants (every job
+     completed, one kill with launch intents open and every one
+     relaunched, delta faults fired, no user retry charged), no cycle
+     degraded, one ``fault`` repack a delta fault and the successor's
+     first cycle a ``cold`` one, every launch replayed against its plain
+     version before the next cycle stages (path ``chaos``), the summary
+     less ``flight`` and every job's instance sequence equal to the
+     CPU's; wall seconds, ticks, ``step_cycle`` p50/p99 with the flight
+     records' pack, stage and apply, launches, virtual makespan. CH2:
+     the reference's tier-1 chaos worlds through ``cook_tpu_torch.sim``'s
+     ``main`` on the card and with ``--device cpu``, each exit 0 and
+     the same summary less ``flight`` (the flight recorder's cycle
+     durations one fixed list on both). CH3: ``--chaos-failover`` with
+     ``--leader-mode sigkill`` and ``partition``, and ``--partitions 2``
+     in process and with shard worker processes (a real SIGKILL), each
+     exit 0 with the fields no thread timing decides;
   6n. phase T: the production scheduler section through
      ``daemon.build_scheduler_config``, with the fake cluster in place
      of its remote backend (phase G drives that backend) and its
@@ -443,7 +465,8 @@ cycle, and the native pack (``native/pack.cpp``) on phase S's arrays.
      ``rest``, phase N as ``daemon``, phase G as ``remote_node``,
      phase L as ``k8s_node``, phase H as ``partitioned_node``,
      phase T's warmup as ``warmup`` and its replays as ``optimizer``,
-     phase U1 as ``dense_cycle``)
+     phase U1 as ``dense_cycle``, phase SH1 as ``mesh_cycle``, phase
+     SH2's worker as ``sharded_controllers``, phase CH1 as ``chaos``)
      and last ``{"ok": true, "device": {...}}``.
 
 Usage: ``python3 chip_smoke.py`` from the root of a checkout (needs one
@@ -452,9 +475,10 @@ needs, the kernels into ./build/cuda (the ptxas report in
 build/cuda/ptxas.log; phase T builds them once more into
 ./build/cuda-cache) and the replication carrier, the native pack, the
 transport library and ``cook_agentd`` into ./build/native.  The CPU
-sides of phases Q, X, T, U1, L, H and E's card = CPU comparisons run in two
-spawned worker processes (no CUDA in them) beside the card phases, and
-are shut down at the end.  Any failure raises.
+sides of phases Q, X, T, U1, L, H, SH2, CH and E's card = CPU
+comparisons run in two spawned worker processes (no CUDA in them)
+beside the card phases, and are shut down at the end.  Any failure
+raises.
 """
 
 from __future__ import annotations
@@ -5789,9 +5813,10 @@ SH_GROUPS = np.array([0, 1, 0, 1], np.int32)
 SH_HEADROOM = np.array([1000.0, 1e12, 1e6, 1e9], np.float32)
 SH_REPS = 5
 SH_POOLS = ["pool0", "pool1", "pool2", "pool3"]
-# the design point over 4 pools: 100,000 jobs from 200 users; 1,250
-# hosts of 16 cpus and 16 GiB a pool
-SH_WORLD = {"n_jobs": 100_000, "n_users": 200, "hosts_per_pool": 1_250,
+# the design point over 4 pools: 200 users; 1,250 hosts of 16 cpus and
+# 16 GiB a pool; 50,000 jobs (100,000 until phase CH came) for the
+# smoke's time: each worker builds the whole world at boot
+SH_WORLD = {"n_jobs": 50_000, "n_users": 200, "hosts_per_pool": 1_250,
             "host_cpus": 16.0, "host_mem": 16384.0, "seed": 3}
 SH_CFG = {"resident": True, "quantized": True, "depth": 0}
 SH_SMALL = {"n_jobs": 1_600, "n_users": 20, "hosts_per_pool": 8,
@@ -5807,7 +5832,7 @@ SH_DRIVER_GROUPS = {"pool0": "g0", "pool2": "g0", "pool1": "g1",
                     "pool3": "g1"}
 SH_DRIVER_CPUS = {"g0": 4_500.0, "g1": 4_700.0}
 SH_DRIVER_CYCLES = 3
-SH_WARM, SH_TIMED = 2, 3
+SH_WARM, SH_TIMED = 1, 3   # 2 warm rounds until phase CH came
 SH_MAX_AGE_S = 2.0
 SH_CYCLE_TIMEOUT_S = 300.0
 
@@ -6278,6 +6303,342 @@ def phase_sh2(device="cuda", world=SH_WORLD) -> dict:
                   "wall_s": time.perf_counter() - t1},
         "wall_s": time.perf_counter() - t0})
     print(json.dumps(out))
+    return counts
+
+
+# ---------------------------------------- phase CH: the chaos simulator
+# CH1: sim/chaos.run_chaos at full width on the card: 2,000 jobs from 50
+# users over 200 hosts (generate_example_hosts), submitted over 120 s,
+# 6 s jobs; 8 gangs of 4 on slice topology, the last at the leader
+# kill; the resident wire at pipeline depth 2; delta faults at 0.1 a
+# call, launch-RPC faults at 0.15 (at most 50), a node lost every 9 s
+# (at most 5), the leader killed at 60 s of virtual time.  The
+# reference's fault density: more node losses roll a requeued job's
+# oldest audit events off (AuditConfig.per_job_events, 64)
+CH_WORLD = {"seed": 7, "n_jobs": 2_000, "n_users": 50, "n_hosts": 200,
+            "submit_span_ms": 120_000, "job_duration_ms": 6_000,
+            "n_gangs": 8, "gang_size": 4, "resident": True,
+            "pipeline_depth": 2, "delta_fault_probability": 0.1,
+            "rpc_fault_probability": 0.15, "rpc_fault_max": 50,
+            "node_loss_every_ms": 9_000, "node_loss_max": 5,
+            "leader_kill_at_ms": 60_000}
+# CH2: the reference's tier-1 chaos worlds through the CLI, as far as
+# its flags reach them (tests/test_chaos.py, test_pipeline.py:287,
+# test_resident.py:424, test_gang.py:1029, test_elastic.py:748,
+# test_overload.py:770); the rest of each world is ChaosConfig's
+# defaults
+CH2_WORLDS = {
+    "chaos_seed7": ["--chaos", "--seed", "7"],
+    "pipelined": ["--chaos", "--seed", "7", "--jobs", "14", "--n-hosts",
+                  "6", "--leader-kill-at-ms", "8000",
+                  "--pipeline-depth", "2"],
+    "resident_delta_faults": ["--chaos", "--seed", "7", "--resident",
+                              "--delta-faults", "0.3"],
+    "gangs_depth2": ["--chaos", "--seed", "7", "--jobs", "20",
+                     "--n-hosts", "9", "--gangs", "3", "--gang-size", "3",
+                     "--pipeline-depth", "2"],
+    "elastic": ["--chaos", "--elastic"],
+    "disk_faults": ["--chaos", "--seed", "7", "--disk-faults", "0.25"],
+    "overload_chaos": ["--overload", "--chaos"]}
+# CH3: the failover legs (no kernel: the replication library, the REST
+# fence, real shard worker processes)
+CH3_LEGS = {
+    "sigkill": ["--chaos-failover", "--leader-mode", "sigkill"],
+    "partition": ["--chaos-failover", "--leader-mode", "partition"],
+    "partitions_in_process": ["--chaos-failover", "--partitions", "2",
+                              "--in-process"],
+    "partitions_sigkill": ["--chaos-failover", "--partitions", "2"]}
+
+
+@contextmanager
+def chaos_fixtures():
+    """``run_chaos``'s generated trace with job uuids from a counter
+    (``load_trace`` mints random ones), so that the card's and the CPU's
+    runs pair job by job; and the flight recorder's cycle durations one
+    fixed list, so that no host-clock reading moves the overload leg's
+    ladder (it reads ``cycle_p99``).  The resident sync's log of each
+    injected delta fault (a traceback a fault) is switched off."""
+    import logging
+
+    from cook_tpu_torch.sim import chaos
+    from cook_tpu_torch.utils.flight import recorder
+    generate = chaos.generate_example_trace
+    fused_log = logging.getLogger("cook_tpu_torch.sched.fused")
+    fused_log.disabled = True
+
+    def trace(*args, **kw):
+        return [dict(e, uuid=f"00000000-0000-4000-8000-{i:012d}")
+                for i, e in enumerate(generate(*args, **kw))]
+
+    chaos.generate_example_trace = trace
+    recorder.recent_durations = \
+        lambda kinds, limit: [20.0] * max(int(limit), 0)
+    try:
+        yield
+    finally:
+        chaos.generate_example_trace = generate
+        del recorder.recent_durations
+        fused_log.disabled = False
+
+
+def instance_sequences(data_dir) -> dict:
+    """Every job's instances in order, from the final journal: hostname,
+    status, reason code, start and end on the virtual clock (task ids
+    are random)."""
+    from cook_tpu_torch.state.store import Store
+    store = Store.replay_only(str(data_dir))
+    return {job.uuid: [(i.hostname, i.status.value, i.reason_code,
+                        i.start_time_ms, i.end_time_ms)
+                       for t in job.instances
+                       if (i := store.instance(t)) is not None]
+            for job in store.jobs_where(lambda j: True)}
+
+
+def repacks() -> dict:
+    from cook_tpu_torch.utils.metrics import registry
+    return {labels.get("reason"): v
+            for labels, v in registry.series("cook_resident_repack")}
+
+
+def ch1_run(device="cuda", record=False, **size) -> dict:
+    """One ``run_chaos`` of ``CH_WORLD`` (``size`` overrides) on
+    ``device``.  Every ``step_cycle`` is timed from its flight record,
+    and the repacks of the successor leader's first cycle are counted by
+    reason; with ``record`` every launch is replayed against its plain
+    version before the next cycle stages (the resident buffers are
+    scattered into only there)."""
+    import tempfile
+
+    from cook_tpu_torch.sched.scheduler import Scheduler
+    from cook_tpu_torch.sim.chaos import ChaosConfig, run_chaos
+    from cook_tpu_torch.utils.flight import recorder
+    rec = ReplayingRecorder("phase CH1") if record else None
+    step_cycle = Scheduler.step_cycle
+    steps, leaders, first_of_successor = [], [], {}
+
+    def timed_step(sched):
+        if rec is not None:
+            rec.drain()
+        if not leaders or leaders[-1] is not sched:
+            leaders.append(sched)
+        before, seq0 = repacks(), recorder.last_seq()
+        try:
+            return step_cycle(sched)
+        finally:
+            if len(leaders) == 2 and not first_of_successor:
+                after = repacks()
+                first_of_successor.update(
+                    {k: v - before.get(k, 0) for k, v in after.items()
+                     if v != before.get(k, 0)})
+            if recorder.last_seq() > seq0:
+                steps.append(recorder.recent(1)[0])
+
+    with tempfile.TemporaryDirectory(prefix="cook_ch") as tmp, \
+            chaos_fixtures():
+        seq0, fb0, rp0 = flight_seq(), fallbacks("fused.pool_cycle"), \
+            repacks()
+        Scheduler.step_cycle = timed_step
+        if rec is not None:
+            rec.start()
+        t0 = time.perf_counter()
+        try:
+            res = run_chaos(ChaosConfig(data_dir=str(Path(tmp) / "data"),
+                                        **{**CH_WORLD, **size}),
+                            device=device)
+        finally:
+            wall = time.perf_counter() - t0
+            Scheduler.step_cycle = step_cycle
+            counts = rec.stop() if rec is not None else None
+        seqs = instance_sequences(Path(tmp) / "data")
+    rp = repacks()
+    summary = res.summary()
+
+    def pcts(xs):
+        return {"p50": float(np.percentile(xs, 50)),
+                "p99": float(np.percentile(xs, 99))} if xs else None
+
+    return {
+        "summary": {k: v for k, v in summary.items() if k != "flight"},
+        "flight": summary["flight"], "sequences": seqs, "wall_s": wall,
+        "ticks": len(steps), "leaders": len(leaders),
+        "step_cycle_ms": pcts([s["duration_ms"] for s in steps]),
+        "detail_ms": {k: pcts([s["detail_ms"].get(k, 0.0) for s in steps])
+                      for k in ("pack", "stage", "apply")},
+        "paths": sorted({str(s["path"]) for s in steps}),
+        "repacks_by_reason": {k: v - rp0.get(k, 0) for k, v in rp.items()
+                              if v != rp0.get(k, 0)},
+        "successor_first_repacks": first_of_successor,
+        "degraded": degraded_since(seq0, fb0),
+        "counts": counts, "rec": rec}
+
+
+def ch2_run(device="cuda") -> dict:
+    """Each ``CH2_WORLDS`` argv through ``cook_tpu_torch.sim``'s ``main``
+    in this process on ``device``: the exit code and the printed summary
+    less ``flight`` (host-clock cycle times)."""
+    import contextlib
+    import io
+    import tempfile
+
+    from cook_tpu_torch.sim.__main__ import main as sim_main
+    out = {}
+    with chaos_fixtures():
+        for name, argv in CH2_WORLDS.items():
+            printed = io.StringIO()
+            t0 = time.perf_counter()
+            with tempfile.TemporaryDirectory(prefix="cook_ch2") as tmp:
+                # the CLI's run_chaos journals into a new temporary dir
+                saved, tempfile.tempdir = tempfile.tempdir, tmp
+                try:
+                    with contextlib.redirect_stdout(printed):
+                        rc = sim_main(argv + ["--device", device])
+                finally:
+                    tempfile.tempdir = saved
+            summary = json.loads(printed.getvalue())
+            summary.pop("flight", None)
+            out[name] = {"exit": rc, "summary": summary,
+                         "wall_s": time.perf_counter() - t0}
+    return out
+
+
+def phase_ch3() -> dict:
+    """``CH3_LEGS`` through ``cook_tpu_torch.sim``'s ``main``: no kernel
+    and no device; each exits 0 with the fields no thread timing
+    decides as the reference's tests hold them."""
+    import contextlib
+    import io
+    import tempfile
+
+    from cook_tpu_torch.sim.__main__ import main as sim_main
+    out = {}
+    for name, argv in CH3_LEGS.items():
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="cook_ch3") as tmp:
+            saved, tempfile.tempdir = tempfile.tempdir, tmp
+            try:
+                with contextlib.redirect_stdout(printed):
+                    rc = sim_main(argv)
+            finally:
+                tempfile.tempdir = saved
+        s = json.loads(printed.getvalue())
+        if "--partitions" in argv:
+            want = {"ok": True, "violations": [], "partitions": 2,
+                    "promoted_epoch": 2, "unresolved_writers": 0,
+                    "sibling_errors": 0,
+                    "process_kill": "--in-process" not in argv}
+            timed_ok = (s["victim_indeterminate"] >= 1
+                        and s["sibling_commits_during_promotion"] >= 1)
+        else:
+            want = {"ok": True, "violations": [], "laggard_converged": True,
+                    "indeterminate_commits": 1, "audit_timeline_ok": True,
+                    "group_commit_unresolved": 0,
+                    "delta_pulled": s.get("winner_was_laggard"),
+                    **({"fenced_appends_rejected": 1,
+                        "fenced_rest_writes_rejected": 1}
+                       if "partition" in argv else {})}
+            outcomes = s["group_commit_outcomes"]
+            timed_ok = (sum(outcomes.values()) == 8
+                        and outcomes.get("indeterminate", 0) >= 1)
+        got = {k: s.get(k) for k in want}
+        if rc != 0 or got != want or not timed_ok:
+            raise AssertionError(f"phase CH3 {name}: exit {rc}, {got} "
+                                 f"(want {want}), summary {s}")
+        out[name] = {**s, "exit": rc, "wall_s": time.perf_counter() - t0}
+    return out
+
+
+def phase_ch(device="cuda", world=None) -> dict:
+    """The chaos simulator (``sim/chaos``): CH1 ``CH_WORLD`` (or
+    ``world``) on ``device``, counted (path ``chaos``) with every launch
+    replayed against its plain version, held to the reference's
+    invariants, no cycle degraded, the summary less ``flight`` and every
+    job's instance sequence equal to the CPU's; CH2 the CLI's chaos
+    worlds on ``device`` and on the CPU, equal; CH3 the failover legs."""
+    card = device == "cuda"
+    t0 = time.perf_counter()
+    size = world or {}
+    got = ch1_run(device, record=card, **size)
+    cpu = cpu_side("ch1") if world is None else ch1_run("cpu", **size)
+    s, counts = got["summary"], got["counts"] or {}
+    checks = {
+        "ok": s["ok"], "all_completed": s["jobs_completed"] ==
+        s["jobs_total"], "one_leader_kill": s["leader_kills"] == 1,
+        "intents_open_at_kill": s["intents_open_at_kill"] > 0,
+        "all_relaunched": s["relaunched_after_kill"] ==
+        s["intents_open_at_kill"],
+        "delta_faults": s["delta_faults"] > 0,
+        "no_user_retries": s["user_retries_charged"] == 0,
+        "not_degraded": got["degraded"]["fallback_counter"] == 0
+        and got["degraded"]["flight_notes"] == 0,
+        "fault_repacks": got["repacks_by_reason"].get("fault", 0) ==
+        s["delta_faults"],
+        "successor_cold": got["successor_first_repacks"] == {"cold": 1.0},
+        "two_leaders": got["leaders"] == 2,
+        "summary_equal_to_cpu": s == cpu["summary"],
+        "sequences_equal_to_cpu": got["sequences"] == cpu["sequences"]}
+    if card:
+        checks["every_kernel_launched"] = all(
+            counts.get(k, 0) > 0 for k in SOURCES)
+        checks["every_launch_replayed"] = \
+            got["rec"].unreplayed(counts) == {}
+    failed = [k for k, v in checks.items() if not v]
+    line = {
+        "phase": "CH1", "device": device,
+        "world": {**CH_WORLD, **size}, "wall_s": got["wall_s"],
+        "cpu_wall_s": cpu["wall_s"], "ticks": got["ticks"],
+        "step_cycle_ms": got["step_cycle_ms"],
+        "detail_ms": got["detail_ms"], "paths": got["paths"],
+        "makespan_virtual_s": s["makespan_virtual_s"],
+        "repacks_by_reason": got["repacks_by_reason"],
+        "successor_first_repacks": got["successor_first_repacks"],
+        "degraded": got["degraded"], "flight": got["flight"],
+        "summary": s, "jobs_with_instances": sum(
+            1 for v in got["sequences"].values() if v),
+        "instances": sum(len(v) for v in got["sequences"].values()),
+        "checks": checks}
+    if card:
+        line.update({"launches_per_kernel": counts,
+                     "replayed_equal_to_plain": got["rec"].replayed,
+                     "replayed_by_wrapper": got["rec"].held})
+    print(json.dumps(line))
+    if failed:
+        diff = {k: (s.get(k), cpu["summary"].get(k)) for k in s
+                if s.get(k) != cpu["summary"].get(k)}
+        raise AssertionError(f"phase CH1: {failed}; card/CPU summary "
+                             f"differences {diff}")
+    del got, cpu
+
+    from cook_tpu_torch.ops import telemetry
+    t1 = time.perf_counter()
+    before = telemetry.snapshot()
+    ch2 = ch2_run(device)
+    ch2_counts = {k: v - before.get(k, 0)
+                  for k, v in telemetry.snapshot().items()}
+    ch2_cpu = cpu_side("ch2") if world is None else ch2_run("cpu")
+    bad = [n for n in CH2_WORLDS
+           if ch2[n]["exit"] != 0 or not ch2[n]["summary"]["ok"]
+           or ch2[n]["summary"] != ch2_cpu[n]["summary"]
+           or ch2_cpu[n]["exit"] != 0]
+    print(json.dumps({
+        "phase": "CH2", "device": device,
+        "worlds": {n: {"argv": CH2_WORLDS[n], "exit": ch2[n]["exit"],
+                       "cpu_exit": ch2_cpu[n]["exit"],
+                       "equal_to_cpu": ch2[n]["summary"] ==
+                       ch2_cpu[n]["summary"],
+                       "wall_s": ch2[n]["wall_s"],
+                       "cpu_wall_s": ch2_cpu[n]["wall_s"],
+                       "summary": ch2[n]["summary"]} for n in CH2_WORLDS},
+        "launches_per_kernel": ch2_counts,
+        "wall_s": time.perf_counter() - t1}))
+    if bad:
+        raise AssertionError(f"phase CH2: {bad} failed or differ from "
+                             f"the CPU")
+    t1 = time.perf_counter()
+    ch3 = phase_ch3()
+    print(json.dumps({"phase": "CH3", "legs": ch3,
+                      "wall_s": time.perf_counter() - t1,
+                      "ch_wall_s": time.perf_counter() - t0}))
     return counts
 
 
@@ -7324,7 +7685,7 @@ ROOT = Path(__file__).resolve().parent
 # compilation_cache_dir: the file's /var/cook/xla-cache lies outside the
 # checkout; the smoke keeps the library in the checkout's build/
 T_CACHE = ROOT / "build" / "cuda-cache"
-T_STEPS = 4              # steps after the first, each leg
+T_STEPS = 3              # steps after the first, each leg (4 until CH)
 T_GANGS, T_GANG_SIZE, T_GANG_MIN = 4, 8, 4   # elastic gangs in the world
 T_CLOCK = 2_000_000      # the pinned store clock (ms) of phase T's worlds
 T_CHILD_TIMEOUT_S = 240.0
@@ -7879,7 +8240,7 @@ def copy_args(args) -> tuple:
 # started (a phase run alone).
 CPU_SIDES = (("e_split",), ("x_leg", 0), ("x_leg", 2), ("t_small",),
              ("q_small", 0), ("q_small", 2), ("u_small",), ("l_small",),
-             ("h_small",), ("sh_small",))
+             ("h_small",), ("sh_small",), ("ch1",), ("ch2",))
 CPU_SIDE_WORKERS, CPU_SIDE_THREADS = 2, 2
 _SIDES = {"pool": None, "futures": {}}
 
@@ -7902,6 +8263,11 @@ def cpu_side_run(key: tuple):
         return h_small("cpu")
     if name == "sh_small":
         return sh_small("cpu")
+    if name == "ch1":
+        got = ch1_run("cpu")
+        return {k: got[k] for k in ("summary", "sequences", "wall_s")}
+    if name == "ch2":
+        return ch2_run("cpu")
     raise KeyError(key)
 
 
@@ -8128,6 +8494,8 @@ def run() -> int:
     mark("SH1")
     shard_counts = phase_sh2()
     mark("SH2")
+    chaos_counts = phase_ch()
+    mark("CH")
     prod_counts = phase_t()
     mark("T")
     dense_counts = phase_u1()
@@ -8172,6 +8540,7 @@ def run() -> int:
                 "partitioned_node": partitioned_counts.get(k, 0),
                 "mesh_cycle": mesh_counts.get(k, 0),
                 "sharded_controllers": shard_counts.get(k, 0),
+                "chaos": chaos_counts.get(k, 0),
                 "warmup": prod_counts["warmup"].get(k, 0),
                 "optimizer": prod_counts["optimizer"].get(k, 0),
                 "dense_cycle": dense_counts.get(k, 0)},

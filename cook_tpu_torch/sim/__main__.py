@@ -1,16 +1,21 @@
 """CLI: python -m cook_tpu_torch.sim --trace trace.json --hosts hosts.json
      or: python -m cook_tpu_torch.sim --workload spec.json [--emit-trace t.json]
      or: python -m cook_tpu_torch.sim --parity-pipeline | --overload
+     or: python -m cook_tpu_torch.sim --chaos [--seed N]  (fault-schedule run
+         with invariant checks, sim/chaos.py; exit 1 on violations)
+     or: python -m cook_tpu_torch.sim --chaos-failover [--partitions N
+         [--in-process]]  (failover chaos over socket replication)
      or: python -m cook_tpu_torch.sim --crashpoints  (exhaustive disk-fault /
          crash-point recovery matrix, sim/crashpoint.py; exit 1 on any
          storage-contract violation)
 
 The port's copy of ``cook_tpu/sim/__main__.py``, with ``--device``
-(default ``cuda``; ``cpu`` runs the plain PyTorch path).  The chaos,
-failover and cell-outage modes keep their flags but exit 2 before any
-work: their modules (``sim/chaos.py``, ``sim/federation.py``) are still
-to be ported (ROADMAP.md, queue 1, item 10's chaos remainder, which
-needs the partitioned and federated planes of item 11)."""
+(default ``cuda``; ``cpu`` runs the plain PyTorch path), which ``--chaos``
+hands to ``run_chaos`` (the failover modes touch no device).  The
+cell-outage mode keeps its flag but exits 2 before any work, with or
+without ``--chaos``: its module (``sim/federation.py``) is still to be
+ported (ROADMAP.md, queue 1, item 10b, after item 11d's federated
+plane)."""
 
 import argparse
 import json
@@ -29,11 +34,8 @@ from .workload import generate_hosts, generate_trace
 def _unported_mode(args):
     """The flag of a mode whose module is still to be ported, or None
     (checked before any work, with no import of the missing module)."""
-    if args.chaos and args.overload:
-        return "--overload --chaos"
-    for flag in ("chaos_failover", "cell_outage", "chaos"):
-        if getattr(args, flag):
-            return "--" + flag.replace("_", "-")
+    if args.cell_outage:
+        return "--chaos --cell-outage" if args.chaos else "--cell-outage"
     return None
 
 
@@ -182,9 +184,9 @@ def main(argv=None) -> int:
     refused = _unported_mode(args)
     if refused is not None:
         print(f"cook_tpu_torch.sim: {refused} is not ported yet: see "
-              "ROADMAP.md, queue 1, item 10 (the chaos, failover and "
-              "cell-outage modes) and item 11 (the partitioned and "
-              "federated planes they drive)", file=sys.stderr)
+              "ROADMAP.md, queue 1, item 10b (sim/federation.py, the "
+              "cell-outage mode), which follows item 11d (the federated "
+              "plane it drives)", file=sys.stderr)
         return 2
 
     if args.parity_pipeline:
@@ -197,7 +199,27 @@ def main(argv=None) -> int:
         print(json.dumps(result, indent=2))
         return 0 if result["ok"] else 1
 
-    if args.overload:
+    if args.chaos_failover:
+        if args.partitions and args.partitions > 1:
+            from .chaos import (PartitionChaosConfig, run_partition_chaos,
+                                run_partition_chaos_procs)
+            pcc = PartitionChaosConfig(
+                seed=args.seed or 0, partitions=args.partitions,
+                group_commit=not args.no_group_commit,
+                process_kill=not args.in_process)
+            runner = (run_partition_chaos if args.in_process
+                      else run_partition_chaos_procs)
+            presult = runner(pcc)
+            print(json.dumps(presult.summary(), indent=2))
+            return 0 if presult.ok else 1
+        from .chaos import FailoverChaosConfig, run_failover_chaos
+        result = run_failover_chaos(FailoverChaosConfig(
+            seed=args.seed or 0, leader_mode=args.leader_mode,
+            group_commit=not args.no_group_commit))
+        print(json.dumps(result.summary(), indent=2))
+        return 0 if result.ok else 1
+
+    if args.overload and not args.chaos:
         from .overload import run_overload
         summary = run_overload(
             offered_multiple=args.overload_multiple or 10.0,
@@ -205,6 +227,38 @@ def main(argv=None) -> int:
             device=args.device)
         print(json.dumps(summary, indent=2))
         return 0 if summary["ok"] else 1
+
+    if args.chaos:
+        from .chaos import ChaosConfig, run_chaos
+        cc = ChaosConfig(seed=args.seed or 0)
+        if args.overload:
+            cc.overload = True
+        if args.jobs is not None:
+            cc.n_jobs = args.jobs
+        if args.n_hosts is not None:
+            cc.n_hosts = args.n_hosts
+        if args.leader_kill_at_ms is not None:
+            cc.leader_kill_at_ms = (None if args.leader_kill_at_ms < 0
+                                    else args.leader_kill_at_ms)
+        if args.pipeline_depth is not None:
+            cc.pipeline_depth = args.pipeline_depth
+        if args.gangs is not None:
+            cc.n_gangs = args.gangs
+        if args.gang_size is not None:
+            cc.gang_size = args.gang_size
+        if args.elastic:
+            cc.elastic = True
+            if not cc.n_gangs:
+                cc.n_gangs = 2
+        if args.resident:
+            cc.resident = True
+        if args.delta_faults is not None:
+            cc.delta_fault_probability = args.delta_faults
+        if args.disk_faults is not None:
+            cc.disk_fault_probability = args.disk_faults
+        result = run_chaos(cc, device=args.device)
+        print(json.dumps(result.summary(), indent=2))
+        return 0 if result.ok else 1
 
     if args.workload:
         spec = json.load(open(args.workload))

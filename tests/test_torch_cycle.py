@@ -250,7 +250,8 @@ def test_port_imports_neither_jax_nor_cook_tpu():
             REPO / "cook_tpu_torch/state/partition.py",
             REPO / "cook_tpu_torch/parallel/mesh.py",
             REPO / "cook_tpu_torch/parallel/sharded.py",
-            REPO / "cook_tpu_torch/sched/shard.py"} <= set(files)
+            REPO / "cook_tpu_torch/sched/shard.py",
+            REPO / "cook_tpu_torch/sim/chaos.py"} <= set(files)
     k8s = {f.name for f in (REPO / "cook_tpu/cluster/k8s").glob("*.py")}
     assert len(k8s) == 9
     assert {REPO / "cook_tpu_torch/cluster/k8s" / n for n in k8s} \

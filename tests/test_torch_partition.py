@@ -3,7 +3,8 @@ the mesh's host helpers in ``cook_tpu_torch/parallel/mesh.py`` and the
 node with ``partitions.count > 1``) against the JAX package's on the CPU.
 
 Each case of ``tests/test_partition.py`` but the partition-leader-loss
-chaos run (which drives ``sim/chaos``, not ported) and each case of
+chaos run (held against the reference in ``tests/test_torch_chaos.py``
+with the other chaos modes) and each case of
 ``tests/test_sharded.py::TestShardAlignment`` runs as one script on both
 packages: the script holds the reference test's rules on each side and
 logs what a caller sees (routing, tokens, refusals with their type and

@@ -15,7 +15,8 @@ cycle at two.  A store-role worker of each package answers one command
 script alike.  The framed-JSON wire helpers are held on both packages.
 
 The process-kill failover (``TestProcessKillFailover``) drives the
-chaos simulator, which the port does not have yet.
+chaos simulator: ``tests/test_torch_chaos.py`` holds it against the
+reference with the other chaos modes.
 
 Worker processes import torch (a few seconds each here), so each
 topology is built once for the tests that read it and stopped in a

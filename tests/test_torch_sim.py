@@ -350,24 +350,23 @@ def test_main_parity_pipeline_and_overload_modes(capsys, monkeypatch):
 
 
 REFUSED = {
-    "--chaos": ["--chaos", "--seed", "2"],
-    "--chaos-failover": ["--chaos-failover", "--leader-mode", "partition"],
-    "--cell-outage": ["--chaos", "--cell-outage", "--cells", "3"],
-    "--overload --chaos": ["--overload", "--chaos"],
+    "--chaos --cell-outage": ["--chaos", "--cell-outage", "--cells", "3"],
+    "--cell-outage": ["--cell-outage"],
 }
 
 
 @pytest.mark.parametrize("flag", sorted(REFUSED))
 def test_unported_modes_exit_2(flag, capsys):
-    """The modes whose modules are still to come exit 2 before any
-    work."""
+    """The cell-outage mode, whose module (``sim/federation.py``) is
+    still to come, exits 2 before any work, with or without
+    ``--chaos``, naming its queue item."""
     before = set(sys.modules)
     rc = PORT.main.main(REFUSED[flag] + ["--device", "cpu"])
     out, err = capsys.readouterr()
     assert rc == 2
     assert out == ""
     assert f"{flag} is not ported yet" in err
-    assert "ROADMAP.md, queue 1, item 10" in err
+    assert "ROADMAP.md, queue 1, item 10b" in err
     new = set(sys.modules) - before
     assert not any(m.startswith("cook_tpu_torch.sim.") for m in new)
 
