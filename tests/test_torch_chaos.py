@@ -19,7 +19,8 @@ test's assertions hold on the port's result.
   timed ones (commit counts, group-commit batching, the promotion
   window) are held on each side to the reference test's inequalities.
 - The CLI: ``main([... "--device", "cpu"])`` against the reference's
-  ``main`` on ``--chaos --seed 7`` and ``--overload --chaos``.
+  ``main`` on ``--chaos --seed 7``, ``--overload --chaos`` and the other
+  chaos worlds ``chip_smoke.py``'s CH2 runs (:data:`CLI_MODES`).
 - A data dir that either package's ``run_chaos`` wrote is replayed by
   the other (``Store.replay_only``) to the writer's own replay.
 
@@ -345,11 +346,27 @@ def _main(side, argv, capsys):
     return rc, _no_flight(json.loads(out))
 
 
-@pytest.mark.parametrize("argv", [["--chaos", "--seed", "7"],
-                                  ["--overload", "--chaos"]],
-                         ids=["chaos_seed7", "overload_chaos"])
-def test_main_chaos_modes_match_the_reference(argv, capsys, monkeypatch,
+# the chaos modes as the CLI reaches them (chip_smoke.py's CH2 worlds)
+CLI_MODES = {
+    "chaos_seed7": ["--chaos", "--seed", "7"],
+    "overload_chaos": ["--overload", "--chaos"],
+    "pipelined": ["--chaos", "--seed", "7", "--jobs", "14", "--n-hosts",
+                  "6", "--leader-kill-at-ms", "8000",
+                  "--pipeline-depth", "2"],
+    "resident_delta_faults": ["--chaos", "--seed", "7", "--resident",
+                              "--delta-faults", "0.3"],
+    "gangs_depth2": ["--chaos", "--seed", "7", "--jobs", "20",
+                     "--n-hosts", "9", "--gangs", "3", "--gang-size", "3",
+                     "--pipeline-depth", "2"],
+    "elastic": ["--chaos", "--elastic"],
+    "disk_faults": ["--chaos", "--seed", "7", "--disk-faults", "0.25"],
+}
+
+
+@pytest.mark.parametrize("mode", list(CLI_MODES))
+def test_main_chaos_modes_match_the_reference(mode, capsys, monkeypatch,
                                               tmp_path):
+    argv = CLI_MODES[mode]
     # the CLI's run_chaos journals into a fresh temporary directory
     monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
     ref = _main(REF, argv, capsys)

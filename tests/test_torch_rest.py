@@ -520,6 +520,11 @@ def _http_obs(s, log):
     for rec in body["recent"]:
         for k in ("ts", "duration_ms", "phases_ms", "trace_id"):
             rec.pop(k, None)
+    # the ring is in the order the handler threads recorded the requests,
+    # each after its response: a request the client sent later, on another
+    # connection, can be recorded first (host scheduling, on either side),
+    # so the records are compared in request-id order
+    body["recent"].sort(key=lambda r: r["request_id"])
     snap[1]["totals"].pop("requests_s")
     snap[1]["totals"].pop("phases_s")
     log.append(snap)
