@@ -12,7 +12,10 @@ package on XLA:CPU, so that float sums agree bit for bit:
   before them and the rest after, to a multiple of 32 (centred), and
   replace each window of 32 by its sum in order from +0.0; then sum the
   32 or fewer left in order from +0.0.  At a power of two no level
-  pads.
+  pads;
+* :func:`lane_tree_sum` is the order of such a sum fused into a loop
+  fusion (the compact mesh cycle's matched usage): strided lane
+  accumulators combined as a tree.
 
 Integer prefixes are exact in any order.  :func:`lexsort` is numpy's
 (last key primary), stable, built from chained stable sorts; float keys
@@ -159,6 +162,29 @@ def window32_sum(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
     for j in range(xm.shape[0]):
         acc = acc + xm[j]
     return acc
+
+
+def lane_tree_sum(x: torch.Tensor, dim: int = 0,
+                  lanes: int = 16) -> torch.Tensor:
+    """Sum over ``dim`` in the order of XLA:CPU's vectorized loop
+    fusion: ``lanes`` accumulators from +0.0, value ``j`` added to lane
+    ``j % lanes`` in order, then the lanes combined as a tree (the first
+    half plus the second, halving).  ``lanes`` is a power of two; at 32
+    values 16 and 32 lanes are the same order."""
+    if dim < 0:
+        dim += x.ndim
+    xm = torch.movedim(x, dim, 0)
+    n, rest = xm.shape[0], xm.shape[1:]
+    rows = -(-n // lanes)
+    w = torch.cat([xm, xm.new_zeros((rows * lanes - n,) + rest)])
+    w = w.reshape((rows, lanes) + rest)
+    acc = torch.zeros_like(w[0])
+    for r in range(rows):
+        acc = acc + w[r]
+    while acc.shape[0] > 1:
+        h = acc.shape[0] // 2
+        acc = acc[:h] + acc[h:]
+    return acc[0]
 
 
 def user_segments_from_flags(is_first: torch.Tensor, dim: int = -1):

@@ -32,7 +32,7 @@ from ..ops import quant
 from ..ops.considerable import considerable_body
 from ..ops.delta import (FLAG_ENQUEUE_OK, FLAG_LAUNCH_OK, FLAG_PENDING,
                          FLAG_USER_FIRST, FLAG_VALID)
-from ..ops.scan import (segmented_cumsum_by_first_idx,
+from ..ops.scan import (lane_tree_sum, segmented_cumsum_by_first_idx,
                         user_segments_from_flags, window32_sum)
 
 INF = float("inf")
@@ -556,9 +556,11 @@ def mesh_megacycle(mesh, parts, *, gpu_mode: bool = False,
                             for f in MegaCycleResult._fields))
     if not stats:
         return res
-    # reconciliation #2: every pool's matched usage, the placement total
-    used = [window32_sum(c.res_c * (r.cand_assign >= 0)[..., None],
-                         dim=1)[:, :4] for r, c in outs]
+    # reconciliation #2: every pool's matched usage, the placement total;
+    # the reference fuses this sum into its gather (a loop fusion), whose
+    # order is :func:`lane_tree_sum`'s
+    used = [lane_tree_sum(c.res_c * (r.cand_assign >= 0)[..., None],
+                          dim=1)[:, :4] for r, c in outs]
     group_base = _gather([x.group_base for _ur, x in heads]
                          if group[0] is None else group, devs[0])
     return MeshCycleResult(

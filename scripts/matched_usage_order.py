@@ -10,9 +10,10 @@ the 8-device CPU mesh) it prints, as JSON lines:
 - whether the compiled HLO text (``jit(...).lower(...).compile()
   .as_text()``) is the same for both worlds, and the fusion the sum
   sits in;
-- per pool, which candidate orders over the C slots reproduce the
-  reference's f32 bits: ``seq`` (in slot order from +0.0, the port's
-  ``window32_sum`` at C <= 32), ``rev``, ``pair`` (pairwise), ``lK``
+- per pool, whether the port's sum (``ops/scan.lane_tree_sum``) equals
+  the reference's f32 bits, and which candidate orders over the C slots
+  do: ``seq`` (in slot order from +0.0, ``window32_sum`` at C <= 32),
+  ``rev``, ``pair`` (pairwise), ``lK``
   (K accumulators taking slot ``j`` at ``j % K``, combined as a tree,
   the shape of a vectorized loop) and ``lsK`` (the same, combined in
   order); the summands are the port's own (``res_c`` times the matched
@@ -92,13 +93,13 @@ def matching(x, want):
 
 def main() -> int:
     summands = []
-    window32_sum = tts.tsh.window32_sum
+    lane_tree_sum = tts.tsh.lane_tree_sum
 
     def spy(x, dim=0):
         summands.append(x.detach().clone())
-        return window32_sum(x, dim=dim)
+        return lane_tree_sum(x, dim=dim)
 
-    tts.tsh.window32_sum = spy
+    tts.tsh.lane_tree_sum = spy
     texts = []
     for seed in (0, 1):
         fields, _gang = tts.span_compact_world(seed)

@@ -5,8 +5,10 @@ for bit: ``lax.associative_scan``'s odd/even recursion
 (``segmented_cumsum``), ``jnp.cumsum``'s blocked-16 order on XLA:CPU
 (``prefix_sum_xla_cpu``) and the order of ``jnp.sum``
 (``window32_sum``: windows of 32 after centred zero padding, at every
-length).  Inputs are non-dyadic floats, so an
-order mistake changes bits.  Exact equality (tolerance 0) throughout.
+length).  ``lane_tree_sum`` (the order of a sum fused into a loop
+fusion) is held here to a numpy model of its order, and to the
+reference's fused sum in ``test_torch_sharding.py``.  Inputs are
+non-dyadic floats, so an order mistake changes bits.  Exact equality (tolerance 0) throughout.
 """
 
 import re
@@ -86,6 +88,27 @@ def test_window32_sum_matches_jnp_sum(T):
     want1 = jax.jit(jnp.sum)(jnp.asarray(flat))
     got1 = tscan.window32_sum(torch.from_numpy(flat), dim=0)
     np.testing.assert_array_equal(_bits(got1), _bits(want1))
+
+
+@pytest.mark.parametrize("lanes", [8, 16, 32])
+@pytest.mark.parametrize("n", [1, 7, 32, 33, 100])
+def test_lane_tree_sum_order(n, lanes):
+    """Lane ``j % lanes`` takes value ``j`` in order from +0.0, then the
+    lanes are halved as a tree, the first half plus the second; at 32
+    values 16 and 32 lanes are one order."""
+    rng = np.random.default_rng(n * 64 + lanes)
+    x = (rng.standard_normal((n, 4))
+         * rng.uniform(0.01, 900.0, (n, 4))).astype(F32)
+    acc = np.zeros((lanes, 4), F32)
+    for j in range(n):
+        acc[j % lanes] = (acc[j % lanes] + x[j]).astype(F32)
+    while acc.shape[0] > 1:
+        acc = (acc[:acc.shape[0] // 2] + acc[acc.shape[0] // 2:]).astype(F32)
+    got = tscan.lane_tree_sum(torch.from_numpy(x).T, dim=1, lanes=lanes)
+    np.testing.assert_array_equal(_bits(got), _bits(acc[0]))
+    if n == 32 and lanes in (16, 32):
+        other = tscan.lane_tree_sum(torch.from_numpy(x), lanes=48 - lanes)
+        np.testing.assert_array_equal(_bits(other), _bits(acc[0]))
 
 
 def test_centred_pad():
