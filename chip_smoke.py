@@ -485,6 +485,7 @@ from __future__ import annotations
 
 import cProfile
 import json
+import logging
 import os
 import pstats
 import re
@@ -5814,8 +5815,8 @@ SH_HEADROOM = np.array([1000.0, 1e12, 1e6, 1e9], np.float32)
 SH_REPS = 5
 SH_POOLS = ["pool0", "pool1", "pool2", "pool3"]
 # the design point over 4 pools: 200 users; 1,250 hosts of 16 cpus and
-# 16 GiB a pool; 50,000 jobs (100,000 until phase CH came) for the
-# smoke's time: each worker builds the whole world at boot
+# 16 GiB a pool; 50,000 jobs for the smoke's time: each worker builds
+# the whole world at boot
 SH_WORLD = {"n_jobs": 50_000, "n_users": 200, "hosts_per_pool": 1_250,
             "host_cpus": 16.0, "host_mem": 16384.0, "seed": 3}
 SH_CFG = {"resident": True, "quantized": True, "depth": 0}
@@ -5832,7 +5833,7 @@ SH_DRIVER_GROUPS = {"pool0": "g0", "pool2": "g0", "pool1": "g1",
                     "pool3": "g1"}
 SH_DRIVER_CPUS = {"g0": 4_500.0, "g1": 4_700.0}
 SH_DRIVER_CYCLES = 3
-SH_WARM, SH_TIMED = 1, 3   # 2 warm rounds until phase CH came
+SH_WARM, SH_TIMED = 1, 3
 SH_MAX_AGE_S = 2.0
 SH_CYCLE_TIMEOUT_S = 300.0
 
@@ -6350,21 +6351,31 @@ CH3_LEGS = {
     "partitions_sigkill": ["--chaos-failover", "--partitions", "2"]}
 
 
+class _NotInjected(logging.Filter):
+    """Drops the log records of injected faults (the resident sync logs
+    each injected delta fault with its traceback); any other failure is
+    logged."""
+
+    def filter(self, record):
+        from cook_tpu_torch.utils.faults import FaultInjected
+        exc = record.exc_info[1] if record.exc_info else None
+        return not isinstance(exc, FaultInjected)
+
+
 @contextmanager
 def chaos_fixtures():
     """``run_chaos``'s generated trace with job uuids from a counter
     (``load_trace`` mints random ones), so that the card's and the CPU's
     runs pair job by job; and the flight recorder's cycle durations one
     fixed list, so that no host-clock reading moves the overload leg's
-    ladder (it reads ``cycle_p99``).  The resident sync's log of each
-    injected delta fault (a traceback a fault) is switched off."""
-    import logging
-
+    ladder (it reads ``cycle_p99``).  The resident sync's logs of the
+    injected delta faults are filtered out (:class:`_NotInjected`)."""
     from cook_tpu_torch.sim import chaos
     from cook_tpu_torch.utils.flight import recorder
     generate = chaos.generate_example_trace
     fused_log = logging.getLogger("cook_tpu_torch.sched.fused")
-    fused_log.disabled = True
+    quiet = _NotInjected()
+    fused_log.addFilter(quiet)
 
     def trace(*args, **kw):
         return [dict(e, uuid=f"00000000-0000-4000-8000-{i:012d}")
@@ -6378,7 +6389,7 @@ def chaos_fixtures():
     finally:
         chaos.generate_example_trace = generate
         del recorder.recent_durations
-        fused_log.disabled = False
+        fused_log.removeFilter(quiet)
 
 
 def instance_sequences(data_dir) -> dict:
@@ -6472,56 +6483,53 @@ def ch1_run(device="cuda", record=False, **size) -> dict:
         "counts": counts, "rec": rec}
 
 
-def ch2_run(device="cuda") -> dict:
-    """Each ``CH2_WORLDS`` argv through ``cook_tpu_torch.sim``'s ``main``
-    in this process on ``device``: the exit code and the printed summary
-    less ``flight`` (host-clock cycle times)."""
+def _cli(argv) -> tuple:
+    """``argv`` through ``cook_tpu_torch.sim``'s ``main`` in this
+    process, journaling into a new temporary directory: the exit code,
+    the printed summary and the wall seconds."""
     import contextlib
     import io
     import tempfile
 
     from cook_tpu_torch.sim.__main__ import main as sim_main
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="cook_cli") as tmp:
+        saved, tempfile.tempdir = tempfile.tempdir, tmp
+        try:
+            with contextlib.redirect_stdout(printed):
+                rc = sim_main(argv)
+        finally:
+            tempfile.tempdir = saved
+    return rc, json.loads(printed.getvalue()), time.perf_counter() - t0
+
+
+def ch2_run(device="cuda") -> dict:
+    """Each ``CH2_WORLDS`` argv through the CLI (:func:`_cli`) on
+    ``device``: the exit code, the printed summary less ``flight``
+    (host-clock cycle times), the cycles degraded to the split path and
+    the resident repacks of reason ``fault``."""
     out = {}
     with chaos_fixtures():
         for name, argv in CH2_WORLDS.items():
-            printed = io.StringIO()
-            t0 = time.perf_counter()
-            with tempfile.TemporaryDirectory(prefix="cook_ch2") as tmp:
-                # the CLI's run_chaos journals into a new temporary dir
-                saved, tempfile.tempdir = tempfile.tempdir, tmp
-                try:
-                    with contextlib.redirect_stdout(printed):
-                        rc = sim_main(argv + ["--device", device])
-                finally:
-                    tempfile.tempdir = saved
-            summary = json.loads(printed.getvalue())
+            seq0, fb0, rp0 = flight_seq(), fallbacks("fused.pool_cycle"), \
+                repacks()
+            rc, summary, wall = _cli(argv + ["--device", device])
             summary.pop("flight", None)
-            out[name] = {"exit": rc, "summary": summary,
-                         "wall_s": time.perf_counter() - t0}
+            out[name] = {"exit": rc, "summary": summary, "wall_s": wall,
+                         "degraded": degraded_since(seq0, fb0),
+                         "fault_repacks": repacks().get("fault", 0)
+                         - rp0.get("fault", 0)}
     return out
 
 
 def phase_ch3() -> dict:
-    """``CH3_LEGS`` through ``cook_tpu_torch.sim``'s ``main``: no kernel
-    and no device; each exits 0 with the fields no thread timing
-    decides as the reference's tests hold them."""
-    import contextlib
-    import io
-    import tempfile
-
-    from cook_tpu_torch.sim.__main__ import main as sim_main
+    """``CH3_LEGS`` through the CLI (:func:`_cli`): no kernel and no
+    device; each exits 0 with the fields no thread timing decides as
+    the reference's tests hold them."""
     out = {}
     for name, argv in CH3_LEGS.items():
-        printed = io.StringIO()
-        t0 = time.perf_counter()
-        with tempfile.TemporaryDirectory(prefix="cook_ch3") as tmp:
-            saved, tempfile.tempdir = tempfile.tempdir, tmp
-            try:
-                with contextlib.redirect_stdout(printed):
-                    rc = sim_main(argv)
-            finally:
-                tempfile.tempdir = saved
-        s = json.loads(printed.getvalue())
+        rc, s, wall = _cli(argv)
         if "--partitions" in argv:
             want = {"ok": True, "violations": [], "partitions": 2,
                     "promoted_epoch": 2, "unresolved_writers": 0,
@@ -6544,7 +6552,7 @@ def phase_ch3() -> dict:
         if rc != 0 or got != want or not timed_ok:
             raise AssertionError(f"phase CH3 {name}: exit {rc}, {got} "
                                  f"(want {want}), summary {s}")
-        out[name] = {**s, "exit": rc, "wall_s": time.perf_counter() - t0}
+        out[name] = {**s, "exit": rc, "wall_s": wall}
     return out
 
 
@@ -6616,10 +6624,19 @@ def phase_ch(device="cuda", world=None) -> dict:
     ch2_counts = {k: v - before.get(k, 0)
                   for k, v in telemetry.snapshot().items()}
     ch2_cpu = cpu_side("ch2") if world is None else ch2_run("cpu")
+
+    def held(r):
+        # CH1's checks of a fused world: no cycle degraded, and every
+        # resident repack of reason fault an injected delta fault
+        return (r["exit"] == 0 and r["summary"]["ok"]
+                and r["degraded"]["fallback_counter"] == 0
+                and r["degraded"]["flight_notes"] == 0
+                and r["fault_repacks"] ==
+                r["summary"].get("delta_faults", 0))
+
     bad = [n for n in CH2_WORLDS
-           if ch2[n]["exit"] != 0 or not ch2[n]["summary"]["ok"]
-           or ch2[n]["summary"] != ch2_cpu[n]["summary"]
-           or ch2_cpu[n]["exit"] != 0]
+           if not held(ch2[n]) or not held(ch2_cpu[n])
+           or ch2[n]["summary"] != ch2_cpu[n]["summary"]]
     print(json.dumps({
         "phase": "CH2", "device": device,
         "worlds": {n: {"argv": CH2_WORLDS[n], "exit": ch2[n]["exit"],
@@ -6628,12 +6645,16 @@ def phase_ch(device="cuda", world=None) -> dict:
                        ch2_cpu[n]["summary"],
                        "wall_s": ch2[n]["wall_s"],
                        "cpu_wall_s": ch2_cpu[n]["wall_s"],
+                       "degraded": ch2[n]["degraded"],
+                       "fault_repacks": ch2[n]["fault_repacks"],
+                       "cpu_fault_repacks": ch2_cpu[n]["fault_repacks"],
                        "summary": ch2[n]["summary"]} for n in CH2_WORLDS},
         "launches_per_kernel": ch2_counts,
         "wall_s": time.perf_counter() - t1}))
     if bad:
-        raise AssertionError(f"phase CH2: {bad} failed or differ from "
-                             f"the CPU")
+        raise AssertionError(f"phase CH2: {bad} failed, degraded, "
+                             f"repacked unexplained or differ from the "
+                             f"CPU")
     t1 = time.perf_counter()
     ch3 = phase_ch3()
     print(json.dumps({"phase": "CH3", "legs": ch3,
@@ -7685,7 +7706,7 @@ ROOT = Path(__file__).resolve().parent
 # compilation_cache_dir: the file's /var/cook/xla-cache lies outside the
 # checkout; the smoke keeps the library in the checkout's build/
 T_CACHE = ROOT / "build" / "cuda-cache"
-T_STEPS = 3              # steps after the first, each leg (4 until CH)
+T_STEPS = 3              # steps after the first, each leg
 T_GANGS, T_GANG_SIZE, T_GANG_MIN = 4, 8, 4   # elastic gangs in the world
 T_CLOCK = 2_000_000      # the pinned store clock (ms) of phase T's worlds
 T_CHILD_TIMEOUT_S = 240.0

@@ -520,10 +520,17 @@ def _http_obs(s, log):
     for rec in body["recent"]:
         for k in ("ts", "duration_ms", "phases_ms", "trace_id"):
             rec.pop(k, None)
-    # the ring is in the order the handler threads recorded the requests,
-    # each after its response: a request the client sent later, on another
-    # connection, can be recorded first (host scheduling, on either side),
-    # so the records are compared in request-id order
+    # The ring is in the order the handler threads recorded the requests,
+    # each after its response: a request the client sent next, on another
+    # connection, can be recorded first (host scheduling, on either side).
+    # Its rule is held on each side: it holds every request sent before
+    # the snapshot, oldest first, each at most one place from its place in
+    # sending order.  Then the records are compared in request-id order.
+    sent = [f"req-{k:05d}" for k in range(1, s.seq)]
+    ring = [r["request_id"] for r in body["recent"]]
+    assert sorted(ring) == sent, ring
+    assert all(abs(sent.index(rid) - i) <= 1
+               for i, rid in enumerate(ring)), ring
     body["recent"].sort(key=lambda r: r["request_id"])
     snap[1]["totals"].pop("requests_s")
     snap[1]["totals"].pop("phases_s")
