@@ -168,7 +168,7 @@ cycle, and the native pack (``native/pack.cpp``) on phase S's arrays.
      (native, numpy, numpy, native), their ``stage_ms`` and
      ``pack_ms``;
   6f. phase Q: ``Scheduler.step_cycle`` at ``bench_pipeline_driver``'s
-     world, cut to 50,000 jobs from ``_driver_jobs`` (seed 13; 5,000
+     world, cut to 25,000 jobs from ``_driver_jobs`` (seed 13; 5,000
      hosts of 64 cpus and 65,536 MB; ``Config()``;
      ``status_queue_shards=4``): a depth-0 leg and a depth-2 leg, each
      from a fresh store, one warm step, one settle step, then 5 timed
@@ -304,12 +304,12 @@ cycle, and the native pack (``native/pack.cpp``) on phase S's arrays.
      1 s match interval) whose one cluster is
      ``cook_tpu_torch.cluster.remote.factory`` over 64
      ``LocalAgentProcess`` agents (``g-00`` ... ``g-63``, 16 cpus and
-     32,768 MB each; ``progress_url`` the node's own URL); 800 jobs
+     32,768 MB each; ``progress_url`` the node's own URL); 400 jobs
      of 1 cpu and 256 MB from 60 users (a size for the run's time;
      ``phase_g(kinds=...)`` takes more): 16 that fill ``g-00``, its only
      agent at first, and run ``[ "$COOK_INSTANCE_NUM" = 0 ] && sleep 60
      || true``; then the other 63 agents register (``add_agent``) and 4
-     ``JobClient`` writers submit in batches of 20 the rest: 604 that
+     ``JobClient`` writers submit in batches of 20 the rest: 204 that
      write ``$COOK_INSTANCE_UUID`` into their sandbox, 100 under
      ``executor: "cook"`` printing two progress lines, 60 ``exit 7``
      with ``max_retries`` 2, 20 ``sleep 60`` killed through REST once
@@ -339,8 +339,8 @@ cycle, and the native pack (``native/pack.cpp``) on phase S's arrays.
      ``k-00`` ... ``k-63`` of 16 cpus and 32,768 MB; a kubelet thread
      steps the mock every 100 ms and finishes each running pod 300 ms
      after it saw it run, with its job's exit code, never on ``k-00``;
-     800 jobs from 40 users by 4 ``JobClient`` writers in batches of
-     20 (712 exit 0, 60 exit 7 with ``max_retries`` 2, 20 killed
+     400 jobs from 40 users by 4 ``JobClient`` writers in batches of
+     20 (312 exit 0, 60 exit 7 with ``max_retries`` 2, 20 killed
      through REST once they run, 8 of 24 cpus that fit no node); once
      16 pods run on ``k-00`` the mock loses it; once the big jobs'
      synthetic pods are up, 4 nodes of 32 cpus join.  Every job must
@@ -405,12 +405,41 @@ cycle, and the native pack (``native/pack.cpp``) on phase S's arrays.
      ``--leader-mode sigkill`` and ``partition``, and ``--partitions 2``
      in process and with shard worker processes (a real SIGKILL), each
      exit 0 with the fields no thread timing decides;
+  6t. phase FO: the multi-cell federation (``federation/``,
+     ``sim/federation``). FO1: ``run_cell_outage(device="cuda")`` at
+     ``FO_WORLD`` (3 cells of 1,000 hosts of 8 cpus and 8 GiB; 1,000
+     batches from 50 users, every fourth a gang of 3: 2,250 jobs; the
+     busiest cell killed after half, then reclaimed), job and gang uuids
+     from one seeded sequence: the drill's invariants (ok, no job lost,
+     no gang split, the victim's breaker open and every survivor's
+     closed, work running after), batches re-routed, no cycle degraded,
+     every launch (K2, K3, K5 of each cell's ``step_rank`` +
+     ``step_match``) replayed against its plain version after the
+     ``_step_all`` that made it (path ``federation``), the summary,
+     every job's owning cell and every cell's placements equal to the
+     CPU's; wall seconds, ``_step_all`` ms a cell, the route p50/p99
+     (each ``FederationRouter.submit``, host clock) and the front door's
+     ``cook_federation_route_seconds``. FO2: a front door with
+     ``route_mode: "goodput"`` on the card over three cells on the card
+     whose inventories differ (``FO2_CELLS``), 40 batches of seeded
+     shapes: every batch's cell equal to the CPU run's, the replays' K5
+     launches counted and replayed (stacked by shape:
+     ``replay_stacked``), ``pick_cell``'s ms p50/p99. FO3: a
+     ``CookDaemon`` with ``examples/cook-federation.json``'s
+     ``"federation"`` section (the cells' local URLs, no dominant-share
+     cap) over two cell ``CookDaemon``s on the card of 200 hosts each
+     (phase N's section: fused, depth 2); 4 ``JobClient`` writers submit
+     400 jobs through the front door; every job placed in the cell the
+     router recorded for it and unknown to the other; the cells' steps
+     take turns under one lock, each replayed (K1-K6) and checked: no
+     host over capacity, no job live twice; no cycle degraded; seconds
+     from the last acknowledgement to the last placement;
   6n. phase T: the production scheduler section through
      ``daemon.build_scheduler_config``, with the fake cluster in place
      of its remote backend (phase G drives that backend) and its
      ``compilation_cache_dir`` in ``build/cuda-cache`` (the file's lies
      outside the checkout). T1: two fresh ``python3`` processes on
-     phase Q's world (50,000 jobs, 200 users, 5,000 hosts) and 4
+     phase Q's world (25,000 jobs, 200 users, 5,000 hosts) and 4
      elastic gangs of 8 (min 4), no status shards, a pinned store
      clock: the first with the boot warmup at the file's grid (131,072
      x 8,192, 2,048 users, no sweep; its seconds, its run count held
@@ -466,7 +495,8 @@ cycle, and the native pack (``native/pack.cpp``) on phase S's arrays.
      phase L as ``k8s_node``, phase H as ``partitioned_node``,
      phase T's warmup as ``warmup`` and its replays as ``optimizer``,
      phase U1 as ``dense_cycle``, phase SH1 as ``mesh_cycle``, phase
-     SH2's worker as ``sharded_controllers``, phase CH1 as ``chaos``)
+     SH2's worker as ``sharded_controllers``, phase CH1 as ``chaos``,
+     phase FO's three parts as ``federation``)
      and last ``{"ok": true, "device": {...}}``.
 
 Usage: ``python3 chip_smoke.py`` from the root of a checkout (needs one
@@ -475,7 +505,7 @@ needs, the kernels into ./build/cuda (the ptxas report in
 build/cuda/ptxas.log; phase T builds them once more into
 ./build/cuda-cache) and the replication carrier, the native pack, the
 transport library and ``cook_agentd`` into ./build/native.  The CPU
-sides of phases Q, X, T, U1, L, H, SH2, CH and E's card = CPU
+sides of phases Q, X, T, U1, L, H, SH2, CH, FO and E's card = CPU
 comparisons run in two spawned worker processes (no CUDA in them)
 beside the card phases, and are shut down at the end.  Any failure
 raises.
@@ -493,6 +523,7 @@ import statistics
 import subprocess
 import sys
 import time
+import urllib.request
 from contextlib import contextmanager, nullcontext
 from pathlib import Path
 from types import SimpleNamespace
@@ -1699,6 +1730,44 @@ def replay_all(calls, what: str) -> dict:
     return held
 
 
+def replay_stacked(calls, what: str) -> dict:
+    """Replay recorded launches of wrappers whose every argument leads
+    with the pool axis (K5's ``greedy``), whose pools are independent:
+    each call's kernel again, then one plain call a shape on the calls
+    stacked along that axis; each call's rows of the plain outputs must
+    equal its kernel's bit for bit.  Returns the count held by wrapper
+    and shape."""
+    groups = {}
+    for i, (wrapper, wargs, kw, _) in enumerate(calls):
+        if kw:
+            raise ValueError(f"{what}: a stacked replay takes no keyword "
+                             f"arguments ({wrapper.__name__})")
+        key = (wrapper, tuple((tuple(a.shape[1:]), a.dtype)
+                              for a in wargs))
+        groups.setdefault(key, []).append((i, wargs))
+    faults, held = [], {}
+    for (wrapper, _), members in groups.items():
+        got = [tensors_of(wrapper.launch(*wargs)) for _, wargs in members]
+        stacked = [torch.cat([wargs[k] for _, wargs in members])
+                   for k in range(len(members[0][1]))]
+        sizes = [wargs[0].shape[0] for _, wargs in members]
+        want = [t.split(sizes) for t in tensors_of(wrapper.plain(*stacked))]
+        torch.cuda.synchronize()
+        for m, (i, _) in enumerate(members):
+            for j, a in enumerate(got[m]):
+                try:
+                    max_err(a, want[j][m])
+                except AssertionError as e:
+                    faults.append(f"call {i} {wrapper.__name__} output "
+                                  f"{j}: {e}")
+        key = f"{wrapper.__name__} {list(members[0][1][0].shape)}"
+        held[key] = held.get(key, 0) + len(members)
+    if faults:
+        raise AssertionError(f"{what}: kernel != plain version:\n"
+                             + "\n".join(faults))
+    return held
+
+
 # ------------------------------------------------- phase P: preemption
 PREEMPT_TASKS, PREEMPT_HOSTS, PREEMPT_DEMANDS = 100_000, 5_000, 64
 
@@ -2583,13 +2652,14 @@ def split_rank_check(ranked, what: str = "phase S") -> float:
 
 
 # ------------------------------------------------ phase Q: the Scheduler
-# bench.py::bench_pipeline_driver's world (:1250-1352), cut to 50,000 of
-# its 100,000 jobs for the smoke's time: one pool, jobs from 200 users
+# bench.py::bench_pipeline_driver's world (:1250-1352), cut to 25,000 of
+# its 100,000 jobs for the smoke's time (50,000 until phase FO joined the
+# run): one pool, jobs from 200 users
 # (_driver_jobs, seed 13), 5,000 hosts
 # of 64 cpus and 65,536 MB, Config() defaults, status_queue_shards=4; a
 # depth-0 leg and a depth-2 leg, each from a fresh store
 Q_JOBS, Q_USERS, Q_HOSTS, Q_SEED, Q_TIMED, Q_CHECKED = \
-    50_000, 200, 5_000, 13, 5, 3
+    25_000, 200, 5_000, 13, 5, 3
 Q_SMALL = {"n_jobs": 10_000, "hosts": 500}   # the card-against-CPU world
 Q_SMALL_STEPS = 4
 
@@ -3692,12 +3762,15 @@ class ReplayingRecorder:
     """Records every stage-wrapper launch between two ``drain`` calls and
     replays each against its plain version at the ``drain``, on the
     inputs it was launched with (the resident buffers are scattered into
-    only at the next stage).  The replays' own launches are counted by
-    the wrappers' launchers; ``launches`` takes them off the counts."""
+    only at the next stage); ``stacked``, for many small launches of K5,
+    replays them through :func:`replay_stacked`.  The replays' own
+    launches are counted by the wrappers' launchers; ``launches`` takes
+    them off the counts."""
 
-    def __init__(self, what: str):
+    def __init__(self, what: str, stacked: bool = False):
         from cook_tpu_torch.ops import cuda_lib, telemetry
         self.cuda_lib, self.telemetry, self.what = cuda_lib, telemetry, what
+        self.replay = replay_stacked if stacked else replay_all
         self.extra, self.held, self.replayed = {}, {}, 0
         self._ctx = None
 
@@ -3712,7 +3785,7 @@ class ReplayingRecorder:
         try:
             if calls:
                 before = self.telemetry.snapshot()
-                for k, n in replay_all(calls, self.what).items():
+                for k, n in self.replay(calls, self.what).items():
                     self.held[k] = self.held.get(k, 0) + n
                 after = self.telemetry.snapshot()
                 for k, n in after.items():
@@ -4459,11 +4532,11 @@ def phase_n(device="cuda", n_jobs=N_JOBS, n_users=N_USERS, hosts=N_HOSTS,
 # match_interval_seconds 1.0, so the fused cycle at depth 2) whose one
 # cluster is cook_tpu_torch.cluster.remote.factory over 64 cook_agentd
 # agents (LocalAgentProcess, g-00 ... g-63, 16 cpus and 32,768 MB each),
-# its progress_url the node's own URL.  800 jobs of 1 cpu and 256 MB
+# its progress_url the node's own URL.  400 jobs of 1 cpu and 256 MB
 # from 60 users; the job kinds and their commands are G_KINDS.  g-00
-# holds 16 cpus, so 16 jobs fill it before it is SIGKILLed.  800 jobs
-# (1,200 until a whole run of this script took 898.8 s on a slow host)
-# for the run's time: a launching step of up to 1,000 real launches
+# holds 16 cpus, so 16 jobs fill it before it is SIGKILLed.  400 jobs
+# (1,200 until a whole run of this script took 898.8 s on a slow host,
+# 800 until phase FO joined the run) for the run's time: a launching step of up to 1,000 real launches
 # holds the node's host for seconds, and the statuses apply after it
 # (PERF.md section 5).  G_KINDS_6000 is the 6,000-job world, run alone
 # (``phase_g(kinds=G_KINDS_6000)``).
@@ -4471,7 +4544,7 @@ G_AGENTS, G_CPUS, G_MEM = 64, 16.0, 32_768.0
 G_USERS, G_WRITERS, G_BATCH = 60, 4, 20
 G_KINDS = {
     # kind: (count, command, executor, max_retries)
-    "uuid": (604, 'echo "$COOK_INSTANCE_UUID" > instance_uuid', None, 1),
+    "uuid": (204, 'echo "$COOK_INSTANCE_UUID" > instance_uuid', None, 1),
     "executor": (100, 'echo "progress: 50 half"; echo "progress: 100 done"',
                  "cook", 1),
     "exit7": (60, "exit 7", None, 2),
@@ -4895,19 +4968,19 @@ def phase_g(device="cuda", n_agents=G_AGENTS, kinds=G_KINDS, users=G_USERS,
 # never a "killed" job's.  The mock's kube-scheduler stand-in binds no
 # unbound pod: synthetic pods stay pending demand, placeholders a real
 # cluster would preempt (the mock has no priorities), so they never
-# take a node from a job.  800 jobs of 1 cpu and 256 MB but the big
+# take a node from a job.  400 jobs of 1 cpu and 256 MB but the big
 # ones, from 40 users; L_KINDS gives each kind's count, exit code,
 # max_retries and cpus.  The jobs on k-00 once 16 pods run there fail
-# NODE_LOST when the phase loses it, whatever their kind.  800 jobs for
+# NODE_LOST when the phase loses it, whatever their kind.  400 jobs for
 # the run's time (1,200 until a whole run of this script took 898.8 s on
-# a slow host): every pod is an HTTP POST under the controller's lock,
+# a slow host, 800 until phase FO joined the run): every pod is an HTTP POST under the controller's lock,
 # and at 2,400 (L_KINDS_2400, run alone) the phase took 151 s on the
 # card's host (PERF.md section 6).
 L_NODES, L_CPUS, L_MEM = 64, 16.0, 32_768.0
 L_USERS, L_WRITERS, L_BATCH = 40, 4, 20
 L_KINDS = {
     # kind: (count, exit code, max_retries, cpus)
-    "ok": (712, 0, 1, 1.0),
+    "ok": (312, 0, 1, 1.0),
     "exit7": (60, 7, 2, 1.0),
     "killed": (20, None, 1, 1.0),
     "big": (8, 0, 1, 24.0),
@@ -5815,9 +5888,9 @@ SH_HEADROOM = np.array([1000.0, 1e12, 1e6, 1e9], np.float32)
 SH_REPS = 5
 SH_POOLS = ["pool0", "pool1", "pool2", "pool3"]
 # the design point over 4 pools: 200 users; 1,250 hosts of 16 cpus and
-# 16 GiB a pool; 50,000 jobs for the smoke's time: each worker builds
-# the whole world at boot
-SH_WORLD = {"n_jobs": 50_000, "n_users": 200, "hosts_per_pool": 1_250,
+# 16 GiB a pool; 25,000 jobs for the smoke's time (50,000 until phase FO
+# joined the run): each worker builds the whole world at boot
+SH_WORLD = {"n_jobs": 25_000, "n_users": 200, "hosts_per_pool": 1_250,
             "host_cpus": 16.0, "host_mem": 16384.0, "seed": 3}
 SH_CFG = {"resident": True, "quantized": True, "depth": 0}
 SH_SMALL = {"n_jobs": 1_600, "n_users": 20, "hosts_per_pool": 8,
@@ -6661,6 +6734,528 @@ def phase_ch(device="cuda", world=None) -> dict:
                       "wall_s": time.perf_counter() - t1,
                       "ch_wall_s": time.perf_counter() - t0}))
     return counts
+
+
+# --------------------------------------- phase FO: the multi-cell federation
+# FO1: the cell-outage drill at a cell size users run (3 cells of 1,000
+# hosts of 8 cpus and 8 GiB; 2,250 jobs, 250 of them in gangs of 3)
+FO_WORLD = {"seed": 0, "n_cells": 3, "hosts_per_cell": 1_000,
+            "n_batches": 1_000, "n_users": 50, "gang_every": 4,
+            "gang_size": 3}
+FO_UUID_SEED = 22
+# FO2: goodput routing over three cells whose inventories differ (id,
+# hosts, cpus, MB), a cell's summary advertising at most 256 hosts
+FO2_CELLS = (("cellA", 64, 8.0, 8_192.0), ("cellB", 32, 32.0, 16_384.0),
+             ("cellC", 200, 4.0, 4_096.0))
+FO2_BATCHES = 40
+# FO3: the node role over two cell nodes
+FO3_HOSTS, FO3_JOBS, FO3_USERS, FO3_WRITERS, FO3_BATCH = 200, 400, 20, 4, 20
+FO3_TIMEOUT_S = 120.0
+
+
+@contextmanager
+def fo_uuids(seed=FO_UUID_SEED):
+    """``uuid.uuid4()`` called from the client or the cell-outage drill
+    (the job and gang uuids) answers from one seeded sequence, so the
+    card's and the CPU's drills pair job by job; every other caller
+    (task ids, trace ids) keeps the random one."""
+    import random
+    import uuid
+
+    real, rng = uuid.uuid4, random.Random(seed)
+    callers = {"cook_tpu_torch.client", "cook_tpu_torch.sim.federation"}
+
+    def uuid4():
+        if sys._getframe(1).f_globals.get("__name__") in callers:
+            return uuid.UUID(int=rng.getrandbits(128), version=4)
+        return real()
+
+    uuid.uuid4 = uuid4
+    try:
+        yield
+    finally:
+        uuid.uuid4 = real
+
+
+def route_histogram(before=None) -> dict:
+    """``cook_federation_route_seconds`` since ``before`` (an earlier
+    return): count, mean, and p50/p99 as the upper bounds of the buckets
+    that hold them."""
+    from cook_tpu_torch.utils.metrics import registry
+    h = next((dict(v, buckets=list(v["buckets"]))
+              for (name, _), v in list(registry._histograms.items())
+              if name == "cook_federation_route_seconds"), None)
+    if h is None:
+        return {"count": 0, "sum": 0.0, "buckets": [], "bounds": []}
+    if before and before["count"]:
+        h["count"] -= before["count"]
+        h["sum"] -= before["sum"]
+        h["buckets"] = [a - b for a, b in zip(h["buckets"],
+                                              before["buckets"])]
+    out = {"count": h["count"], "sum": h["sum"], "buckets": h["buckets"],
+           "bounds": list(h["bounds"])}
+    for q in (0.5, 0.99):
+        out[f"p{int(q * 100)}_le_s"] = next(
+            (b for b, c in zip(h["bounds"], h["buckets"])
+             if c >= q * h["count"]), None) if h["count"] else None
+    out["mean_ms"] = h["sum"] / h["count"] * 1e3 if h["count"] else None
+    return out
+
+
+def pcts(xs) -> dict:
+    return {"p50": float(np.percentile(xs, 50)),
+            "p99": float(np.percentile(xs, 99))} if len(xs) else None
+
+
+def cell_placements(cells) -> dict:
+    """Every cell's jobs: uuid, state, and each instance's host and
+    status (task ids are random)."""
+    out = {}
+    for cell in cells:
+        store = cell.store
+        out[cell.cell_id] = sorted(
+            [j.uuid, j.state.value, [[i.hostname, i.status.value]
+                                     for t in j.instances
+                                     if (i := store.instance(t))
+                                     is not None]]
+            for j in store.jobs_where(lambda j: True))
+    return out
+
+
+def fo1_run(device="cuda", record=False, **size) -> dict:
+    """One ``run_cell_outage`` of ``FO_WORLD`` (``size`` overrides) on
+    ``device`` under :func:`fo_uuids`: the summary, every ledgered job's
+    owning cell, every cell's placements, each ``_step_all`` call's ms a
+    cell, the route times (each ``FederationRouter.submit`` on the host
+    clock, and the front door's ``cook_federation_route_seconds``); with
+    ``record`` every launch is replayed against its plain version after
+    the ``_step_all`` that made it."""
+    from cook_tpu_torch.federation import rest as fed_rest
+    from cook_tpu_torch.federation.router import FederationRouter
+    from cook_tpu_torch.sim import federation as simfed
+    rec = ReplayingRecorder("phase FO1") if record else None
+    made, nodes, steps, routes = [], [], [], []
+    make, build, step_all = (simfed._make_cell,
+                             fed_rest.build_federation_node,
+                             simfed._step_all)
+    submit = FederationRouter.submit
+
+    def make_cell(*a, **kw):
+        made.append(make(*a, **kw))
+        return made[-1]
+
+    def build_node(*a, **kw):
+        nodes.append(build(*a, **kw))
+        return nodes[-1]
+
+    def timed_step_all(cells):
+        per = {}
+        for cell in cells:
+            t0 = time.perf_counter()
+            step_all([cell])
+            per[cell.cell_id] = (time.perf_counter() - t0) * 1e3
+        steps.append(per)
+        if rec is not None:
+            rec.drain()
+
+    def timed_submit(self, *a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return submit(self, *a, **kw)
+        finally:
+            routes.append((time.perf_counter() - t0) * 1e3)
+
+    hist0 = route_histogram()
+    seq0, fb0 = flight_seq(), fallbacks("fused.pool_cycle")
+    simfed._make_cell, fed_rest.build_federation_node = make_cell, build_node
+    simfed._step_all, FederationRouter.submit = timed_step_all, timed_submit
+    if rec is not None:
+        rec.start()
+    t0 = time.perf_counter()
+    try:
+        with fo_uuids():
+            res = simfed.run_cell_outage(
+                simfed.CellOutageConfig(**{**FO_WORLD, **size}),
+                device=device)
+    finally:
+        wall = time.perf_counter() - t0
+        simfed._make_cell, fed_rest.build_federation_node = make, build
+        simfed._step_all, FederationRouter.submit = step_all, submit
+        counts = rec.stop() if rec is not None else None
+    router = nodes[0].router
+    return {"summary": res.summary(), "wall_s": wall,
+            "owners": {u: router.cell_of_uuid(u)
+                       for u in router._uuid_to_batch},
+            "placed": cell_placements(made),
+            "step_all_ms": steps, "route_ms": pcts(routes),
+            "routes": len(routes), "route_histogram": route_histogram(hist0),
+            "degraded": degraded_since(seq0, fb0), "counts": counts,
+            "rec": rec}
+
+
+def fo2_cell(directory: Path, cid: str, n_hosts: int, cpus: float,
+             mem: float, device):
+    """One cell of FO2: a journaled store, ``n_hosts`` hosts of ``cpus``
+    and ``mem``, a ``Scheduler`` on ``device`` (K2/K3 rank, K5 match),
+    the REST plane on a local port."""
+    from cook_tpu_torch.cluster import FakeCluster, FakeHost
+    from cook_tpu_torch.config import Config
+    from cook_tpu_torch.rest import ApiServer, CookApi
+    from cook_tpu_torch.sched import Scheduler
+    from cook_tpu_torch.state import Resources, Store
+    store = Store.open(str(directory / cid))
+    cluster = FakeCluster(f"{cid}-cluster", [
+        FakeHost(f"{cid}-h{i}", Resources(cpus=cpus, mem=mem))
+        for i in range(n_hosts)])
+    cfg = Config()
+    cfg.default_matcher.backend = "tpu-greedy"
+    sched = Scheduler(store, cfg, [cluster], rank_backend="tpu",
+                      device=device)
+    server = ApiServer(CookApi(store, scheduler=sched, config=cfg))
+    server.start()
+    return server
+
+
+def fo2_run(device="cuda", record=False, n_batches=FO2_BATCHES) -> dict:
+    """A goodput-mode front door (``route_mode: "goodput"``, its replays
+    on ``device``) over ``FO2_CELLS``; ``n_batches`` batches of 1-4 jobs of
+    seeded shapes (fixed uuids) from 5 users: every batch's cell, each
+    ``pick_cell`` ms (host clock); with ``record`` each batch's replay
+    launches (K5) are replayed against their plain version after it,
+    stacked by shape (:func:`replay_stacked`)."""
+    import shutil
+    import tempfile
+
+    from cook_tpu_torch.client import JobClient
+    from cook_tpu_torch.federation.rest import build_federation_node
+    rec = ReplayingRecorder("phase FO2", stacked=True) if record else None
+    tmp = Path(tempfile.mkdtemp(prefix="cook_fo2"))
+    servers, fed, picks, pick_ms = [], None, [], []
+    rng = np.random.default_rng(SEED + 22)
+    try:
+        for cid, n, cpus, mem in FO2_CELLS:
+            servers.append((cid, fo2_cell(tmp, cid, n, cpus, mem, device)))
+        fed = build_federation_node(
+            {"cells": [{"id": cid, "url": s.url} for cid, s in servers],
+             "route_mode": "goodput"}, device=device)
+        fed.start()
+        router = fed.router
+        pick = router.pick_cell
+
+        def timed_pick(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return pick(*a, **kw)
+            finally:
+                pick_ms.append((time.perf_counter() - t0) * 1e3)
+
+        router.pick_cell = timed_pick
+        clients = [JobClient(fed.url, user=f"gp{u}") for u in range(5)]
+        if rec is not None:
+            rec.start()
+        t0 = time.perf_counter()
+        for b in range(n_batches):
+            specs = [{"uuid": f"00000000-0000-4000-8022-{b * 10 + j:012d}",
+                      "command": "true",
+                      "cpus": float(rng.choice([1, 2, 4, 6, 12])),
+                      "mem": float(rng.choice([256, 1_024, 3_000, 6_000]))}
+                     for j in range(int(rng.integers(1, 5)))]
+            clients[b % 5].submit(specs)
+            picks.append(router.cell_of_uuid(specs[0]["uuid"]))
+            if rec is not None:
+                rec.drain()
+        wall = time.perf_counter() - t0
+    finally:
+        counts = rec.stop() if rec is not None else None
+        if fed is not None:
+            fed.stop()
+        for _cid, s in servers:
+            s.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"picks": picks, "pick_ms": pcts(pick_ms),
+            "picks_timed": len(pick_ms), "wall_s": wall, "counts": counts,
+            "rec": rec}
+
+
+def fo3_cells(directory: Path, device: str, hosts: int) -> dict:
+    """Two cell nodes (``CookDaemon``), each with its own data and
+    election dirs, ``hosts`` fake hosts of 64 cpus and 65,536 MB and
+    phase N's scheduler section (fused, depth 2, 1 s match interval)."""
+    from cook_tpu_torch.daemon import CookDaemon
+    out = {}
+    for cid in ("cellA", "cellB"):
+        conf = node_conf(directory / cid, cid, device, hosts)
+        conf["clusters"][0]["kwargs"]["name"] = f"{cid}-fake"
+        out[cid] = CookDaemon(conf)
+    return out
+
+
+def fo3_section(cells: dict) -> dict:
+    """``examples/cook-federation.json``'s ``"federation"`` section with
+    the cells' local URLs, and without the dominant-share cap: in a
+    400-job drill the first user's batches hold the whole running usage
+    of the federation until the others' are placed."""
+    conf = json.loads((ROOT / "examples" / "cook-federation.json")
+                      .read_text())
+    fed = conf["federation"]
+    for entry in fed["cells"]:
+        entry["url"] = cells[entry["id"]].node_url
+    fed["max_user_dominant_share"] = 0.0
+    return fed
+
+
+def phase_fo3(device="cuda", hosts=FO3_HOSTS, n_jobs=FO3_JOBS,
+              n_users=FO3_USERS, writers=FO3_WRITERS,
+              batch=FO3_BATCH) -> dict:
+    """The node role: two cell nodes on ``device`` (:func:`fo3_cells`)
+    and a ``CookDaemon`` with a ``"federation"`` section over them
+    (:func:`fo3_section`); ``writers`` ``JobClient`` writers submit
+    ``n_jobs`` jobs through the front door; every job is placed in the
+    cell the router recorded for it and is unknown to the other; each
+    cell's ``step_cycle`` runs under one lock, its launches replayed
+    against their plain versions after it (the two cells' loops take
+    turns) and its cell checked: no host over capacity, no job live
+    twice; no cycle degraded."""
+    import shutil
+    import tempfile
+    import threading
+
+    from cook_tpu_torch.daemon import CookDaemon
+    from cook_tpu_torch.state import JobState
+    card = device == "cuda"
+    out = {"phase": "FO3"}
+    tmp = Path(tempfile.mkdtemp(prefix="cook_fo3"))
+    t0 = time.perf_counter()
+    guard, faults, steps = threading.Lock(), [], []
+    rec = ReplayingRecorder("phase FO3") if card else None
+    cells = fo3_cells(tmp, device, hosts)
+    front, counts = None, {}
+    seq0, fb0 = flight_seq(), fallbacks("fused.pool_cycle")
+
+    def no_fault():
+        if faults:
+            raise AssertionError(f"phase FO3: {len(faults)} step_cycle "
+                                 f"calls failed") from faults[0]
+
+    def checked(cid, node):
+        step_cycle = node.scheduler.step_cycle
+
+        def step(*a, **kw):
+            try:
+                with guard:
+                    t1 = time.perf_counter()
+                    before = fallbacks("fused.pool_cycle")
+                    res = step_cycle(*a, **kw)
+                    t2 = time.perf_counter()
+                    if rec is not None and rec._ctx is not None:
+                        rec.drain()
+                    if fallbacks("fused.pool_cycle") != before:
+                        raise AssertionError(f"phase FO3 {cid}: a step "
+                                             f"degraded to the split path")
+                    check_live(node, f"phase FO3 {cid} step {len(steps)}")
+                    steps.append((cid, t1, sum(
+                        len(r.launched_task_ids) for r in res.values()),
+                        (t2 - t1) * 1e3))
+            except BaseException as e:
+                faults.append(e)
+                raise
+            return res
+
+        node.scheduler.step_cycle = step
+        guard_rebalancer(node.scheduler, guard)
+
+    try:
+        if rec is not None:
+            with guard:
+                rec.start()
+        for cid, node in cells.items():
+            node.start()
+
+            def leader():
+                if node.exit_code != 0:
+                    raise AssertionError(f"phase FO3 {cid}: the takeover "
+                                         f"failed")
+                return node.scheduler
+
+            wait_for(leader, 60.0, f"phase FO3 {cid}: leadership")
+            if node.scheduler.device.type != torch.device(device).type:
+                raise AssertionError(f"phase FO3 {cid}: the leader runs "
+                                     f"on {node.scheduler.device}")
+            checked(cid, node)
+        out["cells_lead_s"] = time.perf_counter() - t0
+        front = CookDaemon({"host": "127.0.0.1", "port": 0,
+                            "federation": fo3_section(cells)},
+                           device=device)
+        front.start()
+        if front.federation is None or front.store is not None \
+                or front.elector is not None:
+            raise AssertionError("phase FO3: the front door is not a "
+                                 "stateless router")
+        router = front.federation.router
+        sub = n_submit(front.node_url, n_jobs, n_users, writers, batch,
+                       SEED + 23)
+        acked, last_ack = sub.pop("acked"), sub.pop("last_ack")
+        out["submit"] = sub
+        owners = {u: router.cell_of_uuid(u) for u in acked}
+        if None in owners.values():
+            raise AssertionError("phase FO3: acknowledged jobs without a "
+                                 "cell in the router's ledger")
+
+        def placed():
+            no_fault()
+            return all(
+                (job := cells[owners[u]].store.job(u)) is not None
+                and job.state is not JobState.WAITING for u in acked)
+
+        wait_for(placed, FO3_TIMEOUT_S, "phase FO3: every job placed in "
+                 "its cell", every=0.1)
+        placed_s = time.perf_counter() - last_ack
+        with guard:
+            stray = [u for u in acked for cid, node in cells.items()
+                     if cid != owners[u] and node.store.job(u) is not None]
+            for cid, node in cells.items():
+                check_live(node, f"phase FO3 {cid} at the end")
+            panel = json.loads(urllib.request.urlopen(
+                front.node_url + "/debug/federation").read())
+        if stray:
+            raise AssertionError(f"phase FO3: jobs known to a cell that "
+                                 f"does not own them: {stray[:3]}")
+        by_cell = {cid: sum(1 for c in owners.values() if c == cid)
+                   for cid in cells}
+        out["fo3"] = {
+            "placed_after_last_ack_s": placed_s,
+            "jobs_by_cell": by_cell,
+            "step_cycles": len(steps),
+            "dispatching_cycles": sum(1 for s in steps if s[2]),
+            "launched": sum(s[2] for s in steps),
+            "step_ms": pcts([s[3] for s in steps]),
+            "panel_cells": [{k: c[k] for k in ("id", "tier", "breaker",
+                                               "routed_total")}
+                            for c in panel["cells"]],
+            "rejections": panel["rejections"]}
+    finally:
+        if front is not None:
+            front.shutdown()
+        for node in cells.values():
+            node.shutdown()
+        if rec is not None:
+            with guard:
+                counts = rec.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    no_fault()
+    degraded = degraded_since(seq0, fb0)
+    out["degraded"] = degraded
+    if degraded["fallback_counter"] or degraded["flight_notes"]:
+        raise AssertionError(f"phase FO3: cycles degraded: {degraded}")
+    if card:
+        missing = [k for k in SOURCES if counts.get(k, 0) <= 0]
+        skipped = rec.unreplayed(counts)
+        if missing or skipped:
+            raise AssertionError(f"phase FO3: kernels not launched "
+                                 f"{missing}, launches not replayed "
+                                 f"(path, replays) {skipped}")
+        out["launches_per_kernel"] = counts
+        out["replayed_equal_to_plain"] = rec.replayed
+    out["world"] = {"cells": 2, "hosts_per_cell": hosts, "cpus": 64.0,
+                    "mem": 65_536.0, "jobs": n_jobs, "users": n_users,
+                    "writers": writers, "batch": batch, "task_s": 3.0}
+    out["wall_s"] = time.perf_counter() - t0
+    print(json.dumps(out))
+    return counts
+
+
+def phase_fo(device="cuda", world=None, fo2=None, fo3=None) -> dict:
+    """The multi-cell federation: FO1 ``run_cell_outage`` at
+    ``FO_WORLD`` (or ``world``) on ``device``, counted (path
+    ``federation``) with every launch replayed, held to the drill's
+    invariants, no cycle degraded, the summary, every job's owning cell
+    and every cell's placements equal to the CPU's; FO2 a goodput front
+    door on ``device`` over three cells, its picks equal to the CPU's,
+    its replays' launches replayed; FO3 the node role
+    (:func:`phase_fo3`).  The launches of all three, summed."""
+    card = device == "cuda"
+    t0 = time.perf_counter()
+    size = world or {}
+    got = fo1_run(device, record=card, **size)
+    cpu = cpu_side("fo1") if world is None else fo1_run("cpu", **size)
+    s, counts = got["summary"], got["counts"] or {}
+    checks = {
+        "ok": s["ok"], "no_lost_jobs": s["lost_jobs"] == 0,
+        "no_split_gangs": s["split_gangs"] == 0,
+        "victim_breaker_open": s["breaker_states"][s["victim"]]
+        in ("open", "half-open"),
+        "survivors_closed": all(v == "closed" for c, v in
+                                s["breaker_states"].items()
+                                if c != s["victim"]),
+        "running_after": s["running_after"] > 0,
+        "rerouted": s["rerouted_batches"] > 0,
+        "all_jobs_owned": len(got["owners"]) == s["jobs_acked"]
+        and None not in got["owners"].values(),
+        "not_degraded": got["degraded"]["fallback_counter"] == 0
+        and got["degraded"]["flight_notes"] == 0,
+        "summary_equal_to_cpu": s == cpu["summary"],
+        "owners_equal_to_cpu": got["owners"] == cpu["owners"],
+        "placements_equal_to_cpu": got["placed"] == cpu["placed"]}
+    if card:
+        checks["k2_k3_k5_launched"] = all(
+            counts.get(k, 0) > 0 for k in ("scan", "sort", "greedy"))
+        checks["every_launch_replayed"] = \
+            got["rec"].unreplayed(counts) == {}
+    failed = [k for k, v in checks.items() if not v]
+    steps = got["step_all_ms"]
+    line = {
+        "phase": "FO1", "device": device, "world": {**FO_WORLD, **size},
+        "wall_s": got["wall_s"], "cpu_wall_s": cpu["wall_s"],
+        "step_all_calls": len(steps), "step_all_ms_by_cell": steps,
+        "route_ms": got["route_ms"], "routes": got["routes"],
+        "route_histogram": got["route_histogram"],
+        "placed_by_cell": {c: sum(1 for j in v if j[2])
+                           for c, v in got["placed"].items()},
+        "degraded": got["degraded"], "summary": s, "checks": checks}
+    if card:
+        line.update({"launches_per_kernel": counts,
+                     "replayed_equal_to_plain": got["rec"].replayed,
+                     "replayed_by_wrapper": got["rec"].held})
+    print(json.dumps(line))
+    if failed:
+        diff = {k: (s.get(k), cpu["summary"].get(k)) for k in s
+                if s.get(k) != cpu["summary"].get(k)}
+        raise AssertionError(f"phase FO1: {failed}; card/CPU summary "
+                             f"differences {diff}")
+    del got, cpu
+
+    t1 = time.perf_counter()
+    gp = fo2_run(device, record=card, **(fo2 or {}))
+    gp_cpu = cpu_side("fo2") if fo2 is None else fo2_run("cpu", **fo2)
+    gp_counts = gp["counts"] or {}
+    bad = []
+    if gp["picks"] != gp_cpu["picks"]:
+        bad.append("picks differ from the CPU's")
+    if card and (gp_counts.get("greedy", 0) <= 0
+                 or gp["rec"].unreplayed(gp_counts)):
+        bad.append("replays' K5 launches missing or not replayed")
+    line = {"phase": "FO2", "device": device,
+            "cells": [list(c) for c in FO2_CELLS],
+            "batches": len(gp["picks"]), "picks": gp["picks"],
+            "picks_by_cell": {c: gp["picks"].count(c)
+                              for c in sorted(set(gp["picks"]))},
+            "equal_to_cpu": gp["picks"] == gp_cpu["picks"],
+            "pick_ms": gp["pick_ms"], "picks_timed": gp["picks_timed"],
+            "wall_s": gp["wall_s"], "cpu_wall_s": gp_cpu["wall_s"],
+            "fo2_wall_s": time.perf_counter() - t1}
+    if card:
+        line.update({"launches_per_kernel": gp_counts,
+                     "replayed_equal_to_plain": gp["rec"].replayed})
+    print(json.dumps(line))
+    if bad:
+        raise AssertionError(f"phase FO2: {bad}; card {gp['picks']}, "
+                             f"cpu {gp_cpu['picks']}")
+    node_counts = phase_fo3(device, **(fo3 or {}))
+    print(json.dumps({"phase": "FO", "fo_wall_s": time.perf_counter()
+                      - t0}))
+    return {k: counts.get(k, 0) + gp_counts.get(k, 0)
+            + node_counts.get(k, 0)
+            for k in set(counts) | set(gp_counts) | set(node_counts)}
 
 
 def compute_apps() -> list:
@@ -8261,7 +8856,8 @@ def copy_args(args) -> tuple:
 # started (a phase run alone).
 CPU_SIDES = (("e_split",), ("x_leg", 0), ("x_leg", 2), ("t_small",),
              ("q_small", 0), ("q_small", 2), ("u_small",), ("l_small",),
-             ("h_small",), ("sh_small",), ("ch1",), ("ch2",))
+             ("h_small",), ("sh_small",), ("ch1",), ("ch2",), ("fo1",),
+             ("fo2",))
 CPU_SIDE_WORKERS, CPU_SIDE_THREADS = 2, 2
 _SIDES = {"pool": None, "futures": {}}
 
@@ -8289,6 +8885,13 @@ def cpu_side_run(key: tuple):
         return {k: got[k] for k in ("summary", "sequences", "wall_s")}
     if name == "ch2":
         return ch2_run("cpu")
+    if name == "fo1":
+        got = fo1_run("cpu")
+        return {k: got[k] for k in ("summary", "owners", "placed",
+                                    "wall_s")}
+    if name == "fo2":
+        got = fo2_run("cpu")
+        return {k: got[k] for k in ("picks", "wall_s")}
     raise KeyError(key)
 
 
@@ -8517,6 +9120,8 @@ def run() -> int:
     mark("SH2")
     chaos_counts = phase_ch()
     mark("CH")
+    federation_counts = phase_fo()
+    mark("FO")
     prod_counts = phase_t()
     mark("T")
     dense_counts = phase_u1()
@@ -8562,6 +9167,7 @@ def run() -> int:
                 "mesh_cycle": mesh_counts.get(k, 0),
                 "sharded_controllers": shard_counts.get(k, 0),
                 "chaos": chaos_counts.get(k, 0),
+                "federation": federation_counts.get(k, 0),
                 "warmup": prod_counts["warmup"].get(k, 0),
                 "optimizer": prod_counts["optimizer"].get(k, 0),
                 "dense_cycle": dense_counts.get(k, 0)},

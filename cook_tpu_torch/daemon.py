@@ -3,13 +3,15 @@
 the config's top-level ``"device"`` key, else ``"cuda"``), resolved at
 boot before the listener binds on every node that may lead, so a node
 without its card exits nonzero and never serves; the elected leader's
-``Scheduler`` runs on it.  Each branch that needs a module still to be
-ported is refused at boot with the ROADMAP.md item that holds it: a
-``"federation"`` section (queue 1, item 11d).  ``partitions.count > 1``
+``Scheduler`` runs on it.  A ``"federation"`` section makes the node the
+stateless front door over N cells (``federation/``), as the reference's
+does; its router resolves ``device`` only in the goodput route mode,
+whose replays match through K5 there, so a load-mode front door boots
+without a card.  ``partitions.count > 1``
 opens the partitioned write plane (``state/partition``: one journal a
 partition under ``<data_dir>/p<i>/``) and pins the scheduler to the
 entity path, as the reference's node does.  A cluster or optimizer
-factory in the JAX package (``cook_tpu.`` ...) is refused too: importing
+factory in the JAX package (``cook_tpu.`` ...) is refused at boot: importing
 it would load JAX into the node.  The clusters a node builds are the
 port's fake backend, its remote backend
 (``cook_tpu_torch.cluster.remote.factory``:
@@ -383,11 +385,46 @@ class CookDaemon:
         # fleet observability plane (sched/fleet.py): federation scraper
         # + trace fan-out over the candidate registry's topology
         self.fleet = None
+        # multi-cell federation front door (federation/): a "federation"
+        # conf section makes this process a stateless router over N
+        # cells — no store, no journal, no election
+        self.federation = None
 
     # -------------------------------------------------------------- assembly
     def start(self) -> None:
         conf = self.conf
-        self._refuse_unported_roles()
+        # ------------------------------------------------ federation role
+        fed = conf.get("federation")
+        if fed is not None:
+            # the front door is sovereign-cell-agnostic by construction:
+            # combining it with cell state in one process would couple
+            # the router's availability to one cell's journal — exactly
+            # the blast-radius federation exists to remove.  Refuse the
+            # combination at boot, like every other conf contradiction.
+            clashing = [k for k in ("scheduler", "clusters", "replication",
+                                    "shared_data_dir", "data_dir",
+                                    "election_dir", "election")
+                        if conf.get(k)]
+            if clashing:
+                raise ValueError(
+                    "a \"federation\" section makes this process a "
+                    "stateless front-door router; it cannot also carry "
+                    f"cell state (drop {', '.join(sorted(clashing))} or "
+                    "run them as separate cell daemons — docs/DEPLOY.md "
+                    "multi-cell federation)")
+            from .federation.rest import build_federation_node
+            # boot-validates the section (FederationConfig.from_conf):
+            # unknown keys, malformed cells, bad tiers all fail HERE; the
+            # goodput route mode resolves the device here too
+            self.federation = build_federation_node(
+                fed, host=self.host, port=self.port, device=self.device)
+            self.federation.start()
+            self.node_url = self.federation.url
+            self._node_id = f"{self.host}-{self.federation.port}"
+            from .utils import tracing
+            tracing.set_process_identity(self._node_id)
+            return
+        self._refuse_jax_factories()
         # shared_data_dir: the data dir is on shared storage reachable from
         # every scheduler host (the Datomic-transactor slot).  Followers
         # load a replay-only view (no journal attach — their appends would
@@ -631,15 +668,10 @@ class CookDaemon:
         if not self.api_only:
             self.elector.campaign()
 
-    def _refuse_unported_roles(self) -> None:
-        """Boot-time refusals of the roles whose modules are still to be
-        ported, checked before any state is opened or any port binds."""
+    def _refuse_jax_factories(self) -> None:
+        """Boot-time refusals of a factory in the JAX package, checked
+        before any state is opened or any port binds."""
         conf = self.conf
-        if conf.get("federation") is not None:
-            raise NotImplementedError(
-                "a \"federation\" section (the multi-cell front door, "
-                "federation/) is not ported: see ROADMAP.md, queue 1, "
-                "item 11d")
         for spec in conf.get("clusters") or []:
             check_cluster_factory(spec["factory"])
         for path in conf.get("cluster_factory_allowlist") or []:
@@ -987,7 +1019,8 @@ class CookDaemon:
         self.start()
         signal.signal(signal.SIGTERM, self._sigterm)
         signal.signal(signal.SIGINT, self._sigterm)
-        role = " (api-only)" if self.api_only else " (campaigning)"
+        role = " (federation router)" if self.federation is not None \
+            else (" (api-only)" if self.api_only else " (campaigning)")
         print(f"cook_tpu: serving {self.node_url}" + role, flush=True)
         self._done.wait()
         self.shutdown()
@@ -998,6 +1031,10 @@ class CookDaemon:
         self._done.set()
 
     def shutdown(self) -> None:
+        if self.federation is not None:
+            self.federation.stop()
+            self.federation = None
+            return
         with self._lock:
             if self.scheduler is not None:
                 self.scheduler.shutdown()

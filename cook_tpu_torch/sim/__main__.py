@@ -8,14 +8,15 @@
      or: python -m cook_tpu_torch.sim --crashpoints  (exhaustive disk-fault /
          crash-point recovery matrix, sim/crashpoint.py; exit 1 on any
          storage-contract violation)
+     or: python -m cook_tpu_torch.sim --chaos --cell-outage [--cells N]
+         [--soak]  (full-cell outage behind the federation front door,
+         sim/federation.py; exit 1 on violations)
 
 The port's copy of ``cook_tpu/sim/__main__.py``, with ``--device``
 (default ``cuda``; ``cpu`` runs the plain PyTorch path), which ``--chaos``
-hands to ``run_chaos`` (the failover modes touch no device).  The
-cell-outage mode keeps its flag but exits 2 before any work, with or
-without ``--chaos``: its module (``sim/federation.py``) is still to be
-ported (ROADMAP.md, queue 1, item 10b, after item 11d's federated
-plane)."""
+hands to ``run_chaos`` and ``--chaos --cell-outage`` to
+``run_cell_outage`` (the failover modes touch no device).
+``--cell-outage`` without ``--chaos`` is ignored, as in the reference."""
 
 import argparse
 import json
@@ -29,14 +30,6 @@ from .simulator import (
     load_trace,
 )
 from .workload import generate_hosts, generate_trace
-
-
-def _unported_mode(args):
-    """The flag of a mode whose module is still to be ported, or None
-    (checked before any work, with no import of the missing module)."""
-    if args.cell_outage:
-        return "--chaos --cell-outage" if args.chaos else "--cell-outage"
-    return None
 
 
 def main(argv=None) -> int:
@@ -181,14 +174,6 @@ def main(argv=None) -> int:
         print(json.dumps(cres.summary(), indent=2))
         return 0 if cres.ok else 1
 
-    refused = _unported_mode(args)
-    if refused is not None:
-        print(f"cook_tpu_torch.sim: {refused} is not ported yet: see "
-              "ROADMAP.md, queue 1, item 10b (sim/federation.py, the "
-              "cell-outage mode), which follows item 11d (the federated "
-              "plane it drives)", file=sys.stderr)
-        return 2
-
     if args.parity_pipeline:
         from .simulator import run_pipeline_parity
         result = run_pipeline_parity(
@@ -198,6 +183,18 @@ def main(argv=None) -> int:
             device=args.device)
         print(json.dumps(result, indent=2))
         return 0 if result["ok"] else 1
+
+    if args.chaos and args.cell_outage:
+        from .federation import CellOutageConfig, run_cell_outage
+        occ = CellOutageConfig(seed=args.seed or 0, soak=args.soak)
+        if args.cells is not None:
+            occ.n_cells = args.cells
+            occ.__post_init__()
+        if args.jobs is not None:
+            occ.n_batches = max(args.jobs // 2, 4)
+        oresult = run_cell_outage(occ, device=args.device)
+        print(json.dumps(oresult.summary(), indent=2))
+        return 0 if oresult.ok else 1
 
     if args.chaos_failover:
         if args.partitions and args.partitions > 1:

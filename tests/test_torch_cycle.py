@@ -251,7 +251,12 @@ def test_port_imports_neither_jax_nor_cook_tpu():
             REPO / "cook_tpu_torch/parallel/mesh.py",
             REPO / "cook_tpu_torch/parallel/sharded.py",
             REPO / "cook_tpu_torch/sched/shard.py",
-            REPO / "cook_tpu_torch/sim/chaos.py"} <= set(files)
+            REPO / "cook_tpu_torch/sim/chaos.py",
+            REPO / "cook_tpu_torch/sim/federation.py"} <= set(files)
+    fed = {f.name for f in (REPO / "cook_tpu/federation").glob("*.py")}
+    assert len(fed) == 6
+    assert {REPO / "cook_tpu_torch/federation" / n for n in fed} \
+        <= set(files)
     k8s = {f.name for f in (REPO / "cook_tpu/cluster/k8s").glob("*.py")}
     assert len(k8s) == 9
     assert {REPO / "cook_tpu_torch/cluster/k8s" / n for n in k8s} \
@@ -268,15 +273,17 @@ def test_port_imports_neither_jax_nor_cook_tpu():
 def test_k8s_backend_loads_neither_jax_nor_cook_tpu():
     """Importing every module of the port's Kubernetes backend, the
     partitioned write plane, the pool mesh, the sharded cycle, the shard
-    controllers, and the node that builds its lease elector and opens
-    partitions, loads no ``jax`` and no ``cook_tpu`` module."""
+    controllers, the federation front door, the cell-outage drill, and
+    the node that builds its lease elector, opens partitions and serves
+    the federation role, loads no ``jax`` and no ``cook_tpu`` module."""
     code = ("import sys, cook_tpu_torch.cluster.k8s, "
             "cook_tpu_torch.state.partition, cook_tpu_torch.parallel.mesh, "
             "cook_tpu_torch.parallel.sharded, cook_tpu_torch.sched.shard, "
             "cook_tpu_torch.cluster.k8s.real_api, "
             "cook_tpu_torch.cluster.k8s.mock_apiserver, "
             "cook_tpu_torch.cluster.k8s.testcerts, "
-            "cook_tpu_torch.cluster.k8s.pod_spec, cook_tpu_torch.daemon\n"
+            "cook_tpu_torch.cluster.k8s.pod_spec, cook_tpu_torch.daemon, "
+            "cook_tpu_torch.federation, cook_tpu_torch.sim.federation\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'cook_tpu')))")
     run = subprocess.run([sys.executable, "-c", code], cwd=REPO,

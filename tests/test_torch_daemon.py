@@ -9,9 +9,10 @@ cook_tpu_torch``) against the JAX package's on the CPU.
   pipeline's warmup and compilation cache included) builds the
   reference's ``Config``, the optimizer's factories named in the port;
   a node boots with each of those planes, and with the whole section;
-- the port's own refusals (a federation section, a cluster or optimizer
-  factory in the JAX package) and the default device without a card
-  each fail the boot before a port binds;
+- a federation section beside cell state (the reference's refusal),
+  the port's own refusals (a cluster or optimizer factory in the JAX
+  package) and the default device without a card each fail the boot
+  before a port binds;
 - a node with ``partitions.count = 2`` and one fake cluster a pool
   routes, pins the entity path and places jobs as the reference node
   does; with replication, or with ``shard_pools`` that disagree with
@@ -237,7 +238,8 @@ def _sched(**section):
 
 REFUSALS = {
     "federation": (lambda conf: conf.update(federation={"cells": []}),
-                   NotImplementedError, "item 11"),
+                   ValueError, "stateless front-door router; it cannot "
+                   "also carry cell state"),
     "jax_optimizer_factory": (
         _sched(optimizer={"optimizer_create_fn":
                           "cook_tpu.sched.optimizer.GoodputOptimizer"}),

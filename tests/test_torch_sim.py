@@ -12,7 +12,6 @@ less :data:`HOST_CLOCK` and :data:`TRANSFER_TELEMETRY`.
 
 import importlib
 import json
-import sys
 import types
 
 import numpy as np
@@ -349,26 +348,32 @@ def test_main_parity_pipeline_and_overload_modes(capsys, monkeypatch):
         assert ref[0] == 0
 
 
-REFUSED = {
+CELL_OUTAGE = {
     "--chaos --cell-outage": ["--chaos", "--cell-outage", "--cells", "3"],
-    "--cell-outage": ["--cell-outage"],
+    "--chaos --cell-outage (2 cells)": ["--chaos", "--cell-outage"],
+    "--cell-outage": ["--cell-outage", "--jobs", "30", "--n-hosts", "6"],
 }
 
 
-@pytest.mark.parametrize("flag", sorted(REFUSED))
-def test_unported_modes_exit_2(flag, capsys):
-    """The cell-outage mode, whose module (``sim/federation.py``) is
-    still to come, exits 2 before any work, with or without
-    ``--chaos``, naming its queue item."""
-    before = set(sys.modules)
-    rc = PORT.main.main(REFUSED[flag] + ["--device", "cpu"])
-    out, err = capsys.readouterr()
-    assert rc == 2
-    assert out == ""
-    assert f"{flag} is not ported yet" in err
-    assert "ROADMAP.md, queue 1, item 10b" in err
-    new = set(sys.modules) - before
-    assert not any(m.startswith("cook_tpu_torch.sim.") for m in new)
+@pytest.mark.parametrize("flag", sorted(CELL_OUTAGE))
+def test_cell_outage_modes_match_the_reference(flag, capsys):
+    """``--chaos --cell-outage`` runs the outage drill
+    (``sim/federation.py``) and prints the reference's summary, byte for
+    byte; ``--cell-outage`` without ``--chaos``, which the reference
+    ignores, falls through to the default replay on both sides (its
+    summary less the host-clock fields)."""
+    argv = CELL_OUTAGE[flag]
+    ref = _main(REF, argv, capsys)
+    port = _main(PORT, argv + ["--device", "cpu"], capsys)
+    assert ref[0] == 0 and port[0] == ref[0]
+    if "--chaos" in argv:
+        assert port[1] == ref[1]
+        summary = json.loads(ref[1])
+        assert summary["ok"] and summary["cells"] == (
+            3 if "--cells" in argv else 2)
+    else:
+        assert comparable(json.loads(port[1])) == \
+            comparable(json.loads(ref[1]))
 
 
 def test_crashpoints_mode_matches_the_reference(capsys):
