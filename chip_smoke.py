@@ -46,6 +46,10 @@ kernels on the card; and in process over the remote backend
 (``cluster/remote``), whose ``cook_agentd`` agents (the repo-root
 ``native/transport.cpp``) run every placed job as a real process.
 
+The service farms (``ecosystem``: Dask and Spark clusters as Cook jobs)
+and the native job client over a REST node, with the port's lint and
+its ``/debug/health`` lock-edge diff.
+
 The user entry points: the trace-replay simulator
 (``cook_tpu_torch.sim``) on a 5,000-job burst over 1,000 hosts, and
 the REST plane (``rest/api.CookApi`` behind ``ApiServer``, driven by
@@ -268,7 +272,10 @@ cycle, and the native pack (``native/pack.cpp``) on phase S's arrays.
      from 200 users in batches of 20 (a size for the run's time) and
      the daemon's own loops place and complete them;
      every launch of its cycles recorded and replayed against its plain
-     version after its step (path ``daemon``), no host oversubscribed
+     version after its step (path ``daemon``) on copies of its tensor
+     arguments taken on its stream before it ran (the calls whose live
+     arguments were written in place before their replay counted by
+     wrapper; a replay that fails names its call), no host oversubscribed
      and no job live twice after every step; a fault in a step, the
      cycle's own or a check's, which the match loop would log and
      carry on from, fails the phase, as do a step left unchecked and a
@@ -434,6 +441,25 @@ cycle, and the native pack (``native/pack.cpp``) on phase S's arrays.
      take turns under one lock, each replayed (K1-K6) and checked: no
      host over capacity, no job live twice; no cycle degraded; seconds
      from the last acknowledgement to the last placement;
+  6u. phase EC: the service farms and the native job client on a REST
+     node: the port's ``ApiServer(CookApi)`` over ``Scheduler(store,
+     Config(), [FakeCluster], device="cuda")`` with 1,000 hosts of 16
+     cpus and 65,536 MB, 20,000 pending jobs from 50 users (1-4 cpus,
+     1-8 GiB) put into the store; over HTTP the native job client
+     (``native/jobclient.cpp``, built into ./build/native at first use)
+     submits 1,000 jobs in batches of 100 and a group of 50, queries
+     them, kills 100 and retries 50 after a failure; a Dask
+     ``CookCluster`` scales to 64 workers and a ``SparkOnCook`` brings
+     up a master and 32 workers; both then scale down to a quarter.
+     ``step_cycle`` runs until every farm worker runs, each cycle's
+     launches replayed against their plain versions on copies taken
+     before each launch (path ``ecosystem``) and checked: no host over
+     capacity, no job live twice; the pairs of every cycle, the farms'
+     statuses and the native client's query results equal to the CPU
+     run's (``device="cpu"``, the same fixed and seeded uuids);
+     ``python -m cook_tpu_torch.lint`` exits 0 on the port's tree; the
+     node's ``/debug/health`` lists the static lock edges, none of the
+     observed ones missing from them;
   6n. phase T: the production scheduler section through
      ``daemon.build_scheduler_config``, with the fake cluster in place
      of its remote backend (phase G drives that backend) and its
@@ -496,7 +522,8 @@ cycle, and the native pack (``native/pack.cpp``) on phase S's arrays.
      phase T's warmup as ``warmup`` and its replays as ``optimizer``,
      phase U1 as ``dense_cycle``, phase SH1 as ``mesh_cycle``, phase
      SH2's worker as ``sharded_controllers``, phase CH1 as ``chaos``,
-     phase FO's three parts as ``federation``)
+     phase FO's three parts as ``federation``, phase EC as
+     ``ecosystem``)
      and last ``{"ok": true, "device": {...}}``.
 
 Usage: ``python3 chip_smoke.py`` from the root of a checkout (needs one
@@ -504,8 +531,9 @@ CUDA card, nvcc and g++): it builds every kernel and native library it
 needs, the kernels into ./build/cuda (the ptxas report in
 build/cuda/ptxas.log; phase T builds them once more into
 ./build/cuda-cache) and the replication carrier, the native pack, the
-transport library and ``cook_agentd`` into ./build/native.  The CPU
-sides of phases Q, X, T, U1, L, H, SH2, CH, FO and E's card = CPU
+transport library, the native job client and ``cook_agentd`` into
+./build/native.  The CPU
+sides of phases Q, X, T, U1, L, H, SH2, CH, FO, EC and E's card = CPU
 comparisons run in two spawned worker processes (no CUDA in them)
 beside the card phases, and are shut down at the end.  Any failure
 raises.
@@ -979,14 +1007,43 @@ def bytes_moved(wrapper, args, kw, got) -> int:
     return total
 
 
-def replay(i, wrapper, args, kw, faults) -> tuple:
+def arg_summary(args, kw) -> str:
+    """Each tensor argument's dtype, shape and, for an integer one, its
+    range, read on the host: the index a failed gather took."""
+    out = []
+    for j, a in enumerate(list(args) + list(kw.values())):
+        if not isinstance(a, torch.Tensor):
+            continue
+        desc = f"{j}: {str(a.dtype).replace('torch.', '')}{list(a.shape)}"
+        if a.numel() and not a.is_floating_point() and a.dtype != torch.bool:
+            try:
+                desc += f" in [{int(a.min())}, {int(a.max())}]"
+            except RuntimeError:    # a dtype without a min on the card
+                desc += " (range not read)"
+        out.append(desc)
+    return "; ".join(out)
+
+
+def replay(i, wrapper, args, kw, faults, what: str = "replay") -> tuple:
     """Launch a recorded call again and run its plain version on the same
     inputs; every output must agree bit for bit.  Appends a line per
     differing output to ``faults``; returns (kernel outputs, max abs
-    err)."""
-    got = tensors_of(wrapper.launch(*args, **kw))
-    want = tensors_of(wrapper.plain(*args, **kw))
-    torch.cuda.synchronize()
+    err).  The integer arguments' ranges are read on the host before the
+    plain version runs, so a kernel or plain version that fails (a
+    device-side assert surfaces at the synchronize, and leaves the card
+    unreadable) raises naming ``what``, the call, its wrapper and those
+    ranges."""
+    side, ranges = "kernel", arg_summary(args, kw)
+    try:
+        got = tensors_of(wrapper.launch(*args, **kw))
+        torch.cuda.synchronize()
+        side = "plain version"
+        want = tensors_of(wrapper.plain(*args, **kw))
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        raise AssertionError(f"{what}: call {i} {wrapper.__name__}: its "
+                             f"{side} failed on the recorded inputs "
+                             f"({ranges}): {e}") from e
     err = 0.0
     for j, (a, b) in enumerate(zip(got, want, strict=True)):
         try:
@@ -1013,7 +1070,7 @@ def phase_a(calls):
     covered_ms = 0.0   # K2's time in the calls a library call covers
     faults = []
     cycle_launches = 0
-    for i, (wrapper, args, kw, plans) in enumerate(calls):
+    for i, (wrapper, args, kw, plans, _live) in enumerate(calls):
         row = rows[wrapper.kernel]
         got, err = replay(i, wrapper, args, kw, faults)
         row["max_abs_err"] = max(row["max_abs_err"], err)
@@ -1720,8 +1777,8 @@ def replay_all(calls, what: str) -> dict:
     """Replay recorded launches against their plain versions; returns
     the count held by wrapper and shape."""
     faults, held = [], {}
-    for i, (wrapper, wargs, kw, _) in enumerate(calls):
-        replay(i, wrapper, wargs, kw, faults)
+    for i, (wrapper, wargs, kw, *_) in enumerate(calls):
+        replay(i, wrapper, wargs, kw, faults, what)
         key = f"{wrapper.__name__} {list(wargs[0].shape)}"
         held[key] = held.get(key, 0) + 1
     if faults:
@@ -1738,7 +1795,7 @@ def replay_stacked(calls, what: str) -> dict:
     equal its kernel's bit for bit.  Returns the count held by wrapper
     and shape."""
     groups = {}
-    for i, (wrapper, wargs, kw, _) in enumerate(calls):
+    for i, (wrapper, wargs, kw, *_) in enumerate(calls):
         if kw:
             raise ValueError(f"{what}: a stacked replay takes no keyword "
                              f"arguments ({wrapper.__name__})")
@@ -2714,10 +2771,11 @@ def q_top_up(s, n):
         s.store.create_jobs(fresh[i:i + 10_000])
 
 
-def check_live(s, what: str) -> int:
-    """No host over capacity and no job with two live instances, by the
-    store's live instances; returns their count."""
-    cap = np.array([64.0, 65536.0])
+def check_live(s, what: str, cap=(64.0, 65536.0)) -> int:
+    """No host over capacity (``cap``: every host's cpus and MB) and no
+    job with two live instances, by the store's live instances; returns
+    their count."""
+    cap = np.array(cap)
     used, per_job = {}, {}
     live = s.store.running_instances()
     for job, inst in live:
@@ -3758,32 +3816,63 @@ Y_FLIGHT_HOST_CLOCK = ("cycle_ms_p50", "cycle_ms_p99", "detail_ms",
                        "sync_wait_ms")
 
 
+def written_args(call) -> list:
+    """The positions of a snapshotted call's tensor arguments whose live
+    tensor no longer holds, bit for bit, what the launch read (its
+    snapshot): written in place between the launch and now."""
+    if call.live is None:
+        return []
+    args, kw = call.live
+    pairs = list(zip(args, call.args)) + [(v, call.kw[k])
+                                          for k, v in kw.items()]
+    return [j for j, (live, snap) in enumerate(pairs)
+            if isinstance(live, torch.Tensor)
+            and not torch.equal(live.reshape(-1).view(torch.uint8),
+                                snap.reshape(-1).view(torch.uint8))]
+
+
 class ReplayingRecorder:
     """Records every stage-wrapper launch between two ``drain`` calls and
-    replays each against its plain version at the ``drain``, on the
-    inputs it was launched with (the resident buffers are scattered into
-    only at the next stage); ``stacked``, for many small launches of K5,
-    replays them through :func:`replay_stacked`.  The replays' own
-    launches are counted by the wrappers' launchers; ``launches`` takes
-    them off the counts."""
+    replays each against its plain version at the ``drain``.  Each
+    launch's tensor arguments are copied on its stream just before it
+    runs (``cuda_lib.recording(snapshot=True)``), and the replay reads
+    the copies: by the drain, a later stage may have written a live
+    argument in place (the pipeline's next cycle scattering into the
+    resident buffers within the same step, or another thread of a
+    node).  ``written`` counts, by wrapper, the calls with such an
+    argument at their drain, with the positions of those arguments;
+    ``stacked``, for many small launches of K5, replays them through
+    :func:`replay_stacked`.  The replays' own launches are counted by
+    the wrappers' launchers; ``launches`` takes them off the counts."""
 
     def __init__(self, what: str, stacked: bool = False):
         from cook_tpu_torch.ops import cuda_lib, telemetry
         self.cuda_lib, self.telemetry, self.what = cuda_lib, telemetry, what
         self.replay = replay_stacked if stacked else replay_all
         self.extra, self.held, self.replayed = {}, {}, 0
+        self.written = {}
         self._ctx = None
+
+    def _open(self) -> None:
+        self._ctx = self.cuda_lib.recording(snapshot=True)
+        self.calls = self._ctx.__enter__()
 
     def start(self) -> None:
         self.telemetry.reset_all()
-        self._ctx = self.cuda_lib.recording()
-        self.calls = self._ctx.__enter__()
+        self._open()
 
     def drain(self) -> None:
         calls = self.calls
         self._ctx.__exit__(None, None, None)
         try:
             if calls:
+                for c in calls:
+                    args = written_args(c)
+                    if args:
+                        w = self.written.setdefault(
+                            c.wrapper.__name__, {"calls": 0, "args": []})
+                        w["calls"] += 1
+                        w["args"] = sorted(set(w["args"]) | set(args))
                 before = self.telemetry.snapshot()
                 for k, n in self.replay(calls, self.what).items():
                     self.held[k] = self.held.get(k, 0) + n
@@ -3793,8 +3882,7 @@ class ReplayingRecorder:
                                      - before.get(k, 0))
                 self.replayed += len(calls)
         finally:
-            self._ctx = self.cuda_lib.recording()
-            self.calls = self._ctx.__enter__()
+            self._open()
 
     def stop(self) -> dict:
         """Replay what is left; the launches counted in between, less the
@@ -4507,6 +4595,9 @@ def phase_n(device="cuda", n_jobs=N_JOBS, n_users=N_USERS, hosts=N_HOSTS,
                                      f"(path, replays): {skipped}")
             out["n2"]["launches_per_kernel"] = counts
             out["n2"]["replayed_equal_to_plain"] = rec.replayed
+            # recorded calls whose live inputs were written in place
+            # before their drain (the replays read the launch's copies)
+            out["n2"]["inputs_written_before_drain"] = rec.written
         t1 = time.perf_counter()
         reopened = Store.open(str(tmp / "data-n"))
         lost = [u for u in acked if reopened.job(u) is None
@@ -7258,6 +7349,257 @@ def phase_fo(device="cuda", world=None, fo2=None, fo3=None) -> dict:
             for k in set(counts) | set(gp_counts) | set(node_counts)}
 
 
+# ------------------------- phase EC: the service farms and the native client
+# A REST node (the port's ApiServer(CookApi) over Scheduler(store,
+# Config(), [FakeCluster], device)) at a cluster the farms run on:
+# 1,000 hosts of 16 cpus and 65,536 MB; 20,000 pending jobs from 50
+# users (1-4 cpus, 1-8 GiB) put straight into the store, about 50,000
+# cpus against 16,000, so the rank decides.  Over HTTP: the native job
+# client (1,000 jobs in batches of 100 and a group of 50; queries; 100
+# killed; 50 retried after a failure), a Dask CookCluster of 64 workers
+# and a SparkOnCook of a master and 32 workers, both then scaled down to
+# a quarter.  The store's clock is pinned and the jobs' uuids are fixed
+# or seeded, so the card's run and the CPU's pair cycle by cycle.
+EC_HOSTS, EC_CPUS, EC_MEM = 1_000, 16.0, 65_536.0
+EC_BACKLOG, EC_USERS, EC_SEED = 20_000, 50, 23
+EC_NATIVE, EC_BATCH, EC_GROUP, EC_KILL, EC_RETRY = 1_000, 100, 50, 100, 50
+EC_DASK, EC_SPARK, EC_MAX_CYCLES = 64, 32, 40
+EC_T0 = 1_700_000_000_000
+
+
+def ec_uuid(i: int, tag: int) -> str:
+    return f"00000000-0000-4000-{0x8000 + tag:04x}-{i:012d}"
+
+
+def ec_run(device="cuda", record=False, hosts=EC_HOSTS, backlog=EC_BACKLOG,
+           users=EC_USERS, native=EC_NATIVE, group=EC_GROUP, kill=EC_KILL,
+           retry=EC_RETRY, dask=EC_DASK, spark=EC_SPARK) -> dict:
+    """Phase EC's world on ``device``: the backlog in the store, the
+    native client's, the Dask cluster's and the Spark cluster's traffic
+    over HTTP, and ``step_cycle`` (each checked: no host over capacity,
+    no job live twice) until every farm worker runs.  Returns each
+    cycle's (job uuid, hostname) pairs, the farms' statuses, the native
+    client's query results (task ids renamed by first appearance) and
+    the times; with ``record`` every launch is replayed against its
+    plain version after its cycle, and the node's ``/debug/health``
+    is read once the static lock edges have landed."""
+    from cook_tpu_torch.analysis.summaries import static_edge_families
+    from cook_tpu_torch.client import JobClient
+    from cook_tpu_torch.cluster import FakeCluster, FakeHost
+    from cook_tpu_torch.config import Config
+    from cook_tpu_torch.ecosystem import CookCluster, SparkOnCook
+    from cook_tpu_torch.native.jobclient import NativeJobClient
+    from cook_tpu_torch.rest import ApiServer, CookApi
+    from cook_tpu_torch.sched import Scheduler
+    from cook_tpu_torch.state import Job, JobState, Resources, Store
+    if record:
+        static_edge_families(wait=False)   # off a thread, from now
+    t0 = time.perf_counter()
+    now = [EC_T0]
+    store = Store()
+    store.clock = lambda: now[0]
+    cluster = FakeCluster("ec", [
+        FakeHost(f"h{i:04d}", Resources(cpus=EC_CPUS, mem=EC_MEM))
+        for i in range(hosts)])
+    cfg = Config()
+    sched = Scheduler(store, cfg, [cluster], device=device)
+    rng = np.random.default_rng(SEED + EC_SEED)
+    cpus = rng.integers(1, 5, backlog)
+    mem = rng.integers(1, 9, backlog) * 1024
+    jobs = [Job(uuid=ec_uuid(i, 0), user=f"user{i % users:02d}",
+                command="true", submit_time_ms=EC_T0 - backlog + i,
+                resources=Resources(cpus=float(cpus[i]), mem=float(mem[i])))
+            for i in range(backlog)]
+    for i in range(0, backlog, 10_000):
+        store.create_jobs(jobs[i:i + 10_000])
+    store.ensure_index()
+    server = ApiServer(CookApi(store, scheduler=sched, config=cfg,
+                               admins=["admin"]))
+    server.start()
+    built_s = time.perf_counter() - t0
+    rec = ReplayingRecorder("phase EC") if record else None
+    view = SimpleNamespace(store=store)
+    cycles, step_ms, names, out = [], [], {}, {}
+
+    def step(what):
+        t1 = time.perf_counter()
+        res = sched.step_cycle()
+        sched.flush_status_updates()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        if rec is not None:
+            rec.drain()
+        check_live(view, f"phase EC {what} cycle {len(cycles)}",
+                   cap=(EC_CPUS, EC_MEM))
+        cycles.append(launched_pairs(view, res))
+        now[0] += 1_000
+
+    def step_until(pred, what):
+        while not pred():
+            if len(cycles) >= EC_MAX_CYCLES:
+                raise AssertionError(f"phase EC {device}: {what} not "
+                                     f"reached in {EC_MAX_CYCLES} cycles")
+            step(what)
+
+    def query(client, uuids):
+        return z_norm([j for b in range(0, len(uuids), EC_BATCH)
+                       for j in client.query(uuids[b:b + EC_BATCH])], names)
+
+    if rec is not None:
+        rec.start()
+    t1 = time.perf_counter()
+    try:
+        with fo_uuids(EC_SEED):
+            nc = NativeJobClient(server.host, server.port, user="native")
+            nat = [ec_uuid(i, 1) for i in range(native)]
+            for b in range(0, native, EC_BATCH):
+                nc.submit([{"uuid": u, "command": "true", "cpus": 1.0,
+                            "mem": 512.0, "max_retries": 1}
+                           for u in nat[b:b + EC_BATCH]])
+            g = ec_uuid(0, 2)
+            grp = [ec_uuid(i, 3) for i in range(group)]
+            nc.submit([{"uuid": u, "command": "true", "cpus": 1.0,
+                        "mem": 256.0, "group": g} for u in grp],
+                      groups=[{"uuid": g, "name": "ec-group"}])
+            dk = CookCluster(JobClient(server.url, user="dask"),
+                             name="ec-dask")
+            sk = SparkOnCook(JobClient(server.url, user="spark"),
+                             name="ec-spark")
+            dk._sched_farm.scale(1)
+            sk._master_farm.scale(1)
+            step_until(lambda: dk._sched_farm.running()
+                       and sk._master_farm.running(), "the heads")
+            out["heads_cycles"] = len(cycles)
+            out["dask_scheduler"] = dk.start_scheduler(timeout_s=10.0)
+            out["spark_master"] = sk.start_master(timeout_s=10.0)
+            dk.scale(dask)
+            sk.scale(spark)
+            step_until(lambda: len(dk._workers.running()) == dask
+                       and len(sk._workers.running()) == spark,
+                       "every farm worker")
+            out["workers_cycles"] = len(cycles) - out["heads_cycles"]
+            out["farms_placed_s"] = time.perf_counter() - t1
+            everyone = nat + grp
+            out["native_query"] = query(nc, everyone)
+            nc.kill(nat[:kill])
+            sched.flush_status_updates()
+            failed = [u for u in nat[kill:]
+                      if store.job(u).state is JobState.RUNNING][:retry]
+            for u in failed:
+                cluster.complete_task(store.job(u).instances[-1],
+                                      exit_code=1)
+            sched.flush_status_updates()
+            if any(store.job(u).state is not JobState.COMPLETED
+                   for u in failed):
+                raise AssertionError("phase EC: a failed job not completed")
+            out["retried"] = [nc.retry(u, 2) for u in failed]
+            step("the retries")
+            step("the retries")
+            out["native_after"] = query(nc, everyone)
+            out["group"] = z_norm(nc.group([g], detailed=True), names)
+            dk.scale(dask // 4)
+            sk.scale(spark // 4)
+            out["farms"] = {"dask": dk.workers_status(),
+                            "dask_heads": dk._sched_farm.status(),
+                            "spark": sk._workers.status(),
+                            "spark_heads": sk._master_farm.status()}
+            if record:
+                static_edge_families(wait=True)
+                out["health"] = JobClient(server.url, user="admin")._request(
+                    "GET", "/debug/health")
+            dk.close()
+            sk.close()
+            nc.close()
+    finally:
+        out["wall_s"] = time.perf_counter() - t1
+        out["counts"] = rec.stop() if rec is not None else None
+        server.stop()
+        sched.shutdown()
+    out.update(cycles=cycles, step_ms=step_ms, built_s=built_s, rec=rec)
+    return out
+
+
+def ec_comparable(got) -> dict:
+    return {k: got[k] for k in ("cycles", "farms", "native_query",
+                                "native_after", "group", "retried",
+                                "dask_scheduler", "spark_master",
+                                "heads_cycles", "workers_cycles")}
+
+
+def phase_ec(device="cuda", world=None) -> dict:
+    """The service farms and the native job client on a node: EC's world
+    on ``device``, counted (path ``ecosystem``) with every launch
+    replayed against its plain version; the same pairs every cycle, the
+    same farm statuses and the same native query results as the CPU's
+    run; ``python -m cook_tpu_torch.lint`` exits 0 on the port's tree;
+    the node's ``/debug/health`` shows the static lock edges, none of
+    the observed ones missing from them.  Returns the launches."""
+    card = device == "cuda"
+    t0 = time.perf_counter()
+    lint = subprocess.Popen(
+        [sys.executable, "-m", "cook_tpu_torch.lint"],
+        cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    size = world or {}
+    try:
+        got = ec_run(device, record=card, **size)
+    finally:
+        lint_out, lint_err = lint.communicate(timeout=600)
+    cpu = cpu_side("ec") if world is None else ec_comparable(
+        ec_run("cpu", **size))
+    counts = got["counts"] or {}
+    mine = ec_comparable(got)
+    checks = {
+        "pairs_equal_to_cpu": mine["cycles"] == cpu["cycles"],
+        "farms_equal_to_cpu": mine["farms"] == cpu["farms"],
+        "native_equal_to_cpu": (mine["native_query"], mine["native_after"],
+                                mine["group"]) == (
+            cpu["native_query"], cpu["native_after"], cpu["group"]),
+        "all_equal_to_cpu": mine == cpu,
+        "lint_exit_0": lint.returncode == 0}
+    line = {"phase": "EC", "device": device,
+            "world": {"hosts": EC_HOSTS, "cpus": EC_CPUS, "mem": EC_MEM,
+                      "backlog": EC_BACKLOG, "users": EC_USERS,
+                      "native": EC_NATIVE, "group": EC_GROUP,
+                      "dask": EC_DASK, "spark": EC_SPARK, **size},
+            "wall_s": got["wall_s"], "world_built_s": got["built_s"],
+            "cycles": len(got["cycles"]),
+            "cycles_to_heads": got["heads_cycles"],
+            "cycles_to_every_worker": got["heads_cycles"]
+            + got["workers_cycles"],
+            "farms_placed_s": got["farms_placed_s"],
+            "launched_by_cycle": [len(c) for c in got["cycles"]],
+            "step_cycle_ms": got["step_ms"],
+            "step_cycle_ms_p50_p99": pcts(got["step_ms"]),
+            "lint": lint_out.strip().splitlines()[-1:]}
+    if card:
+        rec = got["rec"]
+        lk = got["health"]["locks"]
+        checks.update({
+            "k1_to_k6_launched": all(counts.get(k, 0) > 0
+                                     for k in SOURCES),
+            "every_launch_replayed": rec.unreplayed(counts) == {},
+            "static_edges_listed": isinstance(lk.get("static_edges"), list)
+            and len(lk["static_edges"]) > 0,
+            "no_observed_only_edge": lk.get("observed_only_edges") == []})
+        line.update({"launches_per_kernel": counts,
+                     "replayed_equal_to_plain": rec.replayed,
+                     "inputs_written_before_drain": rec.written,
+                     "health_locks": {
+                         k: lk.get(k) for k in (
+                             "static_edges", "observed_edges",
+                             "unexercised_edges", "observed_only_edges")}})
+    line["checks"] = checks
+    line["ec_wall_s"] = time.perf_counter() - t0
+    print(json.dumps(line))
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        diff = [k for k in mine if mine[k] != cpu.get(k)]
+        raise AssertionError(f"phase EC: {failed}; card/CPU differences "
+                             f"in {diff}; lint: {lint_out[-2000:]}"
+                             f"{lint_err[-2000:]}")
+    return counts
+
+
 def compute_apps() -> list:
     """The pids ``nvidia-smi`` lists as compute processes on the card,
     one entry a process that holds a CUDA context."""
@@ -7649,7 +7991,7 @@ def phase_e():
     # on the same inputs, at the split path's own shapes
     faults, held, worst = [], {}, 0
     t0 = time.perf_counter()
-    for i, (wrapper, wargs, kw, _) in enumerate(calls):
+    for i, (wrapper, wargs, kw, *_) in enumerate(calls):
         replay(i, wrapper, wargs, kw, faults)
         shape = tuple(wargs[0].shape)
         key = f"{wrapper.__name__} {list(shape)}"
@@ -8857,7 +9199,7 @@ def copy_args(args) -> tuple:
 CPU_SIDES = (("e_split",), ("x_leg", 0), ("x_leg", 2), ("t_small",),
              ("q_small", 0), ("q_small", 2), ("u_small",), ("l_small",),
              ("h_small",), ("sh_small",), ("ch1",), ("ch2",), ("fo1",),
-             ("fo2",))
+             ("fo2",), ("ec",))
 CPU_SIDE_WORKERS, CPU_SIDE_THREADS = 2, 2
 _SIDES = {"pool": None, "futures": {}}
 
@@ -8892,6 +9234,8 @@ def cpu_side_run(key: tuple):
     if name == "fo2":
         got = fo2_run("cpu")
         return {k: got[k] for k in ("picks", "wall_s")}
+    if name == "ec":
+        return ec_comparable(ec_run("cpu"))
     raise KeyError(key)
 
 
@@ -9122,6 +9466,8 @@ def run() -> int:
     mark("CH")
     federation_counts = phase_fo()
     mark("FO")
+    ecosystem_counts = phase_ec()
+    mark("EC")
     prod_counts = phase_t()
     mark("T")
     dense_counts = phase_u1()
@@ -9168,6 +9514,7 @@ def run() -> int:
                 "sharded_controllers": shard_counts.get(k, 0),
                 "chaos": chaos_counts.get(k, 0),
                 "federation": federation_counts.get(k, 0),
+                "ecosystem": ecosystem_counts.get(k, 0),
                 "warmup": prod_counts["warmup"].get(k, 0),
                 "optimizer": prod_counts["optimizer"].get(k, 0),
                 "dense_cycle": dense_counts.get(k, 0)},

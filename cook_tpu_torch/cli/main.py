@@ -1,6 +1,6 @@
 """The port's copy of ``cook_tpu/cli/main.py``: ``cs`` over the port's
-``JobClient`` (``python -m cook_tpu_torch.cli.main``).  ``cs lint`` exits 2:
-the static analysis passes are still to be ported.
+``JobClient`` (``python -m cook_tpu_torch.cli.main``); ``cs lint`` runs
+the port's ``lint`` over the port's tree.
 
 ``cs`` command-line interface.
 
@@ -811,13 +811,29 @@ def cmd_ssh(args) -> int:
 
 
 def cmd_lint(args) -> int:
-    """``cs lint``: the static analysis passes (the JAX package's
-    ``lint`` and ``analysis/``) are still to be ported, so this exits 2
-    with a line naming the ROADMAP.md item, before any work."""
-    print("error: cs lint is not ported: the static analysis passes "
-          "(lint, analysis/) are ROADMAP.md, queue 1, item 11",
-          file=sys.stderr)
-    return 2
+    """``cs lint [--json]`` — run the static analysis passes locally
+    (no server round-trip; the lint reads source, not state) with the
+    ``python -m cook_tpu_torch.lint`` exit contract: 0 = clean tree, 1 = new
+    unsuppressed findings (docs/ANALYSIS.md)."""
+    from ..lint import main as lint_main
+    argv = []
+    if args.as_json:
+        argv.append("--json")
+    if args.root:
+        argv += ["--root", args.root]
+    if args.docs:
+        argv += ["--docs", args.docs]
+    if args.baseline:
+        argv += ["--baseline", args.baseline]
+    if args.show_suppressed:
+        argv.append("--show-suppressed")
+    if args.changed is not None:
+        argv += ["--changed", args.changed]
+    if args.lock_coverage:
+        argv.append("--lock-coverage")
+    if args.observed:
+        argv += ["--observed", args.observed]
+    return lint_main(argv)
 
 
 def cmd_config(args) -> int:

@@ -204,30 +204,45 @@ def call(name: str, kernel: str, *args, plan=None) -> None:
 
 class Launch(NamedTuple):
     """One recorded stage-wrapper call: the wrapper, its arguments, and
-    the plans its launches were given."""
+    the plans its launches were given.  Under ``recording(snapshot=
+    True)`` the tensors of ``args`` and ``kw`` are copies taken on the
+    launch's stream just before it, and ``live`` holds the (args, kw)
+    the call was given."""
     wrapper: Callable
     args: tuple
     kw: dict
     plans: tuple
+    live: Optional[tuple] = None
 
 
-_RECORDER: Optional[list] = None
+# the open recording: (its list of calls, whether it snapshots), one
+# name so that a launching thread reads both at once
+_RECORDER: Optional[tuple] = None
 # the plans of the wrapper call this thread is making: a node launches
 # from more than one thread (the match loop, the rebalancer)
 _LOCAL = threading.local()
 
 
 @contextlib.contextmanager
-def recording():
+def recording(snapshot: bool = False):
     """Collect every kernel launch made through a stage wrapper inside
     the block as a :class:`Launch`, so a caller can replay each launch
-    against its plain version on the same inputs."""
+    against its plain version on the same inputs.  ``snapshot`` copies
+    each launch's tensor arguments before it runs: a caller that replays
+    later, after a later stage or another thread may have written those
+    tensors in place (the next cycle's scatter into the resident
+    buffers), replays the inputs as they were launched."""
     global _RECORDER
-    _RECORDER = calls = []
+    calls = []
+    _RECORDER = (calls, snapshot)
     try:
         yield calls
     finally:
         _RECORDER = None
+
+
+def _copied(value):
+    return value.clone() if isinstance(value, torch.Tensor) else value
 
 
 def _device_of(args) -> torch.device:
@@ -263,15 +278,22 @@ def stage(kernel: str, plain: Callable, dtypes=()):
                     raise ValueError(f"{name}: tensor argument {i} must be "
                                      f"{want}, got {a.dtype}")
             # the launch goes to the recording open when it began
-            recorder = _RECORDER
+            recorder, snapshot = _RECORDER or (None, False)
             _LOCAL.plans = plans = [] if recorder is not None else None
             try:
                 with torch.cuda.device(dev):
+                    if recorder is not None and snapshot:
+                        # enqueued before the launch: what it will read
+                        rec_args = tuple(_copied(a) for a in args)
+                        rec_kw = {k: _copied(v) for k, v in kw.items()}
                     out = launch(*args, **kw)
             finally:
                 _LOCAL.plans = None
             if recorder is not None:
-                recorder.append(Launch(wrapper, args, kw, tuple(plans)))
+                recorder.append(
+                    Launch(wrapper, rec_args, rec_kw, tuple(plans),
+                           (args, kw)) if snapshot
+                    else Launch(wrapper, args, kw, tuple(plans)))
             return out
         wrapper.plain = plain
         wrapper.launch = launch

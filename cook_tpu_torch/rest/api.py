@@ -1,9 +1,9 @@
 """The port's copy of ``cook_tpu/rest/api.py`` (imports re-rooted).
 
 ``CookApi`` drives the port's ``Scheduler``, so every cycle a REST
-deployment runs is on the scheduler's device.  ``/debug/health`` reports
-``locks.static_edges`` as ``"unavailable"`` (the reference's branch for
-a deploy without ``analysis/``, which is still to be ported).
+deployment runs is on the scheduler's device.  ``/debug/health`` diffs
+the lock monitor's observed edges against the static edges that the
+port's ``analysis/`` computes over the port's own tree.
 
 REST API server.
 
@@ -2070,9 +2070,24 @@ class CookApi:
         # until it lands, the block reports "computing".  unexercised =
         # statically possible orderings tier-1 never drove; observed-
         # only = a resolution gap in the static analysis (report it).
-        # The port has no analysis package yet (ROADMAP.md, queue 1, item
-        # 11): this is the reference's branch for a deploy without it.
-        health["locks"]["static_edges"] = "unavailable"
+        lk = health["locks"]
+        try:
+            from ..analysis.summaries import (static_edge_error,
+                                              static_edge_families)
+            static = static_edge_families(wait=False)
+            err = static_edge_error()
+        except Exception:  # analysis package stripped from this deploy
+            lk["static_edges"] = "unavailable"
+        else:
+            if static is not None:
+                observed = set(lk.get("observed_edges", []))
+                lk["static_edges"] = static
+                lk["unexercised_edges"] = sorted(set(static) - observed)
+                lk["observed_only_edges"] = sorted(observed - set(static))
+            elif err is not None:
+                lk["static_edges"] = f"failed: {err}"
+            else:
+                lk["static_edges"] = "computing"
         followers = repl.get("followers") or []
         if followers:
             health["replication"]["max_lag_bytes"] = max(

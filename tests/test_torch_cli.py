@@ -20,6 +20,7 @@ import re
 import sys
 import time
 import types
+from pathlib import Path
 
 import pytest
 
@@ -175,15 +176,37 @@ def test_cs_families_print_the_same(node, tmp_path, monkeypatch):
     assert [rc for _c, rc, _o, _e in logs[0]].count(0) >= 10
 
 
-def test_cs_lint_exits_2_without_importing_the_lint(node, tmp_path,
-                                                    monkeypatch):
-    before = set(sys.modules)
-    rc, out, err = Side(P, node, tmp_path, monkeypatch).run("lint")
-    assert rc == 2 and out == ""
-    assert "ROADMAP.md, queue 1, item 11" in err
-    new = set(sys.modules) - before
-    assert not [m for m in new if m.startswith("cook_tpu_torch.")
-                and ("lint" in m or "analysis" in m)]
+def test_cs_lint_prints_the_same(node, tmp_path, monkeypatch):
+    """``cs lint --json`` with the port's defaults (its own tree, its own
+    baseline, the repo's ``docs/``) gives the exit code and the document
+    that the reference's ``cs lint --json`` gives on the same tree, after
+    the scanned package's name; a dirty tree exits 1 on both."""
+    port_tree = str(Path(P.cli.__file__).parent.parent)
+    got = []
+    for p, argv in ((R, ("lint", "--json", "--root", port_tree)),
+                    (P, ("lint", "--json"))):
+        rc, out, err = Side(p, node, tmp_path, monkeypatch).run(*argv)
+        doc = json.loads(out)
+        for f in doc["findings"] + doc["suppressed"]:
+            f["message"] = f["message"].replace(
+                " is used in cook_tpu_torch/ ", " is used in cook_tpu/ ")
+        got.append((rc, doc, err))
+    assert got[1] == got[0]
+    rc, doc, _err = got[1]
+    assert rc == 0 and doc["ok"] and len(doc["lock_edges"]) == 18
+    assert doc["summary"]["suppressed"] == len(doc["suppressed"]) > 7
+    pkg = tmp_path / "pkg"
+    pkg.mkdir()
+    (pkg / "m.py").write_text(
+        "import os\n\nclass S:\n    def bad(self):\n"
+        "        with self._lock:\n            os.fsync(3)\n")
+    empty = tmp_path / "b.json"
+    empty.write_text('{"suppressions": []}')
+    dirty = [Side(p, node, tmp_path, monkeypatch).run(
+        "lint", "--root", str(pkg), "--baseline", str(empty))
+        for p in SIDES]
+    assert dirty[1] == dirty[0] and dirty[1][0] == 1
+    assert "[lock-blocking-call]" in dirty[1][1]
 
 
 # ------------------------------------------------ sandbox commands

@@ -261,6 +261,15 @@ def test_port_imports_neither_jax_nor_cook_tpu():
     assert len(k8s) == 9
     assert {REPO / "cook_tpu_torch/cluster/k8s" / n for n in k8s} \
         <= set(files)
+    # the last host packages: analysis/, lint, ecosystem/ and the native
+    # job client (12 modules)
+    last = ([f"analysis/{f.name}" for f in
+             (REPO / "cook_tpu/analysis").glob("*.py")] +
+            [f"ecosystem/{f.name}" for f in
+             (REPO / "cook_tpu/ecosystem").glob("*.py")] +
+            ["lint.py", "native/jobclient.py"])
+    assert len(last) == 12
+    assert {REPO / "cook_tpu_torch" / n for n in last} <= set(files)
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
@@ -273,9 +282,11 @@ def test_port_imports_neither_jax_nor_cook_tpu():
 def test_k8s_backend_loads_neither_jax_nor_cook_tpu():
     """Importing every module of the port's Kubernetes backend, the
     partitioned write plane, the pool mesh, the sharded cycle, the shard
-    controllers, the federation front door, the cell-outage drill, and
-    the node that builds its lease elector, opens partitions and serves
-    the federation role, loads no ``jax`` and no ``cook_tpu`` module."""
+    controllers, the federation front door, the cell-outage drill, the
+    node that builds its lease elector, opens partitions and serves the
+    federation role, the static analysis and its lint (with the
+    registries it imports), the service farms and the native job client
+    loads no ``jax`` and no ``cook_tpu`` module."""
     code = ("import sys, cook_tpu_torch.cluster.k8s, "
             "cook_tpu_torch.state.partition, cook_tpu_torch.parallel.mesh, "
             "cook_tpu_torch.parallel.sharded, cook_tpu_torch.sched.shard, "
@@ -283,7 +294,18 @@ def test_k8s_backend_loads_neither_jax_nor_cook_tpu():
             "cook_tpu_torch.cluster.k8s.mock_apiserver, "
             "cook_tpu_torch.cluster.k8s.testcerts, "
             "cook_tpu_torch.cluster.k8s.pod_spec, cook_tpu_torch.daemon, "
-            "cook_tpu_torch.federation, cook_tpu_torch.sim.federation\n"
+            "cook_tpu_torch.federation, cook_tpu_torch.sim.federation, "
+            "cook_tpu_torch.analysis, cook_tpu_torch.analysis.engine, "
+            "cook_tpu_torch.analysis.passes, "
+            "cook_tpu_torch.analysis.callgraph, "
+            "cook_tpu_torch.analysis.summaries, "
+            "cook_tpu_torch.analysis.registry, cook_tpu_torch.lint, "
+            "cook_tpu_torch.ecosystem, cook_tpu_torch.ecosystem.service_farm, "
+            "cook_tpu_torch.ecosystem.dask_backend, "
+            "cook_tpu_torch.ecosystem.spark, "
+            "cook_tpu_torch.native.jobclient\n"
+            "cook_tpu_torch.analysis.registry.cycle_record_fields()\n"
+            "cook_tpu_torch.analysis.registry.journal_record_kinds()\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'cook_tpu')))")
     run = subprocess.run([sys.executable, "-c", code], cwd=REPO,

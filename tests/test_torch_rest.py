@@ -545,10 +545,10 @@ def _http_obs(s, log):
     status, health = s.call("GET", "/debug/health")
     # Each package's process-wide planes hold what every earlier test on
     # the same worker left there, so they are left out: the lock monitor
-    # (the reference's is armed for the whole session by tests/conftest.py,
-    # and its static_edges come from its analysis package, which the port
-    # has not got yet: the port's "unavailable" is tested on its own
-    # below), the metrics registry (burn rates, the pipeline-depth gauge,
+    # (the reference's is armed for the whole session by tests/conftest.py;
+    # each side's static_edges come from its own analysis package, on a
+    # background thread, and are compared on their own below), the
+    # metrics registry (burn rates, the pipeline-depth gauge,
     # the repack counters) and "healthy", which reads both; the breaker
     # registry is kept for this stack's own cluster
     for k in ("locks", "slo_burn_rates", "pipeline_depth",
@@ -754,15 +754,39 @@ def test_task_stats_and_job_reasons(seed):
     assert any(r and "quota" in json.dumps(r) for r in out[0])
 
 
-# ------------------------------------------------ the port's refusals
-def test_debug_health_static_edges_unavailable():
-    s = Stack(SIDES[1])
-    try:
-        status, health = s.call("GET", "/debug/health")
-    finally:
-        s.close()
-    assert status == 200
-    assert health["locks"]["static_edges"] == "unavailable"
+# ------------------------------------------------ the lock-edge diff
+def test_debug_health_static_edges_equal_the_references():
+    """After the same requests and cycle on each side, and once each
+    package's static edge set has landed (the reference tests' wait:
+    ``static_edge_families(wait=True)``), ``/debug/health`` reports the
+    port's static edges equal to the reference's, with the diff against
+    the observed edges beside them."""
+    out = []
+    for p in SIDES:
+        summaries = importlib.import_module(f"{p.root}.analysis.summaries")
+        s = Stack(p)
+        try:
+            s.call("POST", "/jobs", {"jobs": [
+                {"uuid": job_uuid(i), "command": "x", "cpus": 1,
+                 "mem": 64} for i in range(3)]})
+            s.step()
+            first = s.call("GET", "/debug/health")
+            static = summaries.static_edge_families(wait=True)
+            status, health = s.call("GET", "/debug/health")
+        finally:
+            s.close()
+        assert first[0] == status == 200
+        assert first[1]["locks"]["static_edges"] in ("computing", static)
+        lk = health["locks"]
+        assert lk["static_edges"] == static
+        observed = set(lk["observed_edges"])
+        assert lk["unexercised_edges"] == sorted(set(static) - observed)
+        assert lk["observed_only_edges"] == sorted(observed - set(static))
+        out.append(lk)
+    assert out[1]["static_edges"] == out[0]["static_edges"]
+    assert len(out[1]["static_edges"]) == 18
+    assert out[1]["observed_only_edges"] == []
+    assert "store.notify->store" in out[1]["observed_edges"]
 
 
 def test_repl_dir_answers_501(tmp_path):
